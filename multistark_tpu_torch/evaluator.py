@@ -1,0 +1,101 @@
+"""Graph evaluation: one dense forward sweep, generic over the working
+algebra (the counterpart of multistark_tpu/evaluator.py).
+
+Each node becomes one whole-column tensor op.  `TorchAlgebra` mirrors the
+JAX package's `DeviceAlgebra`: base-field tensors over all rows at once,
+with every op going through K1 (fields/device.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from .fields import device as fd
+from .graph import ConstraintGraph
+
+
+def sweep(graph: ConstraintGraph, alg, limit: Optional[int] = None) -> list:
+    """Dense forward sweep over nodes[:limit]."""
+    buf = []
+    for op in graph.nodes[:limit]:
+        kind = op[0]
+        if kind == "c":
+            buf.append(alg.const(op[1]))
+        elif kind == "v":
+            buf.append(alg.var(op[1], op[2], op[3]))
+        elif kind == "p":
+            buf.append(alg.public(op[1]))
+        elif kind == "first":
+            buf.append(alg.first())
+        elif kind == "last":
+            buf.append(alg.last())
+        elif kind == "trans":
+            buf.append(alg.transition())
+        elif kind == "add":
+            buf.append(alg.add(buf[op[1]], buf[op[2]]))
+        elif kind == "sub":
+            buf.append(alg.sub(buf[op[1]], buf[op[2]]))
+        elif kind == "mul":
+            buf.append(alg.mul(buf[op[1]], buf[op[2]]))
+        elif kind == "neg":
+            buf.append(alg.neg(buf[op[1]]))
+        else:
+            raise ValueError(kind)
+    return buf
+
+
+def sweep_lookup_prefix(graph: ConstraintGraph, alg) -> list:
+    """Partial evaluation of the lookup prefix."""
+    return sweep(graph, alg, limit=graph.lookup_end)
+
+
+def constraint_values(graph: ConstraintGraph, buf: list) -> list:
+    return [buf[i] for i in graph.zeros]
+
+
+def lookup_values(graph: ConstraintGraph, buf: list) -> List[Tuple[object, tuple]]:
+    return [(buf[m], tuple(buf[a] for a in args)) for m, args in graph.lookups]
+
+
+class TorchAlgebra:
+    """Whole-column evaluation over the base field on one device.
+
+    `var_provider(source, column, offset)` returns a (n,) tensor; selectors
+    are (n,) tensors; publics and constants are shape-() tensors that the
+    ops broadcast."""
+
+    def __init__(self, device, var_provider, publics, selectors):
+        self.device = device
+        self._var = var_provider
+        self._publics = publics
+        self._sel = selectors
+
+    def const(self, v: int):
+        return fd.const(v, self.device)
+
+    def var(self, source, column, offset):
+        return self._var(source, column, offset)
+
+    def public(self, index):
+        return self._publics(index)
+
+    def first(self):
+        return self._sel["first"]
+
+    def last(self):
+        return self._sel["last"]
+
+    def transition(self):
+        return self._sel["transition"]
+
+    def add(self, a, b):
+        return fd.add(a, b)
+
+    def sub(self, a, b):
+        return fd.sub(a, b)
+
+    def mul(self, a, b):
+        return fd.mul(a, b)
+
+    def neg(self, a):
+        return fd.neg(a)

@@ -1,0 +1,105 @@
+"""BLAKE3 on the host: the native C helper built from the repository's
+csrc/b3.c, and the BLAKE3 constants the tensor half shares.
+
+This is the host half of multistark_tpu.hash.blake3, split out so that
+nothing here imports JAX.  The Fiat-Shamir challenger (hashing, grinding)
+and the claims accumulator use it; the tensor half (row hashing and Merkle
+compression, kernel K3) is multistark_tpu_torch.hash.blake3.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_NATIVE: Optional[ctypes.CDLL] = None
+
+_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_BUILD_DIR = os.path.join(_REPO_DIR, "build", "torch_kernels")
+
+
+def _native_lib() -> ctypes.CDLL:
+    """Build (once, when csrc/b3.c is newer than the library) and load the
+    host C helper into build/torch_kernels/.  Raises if it cannot be built:
+    the transcript at 2^18 claims is not worth running in pure Python."""
+    global _NATIVE
+    if _NATIVE is not None:
+        return _NATIVE
+    src = os.path.join(_REPO_DIR, "csrc", "b3.c")
+    so = os.path.join(_BUILD_DIR, "libmsb3.so")
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"  # concurrent builders each rename atomically
+        subprocess.run(
+            ["cc", "-O2", "-shared", "-fPIC", "-o", tmp, src],
+            check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    lib.msb3_hash.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8)]
+    lib.msb3_hash.restype = None
+    lib.msb3_grind.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64,
+    ]
+    lib.msb3_grind.restype = ctypes.c_uint64
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.msb3_hash_batch.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, u32p,
+    ]
+    lib.msb3_hash_batch.restype = None
+    lib.msgl_claims_acc2.argtypes = [
+        u64p, ctypes.c_uint64, ctypes.c_uint64, u64p, u64p, u64p, u64p,
+    ]
+    lib.msgl_claims_acc2.restype = ctypes.c_int
+    _NATIVE = lib
+    return lib
+
+
+IV = (
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+)
+MSG_PERM = (2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8)
+
+CHUNK_START = 1 << 0
+CHUNK_END = 1 << 1
+PARENT = 1 << 2
+ROOT = 1 << 3
+
+CHUNK_LEN = 1024
+BLOCK_LEN = 64
+
+
+def _left_len(n_chunks: int) -> int:
+    """Largest power-of-two number of chunks strictly less than the total."""
+    p = 1
+    while p * 2 < n_chunks:
+        p *= 2
+    return p
+
+
+def blake3_hash(data: bytes) -> bytes:
+    """Full BLAKE3 hash, 32-byte output, through the native C helper."""
+    out = (ctypes.c_uint8 * 32)()
+    _native_lib().msb3_hash(data, len(data), out)
+    return bytes(out)
+
+
+def native_hash_words(words: np.ndarray):
+    """Full BLAKE3 of each row of (B, W) uint32 words -> (B, 8) digests,
+    through the native C helper."""
+    lib = _native_lib()
+    words = np.ascontiguousarray(words, np.uint32)
+    B, W = words.shape
+    out = np.empty((B, 8), np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.msb3_hash_batch(
+        words.ctypes.data_as(ctypes.c_char_p), W * 4, W * 4, B,
+        out.ctypes.data_as(u32p),
+    )
+    return out

@@ -1,0 +1,180 @@
+"""Build, load and count the port's four hand-written CUDA kernels.
+
+All four sources under csrc/ compile with nvcc into one shared library with
+a plain C interface, loaded with ctypes.  The build runs at first use into
+build/torch_kernels/ (listed in .gitignore) and again whenever a source is
+newer than the library.  Nothing here runs at import: the CPU tests import
+every module on a machine without nvcc.
+
+Each kernel is a `CudaKernel` whose `launches` counter rises by one each
+time one of its C entry points is launched, and only there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import subprocess
+import time
+from typing import Dict, Optional
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "libmstorch_kernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_vp, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
+
+# C entry point -> argument types (the stream is always the last c_void_p)
+_SIGNATURES = {
+    "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
+    "ntt_stage": [_vp, _i64, _i32, _i32, _vp, _i32, _vp],
+    "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
+    "b3_compress_pairs": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
+    "gls_scan_tile": [_i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
+    "gls_scan_addback": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
+    "gls_sum_tile": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "gls_row_inv": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "gls_binv_finish": [_i32, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
+def nvcc_path() -> str:
+    """CUDA_HOME's nvcc (default /usr/local/cuda), else the one on PATH."""
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return cand if os.path.exists(cand) else "nvcc"
+
+
+def build(force: bool = False) -> float:
+    """Compile csrc/*.cu into the shared library if it is missing or stale;
+    returns the seconds spent compiling (0 if nothing was built).  Raises
+    CalledProcessError with nvcc's output if the build fails."""
+    if not (force or _stale()):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise subprocess.CalledProcessError(
+            proc.returncode, proc.args, output=proc.stdout, stderr=proc.stderr
+        )
+    os.replace(tmp, LIB_PATH)
+    return time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """The dispatch rule of every kernel wrapper: True for a CUDA tensor
+    (launch the kernel), False for a CPU tensor (its plain PyTorch version);
+    any other device raises.  Never falls back from CUDA to the plain path."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def current_stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+class CudaKernel:
+    """One hand-written kernel: its source, the TPU program it replaces, and
+    a count of its launches."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, entry: str, *args) -> None:
+        """Call C entry point `entry` on the current stream; raise on a CUDA
+        error code."""
+        rc = getattr(library(), entry)(*args, current_stream())
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: {entry} failed with cudaError_t {rc}")
+        self.launches += 1
+
+
+GL_ARITH = CudaKernel(
+    "gl_arith", "multistark_tpu_torch/csrc/gl_arith.cu",
+    "multistark_tpu/fields/device.py:129",
+)
+NTT_STAGE = CudaKernel(
+    "ntt_stage", "multistark_tpu_torch/csrc/ntt_stage.cu",
+    "multistark_tpu/ntt/ntt.py:405",
+)
+BLAKE3_MERKLE = CudaKernel(
+    "blake3_merkle", "multistark_tpu_torch/csrc/blake3_merkle.cu",
+    "multistark_tpu/hash/blake3.py:222",
+)
+GL_SCAN = CudaKernel(
+    "gl_scan", "multistark_tpu_torch/csrc/gl_scan.cu",
+    "multistark_tpu/utils.py:219",
+)
+KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Validate kernel operands: int64 (or int32 digests), contiguous, on
+    one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+        if t.dtype not in (torch.int64, torch.int32):
+            raise TypeError(f"kernel operand of dtype {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operand must be contiguous")

@@ -1,0 +1,155 @@
+"""Mixed-height Merkle-tree batch commitment (MMCS) over tensors.
+
+The counterpart of multistark_tpu/merkle.py: one tree over a batch of
+matrices of power-of-two heights; the leaf layer hashes the rows of all the
+tallest matrices, and shorter matrices are *injected* when the digest layer
+reaches their height:  layer' = compress(compress(left, right), hash(rows)).
+The commitment is a cap of 2^cap_height digests; an opening returns the
+per-matrix rows (at index >> (log_max - log_h)) and the sibling path up to
+the cap.
+
+Digest layers are (h, 8) int32 tensors (row i = node i's eight u32 words),
+so the children of node i are rows 2i and 2i+1 and a layer's even and odd
+rows feed `compress_pairs` as strided views.  Hashing runs through K3
+(hash/blake3.py); gathers for openings are plain tensor indexing.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .hash.blake3 import compress_pairs, hash_rows
+
+
+class Blake3FieldHasher:
+    """Hash field-matrix rows with BLAKE3 over u64-LE serialization
+    (p3 SerializingHasher convention)."""
+
+    def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
+        return hash_rows(mats)
+
+    def compress(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        return compress_pairs(left, right)
+
+
+def digest_layer_to_np(layer: torch.Tensor) -> np.ndarray:
+    """An (h, 8) int32 digest layer -> (h, 8) uint32 numpy."""
+    return layer.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+@dataclass
+class MerkleProverData:
+    """Device-resident tree: committed matrices + all digest layers."""
+
+    mats: List[torch.Tensor]  # (w, n) int64 matrices in submission order
+    dims: List[Tuple[int, int]]  # (width, height) per matrix
+    layers: List[torch.Tensor]  # layers[0] = leaves; each (h, 8) int32
+    log_max: int
+
+
+@dataclass
+class BatchOpening:
+    """One opened index: per-matrix rows (u64 numpy) + sibling path."""
+
+    opened_rows: List[np.ndarray]
+    path: np.ndarray  # (log_max - cap_height, 8) uint32
+
+
+class MerkleMmcs:
+    def __init__(self, hasher, cap_height: int = 0):
+        self.hasher = hasher
+        self.cap_height = cap_height
+
+    def commit(self, mats: Sequence[torch.Tensor]) -> Tuple[np.ndarray, MerkleProverData]:
+        """mats: (w, n) int64 matrices, power-of-two heights.  Returns
+        (cap (2^cap_height, 8) uint32 numpy, prover data)."""
+        dims = [(int(m.shape[0]), int(m.shape[1])) for m in mats]
+        heights = sorted({h for _, h in dims}, reverse=True)
+        for h in heights:
+            if h & (h - 1):
+                raise ValueError(f"height {h} not a power of two")
+        max_h = heights[0]
+        if max_h < (1 << self.cap_height):
+            raise ValueError("cap larger than tree")
+        # matrices shorter than the cap would never be injected into a digest
+        # (the compress loop stops at the cap), silently unbinding their data
+        # -- reject the combination loudly
+        if heights[-1] < (1 << self.cap_height):
+            raise ValueError(
+                f"matrix height {heights[-1]} below cap size {1 << self.cap_height}: "
+                "sub-cap matrices are not bound by the commitment"
+            )
+        layers = self._commit_impl(mats, dims)
+        data = MerkleProverData(
+            mats=list(mats), dims=dims, layers=layers, log_max=max_h.bit_length() - 1
+        )
+        return digest_layer_to_np(layers[-1]), data
+
+    def _commit_impl(self, mats, dims) -> List[torch.Tensor]:
+        heights = sorted({h for _, h in dims}, reverse=True)
+        by_height: Dict[int, list] = {h: [m for m, (_, mh) in zip(mats, dims) if mh == h] for h in heights}
+        layer = self.hasher.hash_matrices(by_height[heights[0]])
+        layers = [layer]
+        size = heights[0]
+        while size > (1 << self.cap_height):
+            size >>= 1
+            layer = self.hasher.compress(layer[0::2], layer[1::2])
+            if size in by_height:
+                layer = self.hasher.compress(layer, self.hasher.hash_matrices(by_height[size]))
+            layers.append(layer)
+        return layers
+
+    # -- open (device gathers, one host transfer, host assembly) -----------
+    def gather_many(self, datas: Sequence[MerkleProverData], indices_list) -> list:
+        """Sibling paths and opened rows of many trees at their query
+        indices, gathered on the device and fetched to the host in ONE
+        transfer.  Returns per tree (sibs (path_len, Q, 8) uint32,
+        rows: per matrix (w, Q) uint64)."""
+        parts: List[torch.Tensor] = []
+        shapes = []
+        for data, ix in zip(datas, indices_list):
+            dev = data.layers[0].device
+            idx = torch.as_tensor(np.asarray(ix, np.int64), device=dev)
+            path_len = data.log_max - self.cap_height
+            sibs = [data.layers[lv].index_select(0, (idx >> lv) ^ 1) for lv in range(path_len)]
+            sib = torch.stack(sibs) if sibs else torch.zeros((0, len(ix), 8), dtype=torch.int32, device=dev)
+            parts.append(sib.reshape(-1))
+            rows = []
+            for m, (_, h) in zip(data.mats, data.dims):
+                r = m.index_select(1, idx >> (data.log_max - (h.bit_length() - 1)))
+                parts.append(r.reshape(-1).view(torch.int32))
+                rows.append(tuple(r.shape))
+            shapes.append((tuple(sib.shape), rows))
+        flat = torch.cat(parts).cpu().numpy().view(np.uint32) if parts else np.zeros(0, np.uint32)
+        out, off = [], 0
+        for sib_shape, row_shapes in shapes:
+            k = int(np.prod(sib_shape))
+            sib = flat[off : off + k].reshape(sib_shape)
+            off += k
+            rows = []
+            for shp in row_shapes:
+                k = 2 * int(np.prod(shp))
+                rows.append(flat[off : off + k].view(np.uint64).reshape(shp))
+                off += k
+            out.append((sib, rows))
+        return out
+
+    def assemble(self, data: MerkleProverData, n_queries: int, fetched) -> List[BatchOpening]:
+        """Per-query openings from one tree's fetched gathers."""
+        sib, rows = fetched
+        return [
+            BatchOpening(
+                opened_rows=[r[:, qi] for r in rows],
+                path=np.ascontiguousarray(sib[:, qi]),
+            )
+            for qi in range(n_queries)
+        ]
+
+    def open_batch(self, data: MerkleProverData, indices) -> List[BatchOpening]:
+        """Open all `indices` (leaf-level, < 2^log_max) in one pass."""
+        return self.assemble(data, len(indices), self.gather_many([data], [indices])[0])

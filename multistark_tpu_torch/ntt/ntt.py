@@ -1,0 +1,150 @@
+"""Batched radix-2 NTT / low-degree extension: kernel K2 (ntt_stage).
+
+Layout conventions (the protocol's storage conventions, as in
+multistark_tpu/ntt/ntt.py):
+
+  - matrices are (width, n) int64 tensors: row w = polynomial w
+  - committed LDEs are stored in *bit-reversed* order, so that FRI fold
+    partners (x, -x) are adjacent and the restriction of an LDE to a
+    same-shift sub-coset is a stored *prefix* (`prefix_to_natural`)
+  - DIF maps natural input to bit-reversed output; DIT on bit-reversed
+    input gives natural output
+
+A transform runs one `ntt_stage_` launch per butterfly stage on a copy of
+its input.  The coset scale and n^-1 go through K1 (one mul by a host-built
+table); bit reversal and zero padding are plain tensor indexing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from .. import kernels
+from ..fields import device as fd
+from ..fields.host import GOLDILOCKS
+from ..fields.npref import gl_mul, np_powers
+from ..utils import bit_reverse_indices
+
+
+def _stage_plain_(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
+    rows, n = x.shape
+    half = tw.shape[0]
+    xr = x.view(rows, n // (2 * half), 2, half)
+    a, b = xr[:, :, 0, :], xr[:, :, 1, :]
+    if dif:
+        lo, hi = fd.add_plain(a, b), fd.mul_plain(fd.sub_plain(a, b), tw)
+    else:
+        t = fd.mul_plain(b, tw)
+        lo, hi = fd.add_plain(a, t), fd.sub_plain(a, t)
+    xr[:, :, 0, :] = lo
+    xr[:, :, 1, :] = hi
+
+
+def ntt_stage_(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
+    """One butterfly stage over a contiguous (rows, n) tensor, IN PLACE
+    (each butterfly reads and writes only its own pair, so no second buffer
+    is needed).  `tw` holds the stage's 2^k twiddles [w^0 .. w^(half-1)]."""
+    if x.dim() != 2 or not x.is_contiguous() or x.dtype != torch.int64:
+        raise ValueError("ntt_stage_ takes a contiguous (rows, n) int64 tensor")
+    rows, n = x.shape
+    half = tw.shape[0]
+    if n & (n - 1) or half & (half - 1) or 2 * half > n:
+        raise ValueError(f"bad stage geometry n={n} half={half}")
+    if not kernels.use_kernel(x):
+        _stage_plain_(x, tw, dif)
+        return
+    kernels.check_cuda(x, tw)
+    kernels.NTT_STAGE.launch(
+        "ntt_stage", kernels.ptr(x), rows, n.bit_length() - 1, half.bit_length() - 1,
+        kernels.ptr(tw), int(dif),
+    )
+
+
+class NttEngine:
+    """Twiddle and index caches + the public transforms, for one device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.host = GOLDILOCKS
+        self._stages: Dict[Tuple[int, bool], torch.Tensor] = {}
+        self._brev: Dict[int, torch.Tensor] = {}
+        self._scales: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+    # -- caches -----------------------------------------------------------
+    def stage_table(self, s: int, inverse: bool) -> torch.Tensor:
+        """Twiddles of butterfly stage s (blocks of 2^s): [w^0 .. w^(2^(s-1)-1)]
+        with w the canonical generator of order 2^s (inverted for inverse
+        transforms) -- the same table for every transform size."""
+        key = (s, inverse)
+        if key not in self._stages:
+            w = self.host.two_adic_generator(s)
+            if inverse:
+                w = self.host.inv(w)
+            self._stages[key] = fd.from_np(np_powers(self.host, w, 1 << (s - 1)), self.device)
+        return self._stages[key]
+
+    def brev(self, log_n: int) -> torch.Tensor:
+        if log_n not in self._brev:
+            self._brev[log_n] = torch.from_numpy(bit_reverse_indices(log_n)).to(self.device)
+        return self._brev[log_n]
+
+    def scale_table(self, log_n: int, shift: int, scale: int = 1) -> torch.Tensor:
+        """[scale·shift^i for i < 2^log_n] (host-built once, device-cached)."""
+        key = (log_n, shift % self.host.p, scale % self.host.p)
+        if key not in self._scales:
+            tab = gl_mul(np_powers(self.host, shift, 1 << log_n), scale % self.host.p)
+            self._scales[key] = fd.from_np(tab, self.device)
+        return self._scales[key]
+
+    # -- butterfly passes -------------------------------------------------
+    def _dif(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+        x = x.reshape(-1, 1 << log_n).clone()
+        for s in range(log_n, 0, -1):
+            ntt_stage_(x, self.stage_table(s, inverse), dif=True)
+        return x
+
+    def _dit(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+        x = x.reshape(-1, 1 << log_n).clone()
+        for s in range(1, log_n + 1):
+            ntt_stage_(x, self.stage_table(s, inverse), dif=False)
+        return x
+
+    def _unbrev(self, x: torch.Tensor, log_n: int) -> torch.Tensor:
+        return x.index_select(-1, self.brev(log_n))
+
+    # -- public transforms ------------------------------------------------
+    def icoset_from_natural(self, evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
+        """natural evals on shift·H -> natural coeffs."""
+        out = self._dit(self._unbrev(evals, log_n), log_n, inverse=True)
+        n_inv = self.host.inv((1 << log_n) % self.host.p)
+        tab = self.scale_table(log_n, self.host.inv(shift), n_inv)
+        return fd.mul(out, tab).reshape(evals.shape)
+
+    def coset_lde_bitrev(self, evals: torch.Tensor, log_n: int, log_blowup: int, shift: int) -> torch.Tensor:
+        """(w, n) evals on the subgroup H_n -> evals on shift·H_N
+        (N = n·2^log_blowup), bit-reversed: iDFT (DIF, bit-reversed
+        coefficients), un-reverse, scale by n^-1·shift^i, zero-pad, DIF."""
+        w = evals.shape[0]
+        big = log_n + log_blowup
+        cb = self._dif(evals, log_n, inverse=True)
+        n_inv = self.host.inv((1 << log_n) % self.host.p)
+        co = fd.mul(self._unbrev(cb, log_n), self.scale_table(log_n, shift, n_inv))
+        pad = torch.zeros((w, 1 << big), dtype=torch.int64, device=co.device)
+        pad[:, : 1 << log_n] = co
+        return self._dif(pad, big, inverse=False)
+
+    def lde_bitrev_from_coeffs(self, coeffs: torch.Tensor, log_big: int) -> torch.Tensor:
+        """Zero-extend (w, n) natural coefficients to 2^log_big and evaluate
+        on the unshifted big subgroup, bit-reversed (callers bake any coset
+        shift into the coefficients)."""
+        w, n = coeffs.shape
+        pad = torch.zeros((w, 1 << log_big), dtype=torch.int64, device=coeffs.device)
+        pad[:, :n] = coeffs
+        return self._dif(pad, log_big, inverse=False)
+
+    def prefix_to_natural(self, lde_bitrev: torch.Tensor, log_sub: int) -> torch.Tensor:
+        """First 2^log_sub entries of a bit-reversed LDE = the same-shift
+        sub-coset in bit-reversed order; un-reverse to natural order."""
+        return self._unbrev(lde_bitrev[..., : 1 << log_sub], log_sub)

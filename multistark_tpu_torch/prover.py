@@ -1,0 +1,262 @@
+"""The prover (the counterpart of multistark_tpu/prover.py, host transcript).
+
+Device work happens in the big stages (stage-1 commit, stage-2 lookup
+traces + commit, quotient evaluation + commit, FRI open); the Fiat-Shamir
+challenger runs on the host between them.  The proof bytes are the JAX
+package's, bit for bit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import lookup as lk
+from .challenger import observe_claims as _observe_claims
+from .domains import TwoAdicCoset
+from .evaluator import TorchAlgebra, constraint_values, lookup_values as graph_lookup_values, sweep
+from .expr import Source
+from .fields import device as fd
+from .pcs import FriProof
+from .system import ProverKey, System, SystemWitness
+
+ExtVal = Tuple[int, ...]
+
+
+@dataclass
+class Commitments:
+    stage_1_trace: np.ndarray
+    stage_2_trace: np.ndarray
+    quotient_chunks: np.ndarray
+
+
+@dataclass
+class Proof:
+    active: List[bool]
+    commitments: Commitments
+    intermediate_accumulators: List[ExtVal]
+    log_degrees: List[int]  # per ACTIVE circuit
+    # opened values: per matrix, per point, per column (ext coords)
+    preprocessed_opened: List[List[List[ExtVal]]]
+    stage1_opened: List[List[List[ExtVal]]]
+    stage2_opened: List[List[List[ExtVal]]]
+    quotient_opened: List[List[List[ExtVal]]]
+    fri_proof: FriProof
+
+    def to_bytes(self) -> bytes:
+        from .serialization import proof_to_bytes
+
+        return proof_to_bytes(self)
+
+
+def prove(system: System, key: ProverKey, witness: SystemWitness, claims=None) -> Proof:
+    return prove_multiple_claims(system, key, witness, [] if claims is None else [claims])
+
+
+def prove_multiple_claims(
+    system: System, key: ProverKey, witness: SystemWitness, claims: Sequence[Sequence[int]]
+) -> Proof:
+    config = system.config
+    hf, he = config.host_field, config.host_ext
+    pcs = config.pcs
+
+    ch = config.initialise_challenger()
+    system.observe_shape(ch)
+
+    # activation bitmap, observed before any commitment
+    active = [h > 0 for h in witness.heights]
+    if not any(active):
+        raise ValueError("at least one circuit must be active")
+    for b in active:
+        ch.observe_bytes(bytes([1 if b else 0]))
+    active_idx = [i for i, b in enumerate(active) if b]
+    log_degrees = [witness.heights[i].bit_length() - 1 for i in active_idx]
+
+    # STAGE-1 COMMIT
+    s1_cap, s1_data = pcs.commit(
+        [(pcs.natural_domain_for_degree(witness.heights[i]), witness.traces[i]) for i in active_idx]
+    )
+    if system.preprocessed_commit is not None:
+        ch.observe_commitment(system.preprocessed_commit)
+    ch.observe_commitment(s1_cap)
+    for ld in log_degrees:
+        ch.observe_bytes(bytes([ld]))
+    _observe_claims(ch, claims)  # length-prefixed claims
+
+    beta = ch.sample_ext()
+    gamma = ch.sample_ext()
+    acc0 = lk.claims_accumulator(he, beta, gamma, claims)
+
+    # STAGE-2: lookup traces
+    s2_mats, accs = lk.stage_2_traces(
+        he, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0, config.device
+    )
+    s2_cap, s2_data = pcs.commit(
+        [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
+    )
+    ch.observe_commitment(s2_cap)
+    for a in accs:
+        ch.observe_ext(a)
+
+    alpha = ch.sample_ext()
+
+    # QUOTIENT per active circuit
+    chunk_mats = []
+    for k, i in enumerate(active_idx):
+        acc_prev = acc0 if k == 0 else accs[k - 1]
+        chunk_mats.append(
+            _quotient_chunk_coeffs(
+                system, key, witness, s1_data, s2_data, i, k, beta, gamma, alpha, acc_prev, accs[k],
+            )
+        )
+    q_cap, q_data = pcs.commit_from_coeffs(chunk_mats)
+    ch.observe_commitment(q_cap)
+
+    zeta = ch.sample_ext()
+
+    # opening rounds: preprocessed?, stage1, stage2, quotient
+    rounds = []
+    if key.preprocessed_data is not None:
+        pre_points = []
+        for c_idx, p_idx in enumerate(system.preprocessed_index):
+            if p_idx is None:
+                continue
+            if active[c_idx]:
+                g = hf.two_adic_generator(witness.heights[c_idx].bit_length() - 1)
+                pre_points.append([zeta, he.scale(zeta, g)])
+            else:
+                pre_points.append([])
+        rounds.append((key.preprocessed_data, pre_points))
+    two_pt = []
+    for i in active_idx:
+        g = hf.two_adic_generator(witness.heights[i].bit_length() - 1)
+        two_pt.append([zeta, he.scale(zeta, g)])
+    rounds.append((s1_data, two_pt))
+    rounds.append((s2_data, [list(p) for p in two_pt]))
+    rounds.append((q_data, [[zeta] for _ in active_idx]))
+
+    opened, fri_proof = pcs.open(rounds, ch)
+
+    r = 0
+    pre_opened = []
+    if key.preprocessed_data is not None:
+        pre_opened = opened[0]
+        r = 1
+    return Proof(
+        active=active,
+        commitments=Commitments(s1_cap, s2_cap, q_cap),
+        intermediate_accumulators=list(accs),
+        log_degrees=log_degrees,
+        preprocessed_opened=pre_opened,
+        stage1_opened=opened[r],
+        stage2_opened=opened[r + 1],
+        quotient_opened=opened[r + 2],
+        fri_proof=fri_proof,
+    )
+
+
+def _quotient_chunk_coeffs(
+    system, key, witness, s1_data, s2_data, c_idx, active_ord, beta, gamma, alpha, acc_prev, acc_final,
+) -> torch.Tensor:
+    """Evaluate the α-folded constraint composition on the disjoint quotient
+    domain, divide by Z_H, and return the chunked coefficient matrix
+    (q·D, n) for the quotient commit."""
+    config = system.config
+    hf = config.host_field
+    pcs = config.pcs
+    circuit = system.circuits[c_idx]
+    n = witness.heights[c_idx]
+    log_n = n.bit_length() - 1
+    q = circuit.quotient_degree
+    log_m = log_n + (q.bit_length() - 1)
+    D = config.extension_params.degree
+
+    raw = {
+        Source.MAIN.value: s1_data.mmcs_data.mats[active_ord],
+        Source.STAGE2.value: s2_data.mmcs_data.mats[active_ord],
+    }
+    p_idx = system.preprocessed_index[c_idx]
+    if p_idx is not None:
+        raw[Source.PREPROCESSED.value] = key.preprocessed_data.mmcs_data.mats[p_idx]
+    mats = {src: pcs.engine.prefix_to_natural(mat, log_m) for src, mat in raw.items()}
+    selectors = _selectors_device(system, log_n, q)
+    pubs = tuple(
+        tuple(fd.const(c, config.device) for c in v) for v in (beta, gamma, acc_prev, acc_final)
+    )
+    qmat = _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha)
+    coeffs = pcs.engine.icoset_from_natural(qmat, log_m, hf.generator)  # (D, m)
+    # chunk i·D + d = coordinate d of coefficients [i·n, (i+1)·n)
+    return coeffs.reshape(D, q, n).permute(1, 0, 2).reshape(q * D, n).contiguous()
+
+
+def _selectors_device(system, log_n: int, q: int) -> dict:
+    """The trace domain's unnormalized selectors on the quotient coset
+    (natural order), built on the device through K1 and cached on the system:
+    with v = x/shift,  first = Z_H/(v-1), last = Z_H/(v-g^-1),
+    transition = v - g^-1, inv_vanishing = 1/Z_H, where Z_H = v^n - 1 has
+    period q over the coset."""
+    key = (log_n, q)
+    if key not in system.selector_cache:
+        config = system.config
+        hf, dev = config.host_field, config.device
+        trace_dom = TwoAdicCoset(hf, log_n, 1)
+        qdom = trace_dom.create_disjoint_domain((1 << log_n) * q)
+        v = config.pcs.x_table_natural(qdom.log_n, hf.mul(qdom.shift, hf.inv(trace_dom.shift)))
+        n = 1 << log_n
+        head = [hf.sub(hf.pow(int(x), n), 1) for x in fd.to_np(v[:q])]
+        z_h = fd.from_np(np.tile(np.asarray(head, np.uint64), n), dev)
+        inv_z_h = fd.from_np(np.tile(np.asarray([hf.inv(h) for h in head], np.uint64), n), dev)
+        g_inv = fd.const(hf.inv(trace_dom.gen), dev)
+        trans = fd.sub(v, g_inv)
+        system.selector_cache[key] = {
+            "first": fd.mul(z_h, fd.inv(fd.sub(v, fd.const(1, dev)))),
+            "last": fd.mul(z_h, fd.inv(trans)),
+            "transition": trans,
+            "inv_vanishing": inv_z_h,
+        }
+    return system.selector_cache[key]
+
+
+def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha) -> torch.Tensor:
+    """The constraint sweep + α-fold + Z_H division on the quotient domain,
+    returning the (D, m) composition (natural order)."""
+    hf, he = config.host_field, config.host_ext
+    ep = config.extension_params
+    D = ep.degree
+    dev = config.device
+
+    def var_provider(source, col, offset):
+        colv = mats[source][col]
+        return torch.roll(colv, -q) if offset == 1 else colv  # next row: g_n = G_m^q
+
+    def publics(idx):
+        return pubs[idx // D][idx % D]
+
+    alg = TorchAlgebra(dev, var_provider, publics, selectors)
+    buf = sweep(circuit.graph, alg)
+    values = list(constraint_values(circuit.graph, buf))
+    logup_vals = lk.logup_constraint_values(
+        alg, ep, hf, circuit.num_lookups,
+        lambda col, off: var_provider(Source.STAGE2.value, col, off),
+        graph_lookup_values(circuit.graph, buf), selectors["last"], pubs, log_n,
+    )
+    for lv in logup_vals:
+        values.extend(lv)
+    if len(values) != circuit.constraint_count:
+        raise AssertionError("constraint count mismatch")
+
+    # α-fold: value i gets α^(K-1-i) (Horner order on the verifier side)
+    K = len(values)
+    apows = [he.one]
+    for _ in range(K - 1):
+        apows.append(he.mul(apows[-1], alpha))
+    coords = [fd.const(0, dev) for _ in range(D)]
+    for i, v in enumerate(values):
+        ap = apows[K - 1 - i]
+        for d in range(D):
+            coords[d] = fd.add(coords[d], fd.mul(v, fd.const(ap[d], dev)))
+    inv_van = selectors["inv_vanishing"]
+    return torch.stack([fd.mul(c, inv_van) for c in coords])

@@ -1,0 +1,71 @@
+"""K4 (gl_scan): the port's batch inverse, mod-p sum and prefix sum on CPU
+tensors against the JAX package's utils (_batch_inv_impl, field_sum,
+cumsum), bit-exact, for base and GL2 values, zeros included."""
+
+import numpy as np
+import pytest
+
+from multistark_tpu import utils as jax_utils
+from multistark_tpu.fields.device import GL2_OPS, GL_OPS
+from multistark_tpu_torch import utils
+from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.host import GOLDILOCKS
+
+SIZES = [1, 5, 300]
+
+
+def _base(n, seed, rows=2):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, GOLDILOCKS.p, (rows, n), dtype=np.uint64)
+    x[0, :: max(1, n // 3)] = 0  # zeros map to zero in the batch inverse
+    return x
+
+
+def _ext(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, GOLDILOCKS.p, (n, 2), dtype=np.uint64)
+    x[:: max(1, n // 4)] = 0
+    x[1 % n, 1] = 5  # a nonzero element with a zero base coordinate
+    return x
+
+
+def _te(x):  # (n, 2) host -> (2, n) tensor
+    return fd.from_np(np.ascontiguousarray(x.T), "cpu")
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_base_batch_inverse_matches_jax(n):
+    x = _base(n, n)
+    want = np.stack([GL_OPS.to_np(jax_utils._batch_inv_impl(GL_OPS, GL_OPS.from_np(row))) for row in x])
+    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(fd.from_np(x, "cpu"), ext=False)), want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ext_batch_inverse_matches_jax(n):
+    x = _ext(n, n)
+    want = GL2_OPS.to_np(jax_utils._batch_inv_impl(GL2_OPS, GL2_OPS.from_np(x), axis=0))
+    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(_te(x), ext=True)).T, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sum_and_cumsum_match_jax(n):
+    x = _base(n, 10 + n, rows=3)
+    jx = GL_OPS.from_np(x)
+    np.testing.assert_array_equal(
+        fd.to_np(utils.field_sum(fd.from_np(x, "cpu"))), GL_OPS.to_np(jax_utils.field_sum(GL_OPS, jx, axis=-1))
+    )
+    np.testing.assert_array_equal(
+        fd.to_np(utils.cumsum(fd.from_np(x, "cpu"))), GL_OPS.to_np(jax_utils.cumsum(GL_OPS, jx, axis=-1))
+    )
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ext_sum_and_cumsum_match_jax(n):
+    x = _ext(n, 20 + n)
+    jx = GL2_OPS.from_np(x)
+    np.testing.assert_array_equal(
+        fd.to_np(utils.field_sum(_te(x))), GL2_OPS.to_np(jax_utils.field_sum(GL2_OPS, jx, axis=0))
+    )
+    np.testing.assert_array_equal(
+        fd.to_np(utils.cumsum(_te(x))).T, GL2_OPS.to_np(jax_utils.cumsum(GL2_OPS, jx, axis=0))
+    )
