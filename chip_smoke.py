@@ -8,20 +8,25 @@ without printing a result:
 
   1. device  -- torch.cuda must be available; prints the card's name and
                 its `nvidia-smi` name and power limit
-  2. build   -- compiles the four CUDA kernels from csrc/ (nvcc, sm_90a)
+  2. build   -- compiles the six CUDA kernels from csrc/ (one nvcc per
+                source, all at once, then one link; sm_90a)
   3. kernels -- each kernel against its plain PyTorch version on the card,
-                at the main path's shapes; outputs must be bit-equal (all
-                arithmetic is exact mod p); warm CUDA-event times of both
+                at the main paths' shapes, for Goldilocks and BabyBear;
+                outputs must be bit-equal (all arithmetic is exact mod p);
+                warm CUDA-event times of both
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
-                GoldilocksBlake3Config, blowup 4, 100 queries, arity 2,
-                PoW 10+10, bench.py's witness) at 2^14 and 2^18 rows on
-                `cuda`; proof bytes must match the JAX package's golden
-                sha256 and length (fixtures/torch_port_golden.json); warm
-                prove seconds and peak device memory; every kernel's launch
-                count over the proves must be above zero
+                blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
+                witness) at 2^14 and 2^18 rows on `cuda`, under
+                GoldilocksBlake3Config and then BabyBearPoseidon2Config;
+                proof bytes must match the JAX package's golden sha256 and
+                length (fixtures/torch_port_golden.json); warm prove
+                seconds and peak device memory.  The launch counts are set
+                to 0 before each config's path and read after it; every
+                kernel of that path must have launched
 
-Then a JSON line of per-kernel results, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.
+Then a JSON line of per-kernel results (with each kernel's bound: the least
+time the card could take for the same work), the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -36,6 +41,24 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZES = (14, 18)
 WITNESS_SEED = 0xDEADBEEF  # bench.py u32_add_case
+# each config's main path and the kernels it must launch
+PATHS = {
+    "goldilocks_blake3": ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan"),
+    "babybear_poseidon2": ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan"),
+}
+# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s,
+# and 32-bit operations/s on the CUDA cores (the float32 non-tensor rate;
+# integer instructions run no faster, so this gives the least time)
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
+# 32-bit integer operations counted per modular multiplication (the 32x32
+# partial products and the reduction's multiplies), per BLAKE3 compression
+# (7 rounds x 8 G functions x 14 add/xor/rotate) and per Poseidon2
+# permutation (772 BabyBear multiplications: 141 x^7 S-boxes of 4 and the
+# 13 x 16 internal diagonal products)
+OPS_PER_MUL = {"Goldilocks": 12, "BabyBear": 6}
+OPS_PER_BLAKE3 = 7 * 8 * 14
+OPS_PER_POSEIDON2 = 772 * OPS_PER_MUL["BabyBear"]
 
 
 def say(phase: str, msg: str) -> None:
@@ -74,129 +97,161 @@ def max_abs_err(a, b) -> float:
     return float((u64(a) - u64(b)).abs().max().item())
 
 
+def bound(n_bytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version at main-path shapes.
-    Returns {kernel name: (max_abs_err, ms, plain_ms)}."""
+    Returns {kernel name: row of the kernels line} for one representative
+    call per kernel."""
     import numpy as np
     import torch
 
-    from multistark_tpu_torch.fields import device as fd
-    from multistark_tpu_torch.hash import blake3 as b3
-    from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs
-    from multistark_tpu_torch.ntt import ntt as nt
     from multistark_tpu_torch import utils
+    from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
+    from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
+    from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
+    from multistark_tpu_torch.ntt import ntt as nt
 
     rng = np.random.default_rng(1)
 
-    def rnd(*shape):
-        return fd.from_np(rng.integers(0, fd.P, shape, dtype=np.uint64), dev)
+    def rnd(F, *shape):
+        return F.from_np(rng.integers(0, F.p, shape, dtype=np.uint64), dev)
 
-    results = {}
+    rows = {}
 
-    def compare(label, kernel_fn, plain_fn, iters=5, plain_iters=1):
+    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None):
+        """cost: (bytes the function must move, 32-bit integer operations)."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
-        say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        bound_ms, bound_by = bound(*cost)
+        say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
         if err != 0:
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
-        return err, ms, plain_ms
+        if name is not None:  # no single PyTorch call computes any of these mod p: library_ms is null
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": None}
 
-    # K1: the quotient-domain and reduced-opening field ops at 2^18 rows
     m = 1 << 20
-    a, b = rnd(m), rnd(m)
-    ea, eb = rnd(2, m), rnd(2, m)
-    compare("gl_arith mul (2^20,)", lambda: fd.mul(a, b), lambda: fd.mul_plain(a, b))
-    compare("gl_arith add (2^20,)", lambda: fd.add(a, b), lambda: fd.add_plain(a, b))
-    compare("gl_arith inv (2^18,)", lambda: fd.inv(a[: 1 << 18]), lambda: fd.inv_plain(a[: 1 << 18]))
-    compare("gl_arith ext_inv (2, 2^16)", lambda: fd.ext_inv(ea[:, : 1 << 16]),
-            lambda: fd.ext_inv_plain(ea[:, : 1 << 16]))
-    results["gl_arith"] = compare(
-        "gl_arith ext_mul (2, 2^20)", lambda: fd.ext_mul(ea, eb), lambda: fd.ext_mul_plain(ea, eb)
-    )
+    lde_w, lde_log = 14, 20  # the stage-1 LDE of 2^18 rows at blowup 4
+    for F, E, arith in ((GL_OPS, GL2_OPS, "gl_arith"), (BB_OPS, BB4_OPS, "bb_arith")):
+        D, mul_ops = E.D, OPS_PER_MUL[F.name]
+        inv_muls = (F.p - 2).bit_length() + bin(F.p - 2).count("1")  # Fermat square-and-multiply
+        ext_muls = D * D + D * (D - 1) // 2  # schoolbook products and the X^D = W wraps
+        ext_inv_muls = (3 if D == 2 else 2 * ext_muls + 4) + inv_muls  # the norm map, then one base inverse
+        # K1 / K5: the quotient-domain and reduced-opening field ops at 2^18 rows
+        a, b = rnd(F, m), rnd(F, m)
+        ea, eb = rnd(F, D, m), rnd(F, D, m)
+        k, k2 = 1 << 18, 1 << 16
+        compare(f"{arith} mul (2^20,)", lambda: F.mul(a, b), lambda: F.mul_plain(a, b), (24 * m, mul_ops * m))
+        compare(f"{arith} add (2^20,)", lambda: F.add(a, b), lambda: F.add_plain(a, b), (24 * m, 2 * m))
+        compare(f"{arith} inv (2^18,)", lambda: F.inv(a[:k]), lambda: F.inv_plain(a[:k]),
+                (16 * k, inv_muls * mul_ops * k))
+        compare(f"{arith} ext_inv ({D}, 2^16)", lambda: E.inv(ea[:, :k2]), lambda: E.inv_plain(ea[:, :k2]),
+                (16 * D * k2, ext_inv_muls * mul_ops * k2))
+        compare(f"{arith} ext_mul ({D}, 2^20)", lambda: E.mul(ea, eb), lambda: E.mul_plain(ea, eb),
+                (3 * 8 * D * m, ext_muls * mul_ops * m), name=arith)
 
-    # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages
-    lde = rnd(14, 1 << 20)
-    tables = [nt.NttEngine(dev).stage_table(s, False) for s in range(1, 21)]
+        # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages
+        lde = rnd(F, lde_w, 1 << lde_log)
+        tables = [nt.NttEngine(F, F.host, dev).stage_table(s, False) for s in range(1, lde_log + 1)]
 
-    def dif(stage):
-        def run():
-            x = lde.clone()
-            for tw in reversed(tables):
-                stage(x, tw, True)
-            return x
-        return run
+        def dif(stage):
+            def run():
+                x = lde.clone()
+                for tw in reversed(tables):
+                    stage(F, x, tw, True)
+                return x
+            return run
 
-    results["ntt_stage"] = compare("ntt_stage DIF (14, 2^20)", dif(nt.ntt_stage_), dif(nt._stage_plain_))
-    compare("ntt_stage DIT (14, 2^18)",
-            lambda: _dit(nt.ntt_stage_, lde[:, : 1 << 18].contiguous(), tables[:18]),
-            lambda: _dit(nt._stage_plain_, lde[:, : 1 << 18].contiguous(), tables[:18]))
+        n_lde, n18 = lde_w << lde_log, lde_w << 18
+        compare(f"ntt_stage {F.name} DIF (14, 2^20)", dif(nt.ntt_stage_), dif(nt._stage_plain_),
+                (16 * n_lde + 8 * (1 << lde_log), mul_ops * lde_log * n_lde // 2),
+                name="ntt_stage" if F is GL_OPS else None)
+        compare(f"ntt_stage {F.name} DIT (14, 2^18)",
+                lambda: _dit(F, nt.ntt_stage_, lde[:, : 1 << 18].contiguous(), tables[:18]),
+                lambda: _dit(F, nt._stage_plain_, lde[:, : 1 << 18].contiguous(), tables[:18]),
+                (16 * n18 + 8 * (1 << 18), mul_ops * 18 * n18 // 2))
 
-    # K3: leaf hashing of the stage-1 and stage-2 LDE widths, a 2^20-leaf tree
-    s2 = rnd(26, 1 << 20)
-    results["blake3_merkle"] = compare(
-        "blake3_merkle hash_rows (14, 2^20)", lambda: b3.hash_rows([lde]), lambda: b3.hash_rows_plain([lde])
-    )
-    compare("blake3_merkle hash_rows (26, 2^20)", lambda: b3.hash_rows([s2]), lambda: b3.hash_rows_plain([s2]))
-    leaves = b3.hash_rows([lde])
-    compare("blake3_merkle compress_pairs 2^19 nodes",
-            lambda: b3.compress_pairs(leaves[0::2], leaves[1::2]),
-            lambda: b3.compress_pairs_plain(leaves[0::2], leaves[1::2]))
-    mmcs = MerkleMmcs(Blake3FieldHasher(), 0)
-    t0 = time.perf_counter()
-    cap, _ = mmcs.commit([lde])
-    torch.cuda.synchronize()
-    say("kernels", f"blake3_merkle 2^20-leaf tree commit: {1e3 * (time.perf_counter() - t0):.2f} ms")
-    ref = leaves
-    while ref.shape[0] > 1:
-        ref = b3.compress_pairs_plain(ref[0::2], ref[1::2])
-    if not np.array_equal(cap, ref.cpu().numpy().view(np.uint32)):
-        raise AssertionError("2^20-leaf tree root disagrees with the plain version")
+        # K4: the stage-2 chain over 13 slots of 2^18 rows
+        chain = rnd(F, D, 13 << 18)
+        chain[:, 5] = 0  # zero maps to zero
+        compare(f"gl_scan {E.name} cumsum ({D}, 13·2^18)", lambda: utils.cumsum(chain, E),
+                lambda: utils.cumsum_plain(chain, E), (16 * chain.numel(), 2 * chain.numel()))
+        compare(f"gl_scan {F.name} field_sum (14, 2^18)", lambda: utils.field_sum(lde[:, : 1 << 18], F),
+                lambda: utils.field_sum_plain(lde[:, : 1 << 18], F), (8 * n18 + 8 * lde_w, 2 * n18))
+        compare(f"gl_scan {E.name} batch_inv ({D}, 13·2^18)", lambda: utils.batch_inv(chain, E),
+                lambda: utils.batch_inv_plain(chain, E),
+                (16 * chain.numel(), 3 * ext_muls * mul_ops * (13 << 18)), iters=3,
+                name="gl_scan" if F is GL_OPS else None)
 
-    # K4: the stage-2 chain over n·13 ext values at 2^18 rows
-    chain = rnd(2, 13 << 18)
-    chain[:, 5] = 0  # zero maps to zero
-    compare("gl_scan cumsum (2, 13·2^18)", lambda: utils.cumsum(chain), lambda: utils.cumsum_plain(chain))
-    compare("gl_scan field_sum (14, 2^18)", lambda: utils.field_sum(lde[:, : 1 << 18]),
-            lambda: utils.field_sum_plain(lde[:, : 1 << 18]))
-    results["gl_scan"] = compare(
-        "gl_scan batch_inv (2, 13·2^18)", lambda: utils.batch_inv(chain, ext=True),
-        lambda: utils.batch_inv_plain(chain, True), iters=3,
-    )
-    return results
+        # K3 / K6: leaf hashing of the stage-1 LDE, a 2^20-leaf tree
+        if F is GL_OPS:
+            hasher, mod, hname, per_hash = Blake3FieldHasher(), b3, "blake3_merkle", OPS_PER_BLAKE3
+            blocks = -(-(8 * lde_w) // 64)
+        else:
+            hasher, mod, hname, per_hash = Poseidon2FieldHasher(), p2, "poseidon2_merkle", OPS_PER_POSEIDON2
+            blocks = -(-lde_w // 8)
+        compare(f"{hname} hash_rows (14, 2^20)", lambda: mod.hash_rows([lde]), lambda: mod.hash_rows_plain([lde]),
+                (8 * n_lde + 32 * (1 << lde_log), blocks * per_hash * (1 << lde_log)), name=hname)
+        if F is GL_OPS:
+            s2 = rnd(F, 26, 1 << 20)
+            compare("blake3_merkle hash_rows (26, 2^20)", lambda: b3.hash_rows([s2]), lambda: b3.hash_rows_plain([s2]),
+                    (8 * 26 * m + 32 * m, 4 * per_hash * m))
+        leaves = mod.hash_rows([lde])
+        compare(f"{hname} compress_pairs 2^19 nodes",
+                lambda: mod.compress_pairs(leaves[0::2], leaves[1::2]),
+                lambda: mod.compress_pairs_plain(leaves[0::2], leaves[1::2]), (96 * (m // 2), per_hash * (m // 2)))
+        mmcs = MerkleMmcs(hasher, 0)
+        t0 = time.perf_counter()
+        cap, _ = mmcs.commit([lde])
+        torch.cuda.synchronize()
+        say("kernels", f"{hname} 2^20-leaf tree commit: {1e3 * (time.perf_counter() - t0):.2f} ms")
+        ref = leaves
+        while ref.shape[0] > 1:
+            ref = mod.compress_pairs_plain(ref[0::2], ref[1::2])
+        if not np.array_equal(cap, ref.cpu().numpy().view(np.uint32)):
+            raise AssertionError(f"{hname}: 2^20-leaf tree root disagrees with the plain version")
+    return rows
 
 
-def _dit(stage, x, tables):
+def _dit(F, stage, x, tables):
     x = x.clone()
     for tw in tables:
-        stage(x, tw, False)
+        stage(F, x, tw, False)
     return x
 
 
-def prove_sizes(dev):
-    """Phase 4: the bench workload on the card; returns the launch counts of
-    the proves."""
+def prove_sizes(dev, config_name: str):
+    """Phase 4: the bench workload on the card under one config; returns the
+    launch counts of that path (set to 0 just before it, read just after)."""
     import numpy as np
     import torch
 
     import multistark_tpu_torch as mt
     from multistark_tpu_torch import kernels
     from multistark_tpu_torch.config import CommitmentParameters, FriParameters
-    from multistark_tpu_torch.configs import GoldilocksBlake3Config
+    from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
     from multistark_tpu_torch.prover import prove_multiple_claims
     from multistark_tpu_torch.system import System, SystemWitness
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs, u32_add_witness
 
     with open(os.path.join(ROOT, "fixtures", "torch_port_golden.json")) as f:
-        golden = json.load(f)
-    config = GoldilocksBlake3Config(
+        golden = json.load(f)[config_name]
+    cls = {"goldilocks_blake3": GoldilocksBlake3Config, "babybear_poseidon2": BabyBearPoseidon2Config}[config_name]
+    config = cls(
         CommitmentParameters(log_blowup=2, cap_height=0),
         FriParameters(log_final_poly_len=0, max_log_arity=1, num_queries=100,
                       commit_proof_of_work_bits=10, query_proof_of_work_bits=10),
         device=dev,
     )
-    kernels.reset_launch_counts()  # phase 3's comparison launches do not count
+    kernels.reset_launch_counts()  # phase 3's comparison launches and other paths do not count
     system, key = System.new(config, u32_add_system_inputs())
     for log_n in SIZES:
         n = 1 << log_n
@@ -221,16 +276,16 @@ def prove_sizes(dev):
         peak = torch.cuda.max_memory_allocated()
         data = proof.to_bytes()
         got = {"sha256": hashlib.sha256(data).hexdigest(), "n_bytes": len(data)}
-        say("prove", f"log_n={log_n}: witness {t_wit:.3f} s, first prove {t_cold:.3f} s, "
+        say("prove", f"{config_name} log_n={log_n}: witness {t_wit:.3f} s, first prove {t_cold:.3f} s, "
             f"warm prove {t_warm:.4f} s, peak device memory {peak / 2**20:.1f} MiB, "
             f"proof {got['n_bytes']} bytes sha256 {got['sha256']}")
         if got != golden[str(log_n)]:
-            raise AssertionError(f"log_n={log_n}: proof {got} != JAX golden {golden[str(log_n)]}")
+            raise AssertionError(f"{config_name} log_n={log_n}: proof {got} != JAX golden {golden[str(log_n)]}")
     counts = kernels.launch_counts()
-    say("prove", f"kernel launches over the proves: {counts}")
-    idle = [k for k, v in counts.items() if v <= 0]
+    say("prove", f"{config_name} kernel launches over the path: {counts}")
+    idle = [k for k in PATHS[config_name] if counts[k] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"{config_name}: kernels never launched on its path: {idle}")
     return counts
 
 
@@ -242,6 +297,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from multistark_tpu_torch import kernels
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = subprocess.run(
@@ -256,15 +312,16 @@ def main() -> int:
     say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
 
     checked = check_kernels(dev)
-    counts = prove_sizes(dev)
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    for config_name in PATHS:
+        for name, count in prove_sizes(dev, config_name).items():
+            launches[name] += count
 
     rows = []
     for k in kernels.KERNELS:
-        err, ms, plain_ms = checked[k.name]
-        rows.append({
-            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": counts[k.name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        })
+        rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                     "launches": launches[k.name], **checked[k.name]})
+    say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

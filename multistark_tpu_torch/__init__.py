@@ -2,13 +2,16 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of `multistark_tpu` (the JAX package, which stays the reference): the
-same modules and layouts, the same transcript, the same proof bytes.  Field
-elements are int64 tensors holding canonical u64 Goldilocks values; on a
-CUDA device all field arithmetic, NTT butterflies, BLAKE3 hashing and
-scans run in four kernels built from csrc/ at first use (kernels.py), and on
-the CPU in their plain PyTorch versions.  This package never imports JAX.
+same modules and layouts, the same transcript, the same proof bytes, for
+both of its configs: GoldilocksBlake3Config (Goldilocks, GL2, BLAKE3) and
+BabyBearPoseidon2Config (BabyBear, BB4, Poseidon2).  Field elements are
+int64 tensors holding canonical values; on a CUDA device all field
+arithmetic, NTT butterflies, Merkle hashing and scans run in six kernels
+built from csrc/ at first use (kernels.py), and on the CPU in their plain
+PyTorch versions.  The configs run on "cuda" unless asked for "cpu".  This
+package never imports JAX.
 
-    config = GoldilocksBlake3Config(commit_params, fri_params, device="cuda")
+    config = GoldilocksBlake3Config(commit_params, fri_params)  # device="cuda"
     system, key = System.new(config, u32_add_system_inputs())
     traces, claims = witness_from_numpy(traces_np, claims_np, config.device)
     witness = SystemWitness.from_stage_1(traces, system, key)
@@ -28,10 +31,11 @@ from .config import CommitmentParameters, FriParameters  # noqa: F401
 def witness_from_numpy(traces: Sequence[np.ndarray], claims, device) -> Tuple[List[torch.Tensor], np.ndarray]:
     """The JAX package's witness (per circuit a (height, width) uint64 trace,
     and the claims) as the port takes it: traces as int64 tensors on
-    `device` holding the same u64 bit patterns, claims as an (n, L) uint64
-    numpy array (the transcript runs on the host)."""
-    from .fields.device import from_np
+    `device` holding the same u64 bit patterns (SystemWitness.from_stage_1
+    makes them field elements), claims as an (n, L) uint64 numpy array (the
+    transcript runs on the host)."""
+    from .fields.device import from_u64
 
-    out = [from_np(np.asarray(t, np.uint64).reshape(np.shape(t)), device) for t in traces]
+    out = [from_u64(np.asarray(t, np.uint64).reshape(np.shape(t)), device) for t in traces]
     claims_np = np.asarray(claims, np.uint64) if len(claims) else np.zeros((0, 0), np.uint64)
     return out, claims_np

@@ -9,6 +9,9 @@ Equivalent of p3-challenger (reference src/types.rs:10-13, 28-81):
     back as chaining input; sample pops from the end of the output buffer).
   - ``SerializingChallenger64``: field adapter over the byte challenger —
     u64 little-endian observation, rejection-sampled canonical field draws.
+  - ``DuplexChallenger``: field-native sponge challenger for the Poseidon2
+    config (p3 DuplexChallenger<F, Perm, 16, 8>), its permutation, bulk
+    absorb and grind in the host C helper (csrc/host/poseidon2.c).
   - deterministic grinding: sequential witness search from 0, so a 0-bit
     grind returns witness 0 — run-to-run proof determinism (the reference's
     DeterministicPow wrapper, src/types.rs:31-81).
@@ -16,12 +19,15 @@ Equivalent of p3-challenger (reference src/types.rs:10-13, 28-81):
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from .fields.host import HostExtField, HostField
 from .hash.blake3_host import blake3_hash
+from .hash.poseidon2_host import CONSTANTS_U32, u32_ptr as _u32p
+from .native import lib as native_lib
 
 
 def _claims_array(claims) -> np.ndarray:
@@ -197,11 +203,143 @@ class SerializingChallenger64:
     def _grind_batch(self, bits: int):
         """The native helper's search over the first 256·2^bits witnesses;
         None if it found none or the prefix exceeds its 4 KiB buffer."""
-        from .hash.blake3_host import _native_lib
-
         prefix = bytes(self.inner.input_buffer)
-        w = _native_lib().msb3_grind(prefix, len(prefix), 0, 256 << bits, bits, self.F.p)
+        w = native_lib().msb3_grind(prefix, len(prefix), 0, 256 << bits, bits, self.F.p)
         return None if w == (1 << 64) - 1 else int(w)
+
+    def check_witness(self, bits: int, witness: int) -> bool:
+        self.observe_field(witness)
+        return self.sample_bits(bits) == 0
+
+
+class DuplexChallenger:
+    """Field-native sponge challenger (p3 DuplexChallenger<F, Perm, 16, 8>)
+    over the Poseidon2 permutation, with the JAX package's semantics
+    (multistark_tpu/challenger.py DuplexChallenger):
+
+      - observing a value clears the output buffer and appends the value
+        (mod p) to the input buffer; a full buffer of RATE values
+        overwrites the first RATE lanes of the state and permutes;
+      - sampling with pending input (or an empty output buffer) does the
+        same duplex, and pops from the END of the output buffer (lanes
+        0..7 after the permutation);
+      - observe_u64 is two 32-bit limbs (lo, hi); observe_bytes one field
+        element per byte (TranscriptProfile.duplex_observe_bytes);
+      - a commitment's digest words are observed one field element each.
+
+    The state is a uint32 array; the permutation, the bulk absorb of the
+    claims and the grind run in the host C helper."""
+
+    WIDTH = 16
+    RATE = 8
+
+    def __init__(self, field: HostField, ext: HostExtField):
+        self.F = field
+        self.E = ext
+        self._consts = _u32p(CONSTANTS_U32)
+        self.state = np.zeros(self.WIDTH, np.uint32)
+        self.input_buffer: List[int] = []
+        self.output_buffer: List[int] = []
+
+    def clone(self) -> "DuplexChallenger":
+        c = DuplexChallenger(self.F, self.E)
+        c.state = self.state.copy()
+        c.input_buffer = list(self.input_buffer)
+        c.output_buffer = list(self.output_buffer)
+        return c
+
+    def _duplex(self) -> None:
+        self.state[: len(self.input_buffer)] = self.input_buffer
+        self.input_buffer.clear()
+        native_lib().msp2_permute(_u32p(self.state), self._consts)
+        self.output_buffer = [int(x) for x in self.state[: self.RATE]]
+
+    # -- observation ------------------------------------------------------
+    def observe_field(self, v: int) -> None:
+        self.output_buffer.clear()
+        self.input_buffer.append(int(v) % self.F.p)
+        if len(self.input_buffer) == self.RATE:
+            self._duplex()
+
+    def observe_u64(self, v: int) -> None:
+        # two 32-bit limbs (lo, hi), injective for any 31-bit field
+        self.observe_field(int(v) & 0xFFFFFFFF)
+        self.observe_field(int(v) >> 32)
+
+    def observe_ext(self, v: Sequence[int]) -> None:
+        for c in v:
+            self.observe_field(c)
+
+    def observe_commitment(self, cap: np.ndarray) -> None:
+        """Poseidon2 commitments are field-element digests: (k, 8) canonical."""
+        for row in np.atleast_2d(cap):
+            for w in row:
+                self.observe_field(int(w))
+
+    def observe_bytes(self, data: bytes) -> None:
+        for b in data:
+            self.observe_field(b)
+
+    def _observe_values(self, vals: np.ndarray) -> None:
+        """observe_field of each canonical value in order, in one C pass."""
+        vals = np.ascontiguousarray(vals, np.uint32).reshape(-1)
+        if vals.size == 0:
+            return
+        buf = np.zeros(self.RATE, np.uint32)
+        buf[: len(self.input_buffer)] = self.input_buffer
+        in_len = ctypes.c_uint32(len(self.input_buffer))
+        duplexed = native_lib().msp2_absorb(
+            _u32p(self.state), _u32p(buf), ctypes.byref(in_len), _u32p(vals), vals.size, self._consts,
+        )
+        self.input_buffer = [int(x) for x in buf[: in_len.value]]
+        self.output_buffer = [int(x) for x in self.state[: self.RATE]] if duplexed else []
+
+    def observe_claims(self, claims) -> None:
+        """Length-prefixed claims, the same field sequence as the
+        per-element loop of `observe_claims` (u64(len) as two limbs, then
+        each value mod p), absorbed in one C pass for homogeneous claim
+        lists (the bench has one claim per trace row)."""
+        self.observe_u64(len(claims))
+        arr = _canonical_claims_array(claims, self.F.p)
+        if arr is not None:
+            L = arr.shape[1]
+            buf = np.empty((arr.shape[0], L + 2), np.uint32)
+            buf[:, 0], buf[:, 1] = L & 0xFFFFFFFF, L >> 32
+            buf[:, 2:] = arr
+            self._observe_values(buf)
+            return
+        for claim in claims:
+            self.observe_u64(len(claim))
+            for v in claim:
+                self.observe_field(int(v))
+
+    # -- sampling ---------------------------------------------------------
+    def sample_field(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._duplex()
+        return self.output_buffer.pop()
+
+    def sample_ext(self) -> Tuple[int, ...]:
+        return tuple(self.sample_field() for _ in range(self.E.D))
+
+    def sample_bits(self, bits: int) -> int:
+        return self.sample_field() & ((1 << bits) - 1)
+
+    # -- grinding (deterministic: the smallest passing witness) -----------
+    def grind(self, bits: int) -> int:
+        """The smallest witness w such that observing w and sampling gives
+        `bits` zero low bits, searched by the C helper; then observed and
+        checked here, as the sequential search would leave the state."""
+        buf = np.zeros(self.RATE, np.uint32)
+        buf[: len(self.input_buffer)] = self.input_buffer
+        w = native_lib().msp2_grind(
+            _u32p(self.state), _u32p(buf), len(self.input_buffer), bits, 1 << min(bits + 8, 40), self._consts,
+        )
+        if w == (1 << 64) - 1:
+            raise RuntimeError(f"no {bits}-bit proof-of-work witness found")
+        ok = self.check_witness(bits, int(w))
+        assert ok
+        return int(w)
 
     def check_witness(self, bits: int, witness: int) -> bool:
         self.observe_field(witness)

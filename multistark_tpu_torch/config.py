@@ -2,7 +2,8 @@
 
 A concrete config bundles: field ops (host + device), extension params, hash
 kernels, challenger factory, and the PCS.  See configs/goldilocks_blake3.py
-for the production instantiation, the only one ported so far.
+for the production instantiation and configs/babybear_poseidon2.py for the
+second genericity axis (BabyBear, degree-4 extension, Poseidon2).
 """
 
 from __future__ import annotations
@@ -21,10 +22,16 @@ class TranscriptProfile:
     commit_pow_witness_placement (serialization.py FriProof layout):
         the Vec<u64> of commit-phase PoW witnesses sits directly after
         commit_phase_commits
+    duplex_observe_bytes (challenger.DuplexChallenger.observe_bytes):
+        a field-native duplex observes each byte as one field element
+    poseidon2_constants (hash/poseidon2_host.py):
+        None: the Poseidon2 round constants are the self-derived ones
     """
 
     fri_observe_claims_before_alpha = True
     commit_pow_witness_placement = "after_commits"
+    duplex_observe_bytes = "field_per_byte"
+    poseidon2_constants = None
 
 
 @dataclass(frozen=True)
@@ -74,6 +81,7 @@ class StarkConfig:
     src/config.rs:64-123).  Concrete configs are plain objects exposing:
 
       device       : the torch device every prover tensor lives on
+      field, ext   : the tensor field ops F and E (fields/device.py)
       host_field   : HostField
       host_ext     : HostExtField
       pcs          : the PCS instance (commit/commit_from_coeffs/open)

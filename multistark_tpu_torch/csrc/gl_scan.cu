@@ -1,10 +1,12 @@
 // K4 gl_scan: mod-p scans and reductions along the last axis of a
-// (rows, n) batch of Goldilocks or GL2 values.
+// (rows, n) batch of Goldilocks / GL2 or BabyBear / BB4 values.
 //
 // Replaces multistark_tpu/utils.py _batch_inv_impl (Montgomery-trick batch
 // inverse: prefix and suffix product scans plus one inversion, zero -> zero),
 // cumsum (inclusive mod-p prefix sum: the logUp accumulator chain) and
-// field_sum (mod-p sum).
+// field_sum (mod-p sum), which the JAX package runs over GL_OPS/GL2_OPS and
+// BB_OPS/BB4_OPS alike.  One templated body serves both fields and both
+// extension degrees through the field traits (field.cuh).
 //
 // Bound on the card: memory, and for short rows launch count.  Design: a
 // block scans or reduces a tile of TILE = THREADS * ITEMS elements (each
@@ -17,9 +19,9 @@
 // coalesced: a transposed tile load through shared memory is the first
 // optimisation to make.
 //
-// Extension values are coordinate-major: coordinate 1 of an element sits
-// `cs` words after coordinate 0.
-#include "goldilocks.cuh"
+// Extension values are coordinate-major: coordinate d of an element sits
+// d * cs words after coordinate 0.
+#include "field.cuh"
 
 namespace {
 
@@ -27,6 +29,7 @@ constexpr int THREADS = 256;
 constexpr int ITEMS = 8;
 constexpr int64_t TILE = (int64_t)THREADS * ITEMS;
 
+template <class Fld>
 struct Base {
   uint64_t v;
   static __device__ __forceinline__ Base load(const uint64_t* p, int64_t i, int64_t) { return {p[i]}; }
@@ -34,24 +37,39 @@ struct Base {
   static __device__ __forceinline__ Base zero() { return {0}; }
   static __device__ __forceinline__ Base one() { return {1}; }
   __device__ __forceinline__ bool is_zero() const { return v == 0; }
-  static __device__ __forceinline__ Base add(Base a, Base b) { return {gl::add(a.v, b.v)}; }
-  static __device__ __forceinline__ Base mul(Base a, Base b) { return {gl::mul(a.v, b.v)}; }
-  static __device__ __forceinline__ Base inv(Base a) { return {gl::inv(a.v)}; }
+  static __device__ __forceinline__ Base add(Base a, Base b) { return {Fld::add(a.v, b.v)}; }
+  static __device__ __forceinline__ Base mul(Base a, Base b) { return {Fld::mul(a.v, b.v)}; }
+  static __device__ __forceinline__ Base inv(Base a) { return {finv<Fld>(a.v)}; }
 };
 
-struct Ext {
-  gl::Ext2 v;
-  static __device__ __forceinline__ Ext load(const uint64_t* p, int64_t i, int64_t cs) { return {{p[i], p[cs + i]}}; }
-  __device__ __forceinline__ void store(uint64_t* p, int64_t i, int64_t cs) const {
-    p[i] = v.c0;
-    p[cs + i] = v.c1;
+template <class Fld>
+struct ExtV {
+  Ext<Fld> v;
+  static __device__ __forceinline__ ExtV load(const uint64_t* p, int64_t i, int64_t cs) {
+    ExtV r;
+#pragma unroll
+    for (int d = 0; d < Fld::D; d++) r.v.c[d] = p[d * cs + i];
+    return r;
   }
-  static __device__ __forceinline__ Ext zero() { return {{0, 0}}; }
-  static __device__ __forceinline__ Ext one() { return {{1, 0}}; }
-  __device__ __forceinline__ bool is_zero() const { return gl::ext_is_zero(v); }
-  static __device__ __forceinline__ Ext add(Ext a, Ext b) { return {gl::ext_add(a.v, b.v)}; }
-  static __device__ __forceinline__ Ext mul(Ext a, Ext b) { return {gl::ext_mul(a.v, b.v)}; }
-  static __device__ __forceinline__ Ext inv(Ext a) { return {gl::ext_inv(a.v)}; }
+  __device__ __forceinline__ void store(uint64_t* p, int64_t i, int64_t cs) const {
+#pragma unroll
+    for (int d = 0; d < Fld::D; d++) p[d * cs + i] = v.c[d];
+  }
+  static __device__ __forceinline__ ExtV zero() {
+    ExtV r;
+#pragma unroll
+    for (int d = 0; d < Fld::D; d++) r.v.c[d] = 0;
+    return r;
+  }
+  static __device__ __forceinline__ ExtV one() {
+    ExtV r = zero();
+    r.v.c[0] = 1;
+    return r;
+  }
+  __device__ __forceinline__ bool is_zero() const { return ext_is_zero<Fld>(v); }
+  static __device__ __forceinline__ ExtV add(ExtV a, ExtV b) { return {ext_add<Fld>(a.v, b.v)}; }
+  static __device__ __forceinline__ ExtV mul(ExtV a, ExtV b) { return {ext_mul<Fld>(a.v, b.v)}; }
+  static __device__ __forceinline__ ExtV inv(ExtV a) { return {ext_inv<Fld>(a.v)}; }
 };
 
 enum Combine : int { ADD = 0, MUL = 1, MUL_NONZERO = 2 };  // MUL_NONZERO reads 0 as 1
@@ -175,66 +193,58 @@ __global__ void row_inv_kernel(const uint64_t* __restrict__ pre, int64_t cs_ps, 
 
 dim3 tile_grid(int64_t rows, int64_t n) { return dim3((unsigned)((n + TILE - 1) / TILE), (unsigned)rows); }
 
+unsigned flat_blocks(int64_t count) {
+  int64_t blocks = (count + THREADS - 1) / THREADS;
+  return (unsigned)(blocks > (1 << 20) ? (1 << 20) : blocks);
+}
+
 }  // namespace
+
+// Launch KERNEL<T> with T the element type of (field, ext): field 0
+// Goldilocks, 1 BabyBear; ext 0 base, 1 extension.
+#define GLS_DISPATCH(KERNEL, GRID, ...)                                                   \
+  do {                                                                                    \
+    if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;                     \
+    if (field == 0 && ext) KERNEL<ExtV<Goldilocks>><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__); \
+    if (field == 0 && !ext) KERNEL<Base<Goldilocks>><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__); \
+    if (field == 1 && ext) KERNEL<ExtV<BabyBear>><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__);    \
+    if (field == 1 && !ext) KERNEL<Base<BabyBear>><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__);   \
+    return (int)cudaGetLastError();                                                       \
+  } while (0)
 
 extern "C" {
 
 // Tile-local inclusive scan with combine c (0 add, 1 mul, 2 mul reading 0
 // as 1); writes tot as a (rows, ceil(n / TILE)) array.
-int gls_scan_tile(int ext, const uint64_t* in, int64_t cs_in, uint64_t* out, int64_t cs_out, uint64_t* tot,
-                  int64_t cs_tot, int64_t rows, int64_t n, int c, int reverse, cudaStream_t stream) {
+int gls_scan_tile(int field, int ext, const uint64_t* in, int64_t cs_in, uint64_t* out, int64_t cs_out,
+                  uint64_t* tot, int64_t cs_tot, int64_t rows, int64_t n, int c, int reverse, cudaStream_t stream) {
   if (rows <= 0 || n <= 0) return 0;
-  if (ext)
-    scan_tile_kernel<Ext><<<tile_grid(rows, n), THREADS, 0, stream>>>(in, cs_in, out, cs_out, tot, cs_tot, n, c, reverse);
-  else
-    scan_tile_kernel<Base><<<tile_grid(rows, n), THREADS, 0, stream>>>(in, cs_in, out, cs_out, tot, cs_tot, n, c, reverse);
-  return (int)cudaGetLastError();
+  GLS_DISPATCH(scan_tile_kernel, tile_grid(rows, n), in, cs_in, out, cs_out, tot, cs_tot, n, c, reverse);
 }
 
-int gls_scan_addback(int ext, uint64_t* out, int64_t cs_out, const uint64_t* tot, int64_t cs_tot, int64_t rows,
-                     int64_t n, int c, int reverse, cudaStream_t stream) {
+int gls_scan_addback(int field, int ext, uint64_t* out, int64_t cs_out, const uint64_t* tot, int64_t cs_tot,
+                     int64_t rows, int64_t n, int c, int reverse, cudaStream_t stream) {
   if (rows <= 0 || n <= TILE) return 0;
-  if (ext)
-    scan_addback_kernel<Ext><<<tile_grid(rows, n), THREADS, 0, stream>>>(out, cs_out, tot, cs_tot, n, c, reverse);
-  else
-    scan_addback_kernel<Base><<<tile_grid(rows, n), THREADS, 0, stream>>>(out, cs_out, tot, cs_tot, n, c, reverse);
-  return (int)cudaGetLastError();
+  GLS_DISPATCH(scan_addback_kernel, tile_grid(rows, n), out, cs_out, tot, cs_tot, n, c, reverse);
 }
 
-int gls_sum_tile(int ext, const uint64_t* in, int64_t cs_in, uint64_t* tot, int64_t cs_tot, int64_t rows, int64_t n,
-                 cudaStream_t stream) {
+int gls_sum_tile(int field, int ext, const uint64_t* in, int64_t cs_in, uint64_t* tot, int64_t cs_tot,
+                 int64_t rows, int64_t n, cudaStream_t stream) {
   if (rows <= 0 || n <= 0) return 0;
-  if (ext)
-    sum_tile_kernel<Ext><<<tile_grid(rows, n), THREADS, 0, stream>>>(in, cs_in, tot, cs_tot, n);
-  else
-    sum_tile_kernel<Base><<<tile_grid(rows, n), THREADS, 0, stream>>>(in, cs_in, tot, cs_tot, n);
-  return (int)cudaGetLastError();
+  GLS_DISPATCH(sum_tile_kernel, tile_grid(rows, n), in, cs_in, tot, cs_tot, n);
 }
 
-int gls_row_inv(int ext, const uint64_t* pre, int64_t cs_ps, uint64_t* tinv, int64_t cs_t, int64_t rows, int64_t n,
-                cudaStream_t stream) {
+int gls_row_inv(int field, int ext, const uint64_t* pre, int64_t cs_ps, uint64_t* tinv, int64_t cs_t,
+                int64_t rows, int64_t n, cudaStream_t stream) {
   if (rows <= 0 || n <= 0) return 0;
-  const unsigned blocks = (unsigned)((rows + THREADS - 1) / THREADS);
-  if (ext)
-    row_inv_kernel<Ext><<<blocks, THREADS, 0, stream>>>(pre, cs_ps, tinv, cs_t, rows, n);
-  else
-    row_inv_kernel<Base><<<blocks, THREADS, 0, stream>>>(pre, cs_ps, tinv, cs_t, rows, n);
-  return (int)cudaGetLastError();
+  GLS_DISPATCH(row_inv_kernel, flat_blocks(rows), pre, cs_ps, tinv, cs_t, rows, n);
 }
 
-int gls_binv_finish(int ext, const uint64_t* x, int64_t cs_x, const uint64_t* pre, const uint64_t* suf, int64_t cs_ps,
-                    const uint64_t* tinv, int64_t cs_t, uint64_t* out, int64_t cs_out, int64_t rows, int64_t n,
-                    cudaStream_t stream) {
+int gls_binv_finish(int field, int ext, const uint64_t* x, int64_t cs_x, const uint64_t* pre, const uint64_t* suf,
+                    int64_t cs_ps, const uint64_t* tinv, int64_t cs_t, uint64_t* out, int64_t cs_out, int64_t rows,
+                    int64_t n, cudaStream_t stream) {
   if (rows <= 0 || n <= 0) return 0;
-  int64_t blocks = (rows * n + THREADS - 1) / THREADS;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  if (ext)
-    binv_finish_kernel<Ext><<<(unsigned)blocks, THREADS, 0, stream>>>(x, cs_x, pre, suf, cs_ps, tinv, cs_t, out,
-                                                                      cs_out, rows, n);
-  else
-    binv_finish_kernel<Base><<<(unsigned)blocks, THREADS, 0, stream>>>(x, cs_x, pre, suf, cs_ps, tinv, cs_t, out,
-                                                                       cs_out, rows, n);
-  return (int)cudaGetLastError();
+  GLS_DISPATCH(binv_finish_kernel, flat_blocks(rows * n), x, cs_x, pre, suf, cs_ps, tinv, cs_t, out, cs_out, rows, n);
 }
 
 }  // extern "C"

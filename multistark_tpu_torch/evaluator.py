@@ -3,14 +3,14 @@ algebra (the counterpart of multistark_tpu/evaluator.py).
 
 Each node becomes one whole-column tensor op.  `TorchAlgebra` mirrors the
 JAX package's `DeviceAlgebra`: base-field tensors over all rows at once,
-with every op going through K1 (fields/device.py).
+with every op going through the config's field ops (fields/device.py: K1
+for Goldilocks, K5 for BabyBear).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-from .fields import device as fd
 from .graph import ConstraintGraph
 
 
@@ -58,20 +58,21 @@ def lookup_values(graph: ConstraintGraph, buf: list) -> List[Tuple[object, tuple
 
 
 class TorchAlgebra:
-    """Whole-column evaluation over the base field on one device.
+    """Whole-column evaluation over the base field F on one device.
 
     `var_provider(source, column, offset)` returns a (n,) tensor; selectors
     are (n,) tensors; publics and constants are shape-() tensors that the
     ops broadcast."""
 
-    def __init__(self, device, var_provider, publics, selectors):
+    def __init__(self, F, device, var_provider, publics, selectors):
+        self.F = F
         self.device = device
         self._var = var_provider
         self._publics = publics
         self._sel = selectors
 
     def const(self, v: int):
-        return fd.const(v, self.device)
+        return self.F.const(v, self.device)
 
     def var(self, source, column, offset):
         return self._var(source, column, offset)
@@ -89,13 +90,13 @@ class TorchAlgebra:
         return self._sel["transition"]
 
     def add(self, a, b):
-        return fd.add(a, b)
+        return self.F.add(a, b)
 
     def sub(self, a, b):
-        return fd.sub(a, b)
+        return self.F.sub(a, b)
 
     def mul(self, a, b):
-        return fd.mul(a, b)
+        return self.F.mul(a, b)
 
     def neg(self, a):
-        return fd.neg(a)
+        return self.F.neg(a)

@@ -1,2 +1,2 @@
 """Field arithmetic: host scalars (host), NumPy vectors (npref), and
-tensors with kernel K1 (device)."""
+tensors with kernels K1 and K5 (device)."""

@@ -1,18 +1,21 @@
-"""Vectorized NumPy Goldilocks arithmetic on the host.
+"""Vectorized NumPy field arithmetic on the host.
 
 Goldilocks lives in ``uint64`` arrays (full 64x64→128 products via 32-bit
-limb splits, exact in uint64).  Twiddle, coset and selector tables are
-precomputed here before being shipped to the device.
+limb splits, exact in uint64), BabyBear in ``uint64`` too (products of two
+31-bit values are exact).  Twiddle, coset and selector tables are
+precomputed here before being shipped to the device, and the BabyBear claims
+accumulator runs here (`NpField` / `NpExt`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .host import GOLDILOCKS
+from .host import BABYBEAR, GOLDILOCKS
 
 _GL_P = np.uint64(GOLDILOCKS.p)
 _MASK32 = np.uint64(0xFFFFFFFF)
+_BB_P = np.uint64(BABYBEAR.p)
 
 
 # --- Goldilocks --------------------------------------------------------------
@@ -77,14 +80,121 @@ def gl_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return gl_reduce128(*_mul_64_128(a, b))
 
 
+# --- BabyBear ----------------------------------------------------------------
+
+def bb_add(a, b):
+    s = np.asarray(a, np.uint64) + np.asarray(b, np.uint64)
+    return np.where(s >= _BB_P, s - _BB_P, s)
+
+
+def bb_sub(a, b):
+    a = np.asarray(a, np.uint64)
+    b = np.asarray(b, np.uint64)
+    return np.where(a >= b, a - b, a + _BB_P - b)
+
+
+def bb_mul(a, b):
+    # products of two < 2^31 values are exact in uint64
+    return (np.asarray(a, np.uint64) * np.asarray(b, np.uint64)) % _BB_P
+
+
+# --- generic -------------------------------------------------------------------
+
+class NpField:
+    """Vectorized mod-p ops over uint64 ndarrays for one host field."""
+
+    def __init__(self, host):
+        self.host = host
+        self.p = np.uint64(host.p)
+        if host.name == "Goldilocks":
+            self.add, self.sub, self.mul = gl_add, gl_sub, gl_mul
+        elif host.name == "BabyBear":
+            self.add, self.sub, self.mul = bb_add, bb_sub, bb_mul
+        else:
+            raise KeyError(host.name)
+
+    def sum_axis(self, a: np.ndarray, axis: int) -> np.ndarray:
+        """Sum mod p along `axis` by pairwise halving (stays in uint64)."""
+        a = np.moveaxis(np.asarray(a, np.uint64), axis, 0)
+        while a.shape[0] > 1:
+            if a.shape[0] & 1:
+                a = np.concatenate([a, np.zeros((1,) + a.shape[1:], np.uint64)])
+            a = self.add(a[0::2], a[1::2])
+        return a[0]
+
+
+class NpExt:
+    """Vectorized binomial extension F_p[X]/(X^D - W): elements are
+    (..., D) uint64 arrays (coordinate i = coefficient of X^i, matching
+    HostExtField)."""
+
+    def __init__(self, nf: NpField, he):
+        self.nf = nf
+        self.he = he
+        self.D = he.D
+        self.W = np.uint64(he.w % he.base.p)
+
+    def of_scalar(self, a, shape=()) -> np.ndarray:
+        """Host ext tuple -> broadcast (..., D) array."""
+        v = np.asarray([int(c) % self.nf.host.p for c in a], np.uint64)
+        return np.broadcast_to(v, tuple(shape) + (self.D,)).copy()
+
+    def add(self, a, b):
+        return self.nf.add(a, b)
+
+    def mul(self, a, b):
+        """Schoolbook (..., D)x(..., D) with X^D = W wraparound."""
+        nf, D = self.nf, self.D
+        a = np.asarray(a, np.uint64)
+        b = np.asarray(b, np.uint64)
+        out = np.zeros(np.broadcast_shapes(a.shape, b.shape), np.uint64)
+        for i in range(D):
+            for j in range(D):
+                t = nf.mul(a[..., i], b[..., j])
+                k = i + j
+                if k >= D:
+                    k -= D
+                    t = nf.mul(t, self.W)
+                out[..., k] = nf.add(out[..., k], t)
+        return out
+
+    def batch_inv(self, a: np.ndarray) -> np.ndarray:
+        """(Q, D) -> elementwise inverses via a pairwise product tree and one
+        host inversion at the root (Montgomery trick).  Raises
+        ZeroDivisionError on any zero element."""
+        he = self.he
+        one = self.of_scalar(he.one)
+        levels = [a]
+        cur = a
+        while cur.shape[0] > 1:  # reduce up: pairwise products
+            if cur.shape[0] & 1:
+                cur = np.concatenate([cur, one[None]])
+            cur = self.mul(cur[0::2], cur[1::2])
+            levels.append(cur)
+        inv = self.of_scalar(he.inv(tuple(int(c) for c in levels[-1][0])))[None]
+        for lvl in levels[-2::-1]:  # walk down: split each inverse
+            n = lvl.shape[0]
+            even = lvl[0::2]
+            odd = lvl[1::2] if n % 2 == 0 else np.concatenate([lvl[1::2], one[None]])
+            down = np.empty((even.shape[0] * 2, self.D), np.uint64)
+            down[0::2] = self.mul(odd, inv)
+            down[1::2] = self.mul(even, inv)
+            inv = down[:n]
+        return inv
+
+
+def np_mul(host, a, b) -> np.ndarray:
+    """a·b mod p in `host`'s field over uint64 arrays."""
+    return NpField(host).mul(a, b)
+
+
 def np_powers(host, base: int, n: int) -> np.ndarray:
     """[1, base, base^2, ..., base^(n-1)] as uint64 (host precompute,
     O(log n) vectorized doubling passes)."""
-    if host.name != "Goldilocks":
-        raise KeyError(host.name)
+    mul = NpField(host).mul
     out = np.ones(1, np.uint64)
     cur = np.uint64(base % host.p)
     while len(out) < n:
-        out = np.concatenate([out, gl_mul(out, cur)])
-        cur = gl_mul(cur, cur)
+        out = np.concatenate([out, mul(out, cur)])
+        cur = mul(cur, cur)
     return out[:n]

@@ -1,5 +1,5 @@
-"""BLAKE3 on the host: the native C helper built from the repository's
-csrc/b3.c, and the BLAKE3 constants the tensor half shares.
+"""BLAKE3 on the host: the native C helper (csrc/host/b3.c, built by
+native.py), and the BLAKE3 constants the tensor half shares.
 
 This is the host half of multistark_tpu.hash.blake3, split out so that
 nothing here imports JAX.  The Fiat-Shamir challenger (hashing, grinding)
@@ -9,56 +9,10 @@ compression, kernel K3) is multistark_tpu_torch.hash.blake3.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-from typing import Optional
 
 import numpy as np
 
-_NATIVE: Optional[ctypes.CDLL] = None
-
-_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_BUILD_DIR = os.path.join(_REPO_DIR, "build", "torch_kernels")
-
-
-def _native_lib() -> ctypes.CDLL:
-    """Build (once, when csrc/b3.c is newer than the library) and load the
-    host C helper into build/torch_kernels/.  Raises if it cannot be built:
-    the transcript at 2^18 claims is not worth running in pure Python."""
-    global _NATIVE
-    if _NATIVE is not None:
-        return _NATIVE
-    src = os.path.join(_REPO_DIR, "csrc", "b3.c")
-    so = os.path.join(_BUILD_DIR, "libmsb3.so")
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"  # concurrent builders each rename atomically
-        subprocess.run(
-            ["cc", "-O2", "-shared", "-fPIC", "-o", tmp, src],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    lib.msb3_hash.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8)]
-    lib.msb3_hash.restype = None
-    lib.msb3_grind.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
-        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64,
-    ]
-    lib.msb3_grind.restype = ctypes.c_uint64
-    u32p = ctypes.POINTER(ctypes.c_uint32)
-    u64p = ctypes.POINTER(ctypes.c_uint64)
-    lib.msb3_hash_batch.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, u32p,
-    ]
-    lib.msb3_hash_batch.restype = None
-    lib.msgl_claims_acc2.argtypes = [
-        u64p, ctypes.c_uint64, ctypes.c_uint64, u64p, u64p, u64p, u64p,
-    ]
-    lib.msgl_claims_acc2.restype = ctypes.c_int
-    _NATIVE = lib
-    return lib
-
+from ..native import lib as _native_lib
 
 IV = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,

@@ -1,10 +1,11 @@
-"""Build, load and count the port's four hand-written CUDA kernels.
+"""Build, load and count the port's six hand-written CUDA kernels.
 
-All four sources under csrc/ compile with nvcc into one shared library with
+Each source under csrc/ compiles with its own nvcc process (all started
+together) into an object, and the objects link into one shared library with
 a plain C interface, loaded with ctypes.  The build runs at first use into
-build/torch_kernels/ (listed in .gitignore) and again whenever a source is
-newer than the library.  Nothing here runs at import: the CPU tests import
-every module on a machine without nvcc.
+build/torch_kernels/ (listed in .gitignore) and again whenever a source or
+header is newer than the library.  Nothing here runs at import: the CPU
+tests import every module on a machine without nvcc.
 
 Each kernel is a `CudaKernel` whose `launches` counter rises by one each
 time one of its C entry points is launched, and only there.
@@ -25,24 +26,24 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libmstorch_kernels.so")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _vp, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 
 # C entry point -> argument types (the stream is always the last c_void_p)
 _SIGNATURES = {
     "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
-    "ntt_stage": [_vp, _i64, _i32, _i32, _vp, _i32, _vp],
+    "bb_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
+    "ntt_stage": [_i32, _vp, _i64, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
     "b3_compress_pairs": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
-    "gls_scan_tile": [_i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
-    "gls_scan_addback": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
-    "gls_sum_tile": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
-    "gls_row_inv": [_i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
-    "gls_binv_finish": [_i32, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
+    "p2_compress_pairs": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp],
+    "gls_scan_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
+    "gls_scan_addback": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
+    "gls_sum_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "gls_row_inv": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "gls_binv_finish": [_i32, _i32, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -67,23 +68,38 @@ def nvcc_path() -> str:
 
 
 def build(force: bool = False) -> float:
-    """Compile csrc/*.cu into the shared library if it is missing or stale;
-    returns the seconds spent compiling (0 if nothing was built).  Raises
-    CalledProcessError with nvcc's output if the build fails."""
+    """Compile csrc/*.cu into the shared library if it is missing or stale:
+    one nvcc per source, all at once, then one link.  Returns the seconds
+    spent (0 if nothing was built).  Raises CalledProcessError with nvcc's
+    output if a step fails."""
     if not (force or _stale()):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()],
-        capture_output=True, text=True, timeout=900,
-    )
-    if proc.returncode != 0:
-        raise subprocess.CalledProcessError(
-            proc.returncode, proc.args, output=proc.stdout, stderr=proc.stderr
-        )
-    os.replace(tmp, LIB_PATH)
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
+    procs = [
+        subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", o, s],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s, o in zip(sources(), objs)
+    ]
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise subprocess.CalledProcessError(proc.returncode, proc.args, output=out, stderr=err)
+        tmp = f"{LIB_PATH}.{tag}"
+        subprocess.run([nvcc_path(), "-shared", "-o", tmp, *objs], check=True, capture_output=True, text=True,
+                       timeout=900)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return time.perf_counter() - t0
 
 
@@ -151,7 +167,15 @@ GL_SCAN = CudaKernel(
     "gl_scan", "multistark_tpu_torch/csrc/gl_scan.cu",
     "multistark_tpu/utils.py:219",
 )
-KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN)
+BB_ARITH = CudaKernel(
+    "bb_arith", "multistark_tpu_torch/csrc/bb_arith.cu",
+    "multistark_tpu/fields/device.py:208",
+)
+POSEIDON2_MERKLE = CudaKernel(
+    "poseidon2_merkle", "multistark_tpu_torch/csrc/poseidon2_merkle.cu",
+    "multistark_tpu/hash/poseidon2.py:295",
+)
+KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,9 +14,10 @@ Chained accumulators: with m_{r,j} = beta + fingerprint(gamma, args_{r,j}),
   wrap (j=L-1) :  m_{r,L-1}·(acc_{r+1,0} - acc_{r,L-1} - is_last_row·Δ)
                       - mult_{r,L-1} = 0
 
-The stage-2 traces are built on the device: messages through K1, their
-inverses through the K4 batch inverse, the chain through the K4 prefix sum.
-The claims accumulator stays on the host (native C path).
+The stage-2 traces are built on the device: messages through the field's
+elementwise kernel (K1 or K5), their inverses through the K4 batch inverse,
+the chain through the K4 prefix sum.  The claims accumulator stays on the
+host: a native C pass for Goldilocks^2, NumPy for BabyBear^4.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .fields import device as fd
+from .fields.device import ExtOps
 from .fields.host import ExtensionParams, HostExtField, HostField
+from .fields.npref import NpExt, NpField
 from .graph import ConstraintGraph
 from .utils import batch_inv, cumsum
 
@@ -73,13 +75,17 @@ def claims_accumulator(
 ) -> ExtVal:
     """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 on the host.
     Homogeneous claim batches (the bench proves one claim per row) take one
-    native C pass (csrc/b3.c msgl_claims_acc2: Horner fingerprints and a
-    Montgomery batch inverse); short or ragged lists the scalar loop."""
+    vectorized pass: for Goldilocks^2 the native C helper
+    (csrc/host/b3.c msgl_claims_acc2), for BabyBear^4 NumPy (Horner
+    fingerprints and a product-tree batch inverse); short or ragged lists
+    the scalar loop."""
     from .challenger import _canonical_claims_array
 
     vals = _canonical_claims_array(claims, he.base.p)
     if vals is not None:
-        return _claims_accumulator_native(he, beta, gamma, vals)
+        if he.name == "Goldilocks^2":
+            return _claims_accumulator_native(he, beta, gamma, vals)
+        return _claims_accumulator_np(he, beta, gamma, vals)
     acc = he.zero
     for claim in claims:
         fp = fingerprint(he, gamma, [int(v) for v in claim])
@@ -87,12 +93,28 @@ def claims_accumulator(
     return acc
 
 
+def _claims_accumulator_np(he, beta, gamma, vals: np.ndarray) -> ExtVal:
+    """vals: (n, L) canonical uint64 claims.  Raises ZeroDivisionError on a
+    zero denominator like the scalar path."""
+    nf = NpField(he.base)
+    ne = NpExt(nf, he)
+    n = vals.shape[0]
+    g = ne.of_scalar(gamma)
+    acc = np.zeros((n, he.D), np.uint64)
+    for j in range(vals.shape[1] - 1, -1, -1):  # Horner over claim positions
+        acc = ne.mul(acc, g)
+        acc[..., 0] = nf.add(acc[..., 0], vals[:, j])
+    acc = ne.add(acc, ne.of_scalar(beta, (n,)))
+    total = nf.sum_axis(ne.batch_inv(acc), 0)  # (D,)
+    return tuple(int(c) for c in total)
+
+
 def _claims_accumulator_native(he, beta, gamma, vals: np.ndarray) -> ExtVal:
     """vals: (n, L) canonical uint64 claims.  Raises ZeroDivisionError on a
     zero denominator like the scalar path."""
     import ctypes
 
-    from .hash.blake3_host import _native_lib
+    from .native import lib
 
     n, L = vals.shape
     vals = np.ascontiguousarray(vals, np.uint64)
@@ -101,7 +123,7 @@ def _claims_accumulator_native(he, beta, gamma, vals: np.ndarray) -> ExtVal:
     scratch = np.empty(2 * n, np.uint64)
     out = np.empty(2, np.uint64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
-    rc = _native_lib().msgl_claims_acc2(
+    rc = lib().msgl_claims_acc2(
         vals.ctypes.data_as(u64p), n, L, g.ctypes.data_as(u64p),
         b.ctypes.data_as(u64p), scratch.ctypes.data_as(u64p),
         out.ctypes.data_as(u64p),
@@ -225,53 +247,54 @@ class LookupValues:
     args: List[List[torch.Tensor]]  # L lists of tensors (n,)
 
 
-def stage_2_traces(he: HostExtField, lookup_values: Sequence[LookupValues], beta, gamma, acc0, device):
+def stage_2_traces(E: ExtOps, lookup_values: Sequence[LookupValues], beta, gamma, acc0, device):
     """All active circuits' stage-2 traces + per-circuit intermediate
     accumulators, threading one global accumulator; each circuit's serial row
     chain is a parallel prefix sum.
 
     Returns (stage2_mats: [(max(L,1)·D, n) tensors], accs: [ExtVal])."""
-    beta_t, gamma_t = fd.ext_const(beta, device), fd.ext_const(gamma, device)
+    beta_t, gamma_t = E.const(beta, device), E.const(gamma, device)
     mats, accs = [], []
     acc = acc0
     for lv in lookup_values:
         n, L = lv.height, len(lv.mults)
         if L == 0:
             # pass-through: a (D, n) matrix of the constant accumulator
-            mats.append(fd.ext_const(acc, device)[:, None].expand(2, n).contiguous())
+            mats.append(E.const(acc, device)[:, None].expand(E.D, n).contiguous())
             accs.append(acc)
             continue
-        flat_msgs, flat_mults = _stage2_msgs(lv.args, lv.mults, beta_t, gamma_t)
-        inv_msgs = batch_inv(flat_msgs, ext=True)
-        mat, total = _stage2_scan(L, inv_msgs, flat_mults, fd.ext_const(acc, device))
-        acc = he.add(acc, fd.ext_to_host(total)[0])
+        flat_msgs, flat_mults = _stage2_msgs(E, lv.args, lv.mults, beta_t, gamma_t)
+        inv_msgs = batch_inv(flat_msgs, E)
+        mat, total = _stage2_scan(E, L, inv_msgs, flat_mults, E.const(acc, device))
+        acc = E.host.add(acc, E.to_host(total)[0])
         mats.append(mat)
         accs.append(acc)
     return mats, accs
 
 
-def _stage2_msgs(args_list, mults_list, beta_t, gamma_t):
-    """Slot messages β + Σ_i arg_i·γ^i (Horner) as one (2, n·L) ext tensor
+def _stage2_msgs(E: ExtOps, args_list, mults_list, beta_t, gamma_t):
+    """Slot messages β + Σ_i arg_i·γ^i (Horner) as one (D, n·L) ext tensor
     in the chain order, row-major and slot-minor; multiplicities likewise."""
     slot_msgs = []
     for args in args_list:
-        m = torch.zeros((2,) + tuple(args[0].shape), dtype=torch.int64, device=beta_t.device)
+        m = torch.zeros((E.D,) + tuple(args[0].shape), dtype=torch.int64, device=beta_t.device)
         for a in reversed(args):
-            m = fd.ext_add(fd.ext_mul(m, gamma_t), fd.ext_from_base(a))
-        slot_msgs.append(fd.ext_add(m, beta_t))
-    flat_msgs = torch.stack(slot_msgs, dim=-1).reshape(2, -1)
+            m = E.add(E.mul(m, gamma_t), E.from_base(a))
+        slot_msgs.append(E.add(m, beta_t))
+    flat_msgs = torch.stack(slot_msgs, dim=-1).reshape(E.D, -1)
     flat_mults = torch.stack(list(mults_list), dim=-1).reshape(-1)
     return flat_msgs, flat_mults
 
 
-def _stage2_scan(L: int, inv_msgs, flat_mults, acc_t):
+def _stage2_scan(E: ExtOps, L: int, inv_msgs, flat_mults, acc_t):
     """Terms mult/m, inclusive prefix sum, exclusive accumulator injection,
     and the stage-2 column layout: row (j·D + d) = coordinate d of slot j.
-    Returns (matrix (L·D, n), chain total (2, 1))."""
-    terms = fd.ext_scale(inv_msgs, flat_mults)
-    incl = cumsum(terms)
+    Returns (matrix (L·D, n), chain total (D, 1))."""
+    D = E.D
+    terms = E.scale(inv_msgs, flat_mults)
+    incl = cumsum(terms, E)
     excl = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
-    acc_flat = fd.ext_add(excl, acc_t)
+    acc_flat = E.add(excl, acc_t)
     n = acc_flat.shape[1] // L
-    mat = acc_flat.reshape(2, n, L).permute(2, 0, 1).reshape(L * 2, n).contiguous()
+    mat = acc_flat.reshape(D, n, L).permute(2, 0, 1).reshape(L * D, n).contiguous()
     return mat, incl[:, -1:]

@@ -10,8 +10,10 @@ the cap.
 
 Digest layers are (h, 8) int32 tensors (row i = node i's eight u32 words),
 so the children of node i are rows 2i and 2i+1 and a layer's even and odd
-rows feed `compress_pairs` as strided views.  Hashing runs through K3
-(hash/blake3.py); gathers for openings are plain tensor indexing.
+rows feed `compress` as strided views.  The config's hasher does the
+hashing: BLAKE3 through K3 (hash/blake3.py) or Poseidon2 through K6
+(hash/poseidon2.py); the tree, the injection and the openings are the same
+for both.  Gathers for openings are plain tensor indexing.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .hash.blake3 import compress_pairs, hash_rows
+from .hash import blake3, poseidon2
 
 
 class Blake3FieldHasher:
@@ -31,10 +33,23 @@ class Blake3FieldHasher:
 
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
-        return hash_rows(mats)
+        return blake3.hash_rows(mats)
 
     def compress(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-        return compress_pairs(left, right)
+        return blake3.compress_pairs(left, right)
+
+
+class Poseidon2FieldHasher:
+    """Hash BabyBear-matrix rows with the Poseidon2 padding-free sponge
+    (leaf) and truncated permutation (compress); digests are 8 canonical
+    field elements."""
+
+    def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
+        return poseidon2.hash_rows(mats)
+
+    def compress(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        return poseidon2.compress_pairs(left, right)
 
 
 def digest_layer_to_np(layer: torch.Tensor) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Batched radix-2 NTT / low-degree extension: kernel K2 (ntt_stage).
+"""Batched radix-2 NTT / low-degree extension over Goldilocks or BabyBear:
+kernel K2 (ntt_stage).
 
 Layout conventions (the protocol's storage conventions, as in
 multistark_tpu/ntt/ntt.py):
@@ -11,8 +12,10 @@ multistark_tpu/ntt/ntt.py):
     input gives natural output
 
 A transform runs one `ntt_stage_` launch per butterfly stage on a copy of
-its input.  The coset scale and n^-1 go through K1 (one mul by a host-built
-table); bit reversal and zero padding are plain tensor indexing.
+its input.  The coset scale and n^-1 go through the field's elementwise
+kernel (K1 or K5: one mul by a host-built table); bit reversal and zero
+padding are plain tensor indexing.  Twiddles, shifts and the generator come
+from the host field (two-adicity 32 for Goldilocks, 27 for BabyBear).
 """
 
 from __future__ import annotations
@@ -22,30 +25,31 @@ from typing import Dict, Tuple
 import torch
 
 from .. import kernels
-from ..fields import device as fd
-from ..fields.host import GOLDILOCKS
-from ..fields.npref import gl_mul, np_powers
+from ..fields.device import FieldOps
+from ..fields.host import HostField
+from ..fields.npref import np_mul, np_powers
 from ..utils import bit_reverse_indices
 
 
-def _stage_plain_(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
+def _stage_plain_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
     rows, n = x.shape
     half = tw.shape[0]
     xr = x.view(rows, n // (2 * half), 2, half)
     a, b = xr[:, :, 0, :], xr[:, :, 1, :]
     if dif:
-        lo, hi = fd.add_plain(a, b), fd.mul_plain(fd.sub_plain(a, b), tw)
+        lo, hi = F.add_plain(a, b), F.mul_plain(F.sub_plain(a, b), tw)
     else:
-        t = fd.mul_plain(b, tw)
-        lo, hi = fd.add_plain(a, t), fd.sub_plain(a, t)
+        t = F.mul_plain(b, tw)
+        lo, hi = F.add_plain(a, t), F.sub_plain(a, t)
     xr[:, :, 0, :] = lo
     xr[:, :, 1, :] = hi
 
 
-def ntt_stage_(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
-    """One butterfly stage over a contiguous (rows, n) tensor, IN PLACE
-    (each butterfly reads and writes only its own pair, so no second buffer
-    is needed).  `tw` holds the stage's 2^k twiddles [w^0 .. w^(half-1)]."""
+def ntt_stage_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
+    """One butterfly stage over a contiguous (rows, n) tensor of F's
+    elements, IN PLACE (each butterfly reads and writes only its own pair,
+    so no second buffer is needed).  `tw` holds the stage's 2^k twiddles
+    [w^0 .. w^(half-1)]."""
     if x.dim() != 2 or not x.is_contiguous() or x.dtype != torch.int64:
         raise ValueError("ntt_stage_ takes a contiguous (rows, n) int64 tensor")
     rows, n = x.shape
@@ -53,21 +57,23 @@ def ntt_stage_(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
     if n & (n - 1) or half & (half - 1) or 2 * half > n:
         raise ValueError(f"bad stage geometry n={n} half={half}")
     if not kernels.use_kernel(x):
-        _stage_plain_(x, tw, dif)
+        _stage_plain_(F, x, tw, dif)
         return
     kernels.check_cuda(x, tw)
     kernels.NTT_STAGE.launch(
-        "ntt_stage", kernels.ptr(x), rows, n.bit_length() - 1, half.bit_length() - 1,
+        "ntt_stage", F.field_id, kernels.ptr(x), rows, n.bit_length() - 1, half.bit_length() - 1,
         kernels.ptr(tw), int(dif),
     )
 
 
 class NttEngine:
-    """Twiddle and index caches + the public transforms, for one device."""
+    """Twiddle and index caches + the public transforms, for one field on
+    one device."""
 
-    def __init__(self, device):
+    def __init__(self, F: FieldOps, host_field: HostField, device):
+        self.F = F
         self.device = torch.device(device)
-        self.host = GOLDILOCKS
+        self.host = host_field
         self._stages: Dict[Tuple[int, bool], torch.Tensor] = {}
         self._brev: Dict[int, torch.Tensor] = {}
         self._scales: Dict[Tuple[int, int, int], torch.Tensor] = {}
@@ -82,7 +88,7 @@ class NttEngine:
             w = self.host.two_adic_generator(s)
             if inverse:
                 w = self.host.inv(w)
-            self._stages[key] = fd.from_np(np_powers(self.host, w, 1 << (s - 1)), self.device)
+            self._stages[key] = self.F.from_np(np_powers(self.host, w, 1 << (s - 1)), self.device)
         return self._stages[key]
 
     def brev(self, log_n: int) -> torch.Tensor:
@@ -94,21 +100,21 @@ class NttEngine:
         """[scale·shift^i for i < 2^log_n] (host-built once, device-cached)."""
         key = (log_n, shift % self.host.p, scale % self.host.p)
         if key not in self._scales:
-            tab = gl_mul(np_powers(self.host, shift, 1 << log_n), scale % self.host.p)
-            self._scales[key] = fd.from_np(tab, self.device)
+            tab = np_mul(self.host, np_powers(self.host, shift, 1 << log_n), scale % self.host.p)
+            self._scales[key] = self.F.from_np(tab, self.device)
         return self._scales[key]
 
     # -- butterfly passes -------------------------------------------------
     def _dif(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
         x = x.reshape(-1, 1 << log_n).clone()
         for s in range(log_n, 0, -1):
-            ntt_stage_(x, self.stage_table(s, inverse), dif=True)
+            ntt_stage_(self.F, x, self.stage_table(s, inverse), dif=True)
         return x
 
     def _dit(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
         x = x.reshape(-1, 1 << log_n).clone()
         for s in range(1, log_n + 1):
-            ntt_stage_(x, self.stage_table(s, inverse), dif=False)
+            ntt_stage_(self.F, x, self.stage_table(s, inverse), dif=False)
         return x
 
     def _unbrev(self, x: torch.Tensor, log_n: int) -> torch.Tensor:
@@ -120,7 +126,7 @@ class NttEngine:
         out = self._dit(self._unbrev(evals, log_n), log_n, inverse=True)
         n_inv = self.host.inv((1 << log_n) % self.host.p)
         tab = self.scale_table(log_n, self.host.inv(shift), n_inv)
-        return fd.mul(out, tab).reshape(evals.shape)
+        return self.F.mul(out, tab).reshape(evals.shape)
 
     def coset_lde_bitrev(self, evals: torch.Tensor, log_n: int, log_blowup: int, shift: int) -> torch.Tensor:
         """(w, n) evals on the subgroup H_n -> evals on shift·H_N
@@ -130,7 +136,7 @@ class NttEngine:
         big = log_n + log_blowup
         cb = self._dif(evals, log_n, inverse=True)
         n_inv = self.host.inv((1 << log_n) % self.host.p)
-        co = fd.mul(self._unbrev(cb, log_n), self.scale_table(log_n, shift, n_inv))
+        co = self.F.mul(self._unbrev(cb, log_n), self.scale_table(log_n, shift, n_inv))
         pad = torch.zeros((w, 1 << big), dtype=torch.int64, device=co.device)
         pad[:, : 1 << log_n] = co
         return self._dif(pad, big, inverse=False)

@@ -15,9 +15,10 @@ Transcript schedule (same bytes as the JAX package): observe all claimed
 values -> sample α -> per fold round (observe cap, grind commit PoW, sample
 β) -> observe final poly -> grind query PoW -> sample query indices.
 
-Field arithmetic on tensors goes through K1 (fields/device.py) and K4
-(utils.py), hashing through K3 (merkle.py); slicing, stacking and gathers are
-plain tensor indexing.  Scalars the transcript produces (α powers, S_p,
+The config's field ops F (base) and E (extension, degree D) carry the
+field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
+its hasher the hashing (merkle.py: K3 or K6); slicing, stacking and gathers
+are plain tensor indexing.  Scalars the transcript produces (α powers, S_p,
 z^n) are computed on the host with the host field, as transcript values.
 """
 
@@ -31,9 +32,9 @@ import torch
 
 from .config import CommitmentParameters, FriParameters
 from .domains import TwoAdicCoset
-from .fields import device as fd
+from .fields.device import ExtOps, FieldOps
 from .fields.host import HostExtField, HostField
-from .fields.npref import gl_mul, np_powers
+from .fields.npref import np_mul, np_powers
 from .merkle import BatchOpening, MerkleMmcs, MerkleProverData
 from .ntt import NttEngine
 from .utils import batch_inv, bit_reverse_indices, field_sum, reverse_bits
@@ -70,6 +71,8 @@ class FriProof:
 class TwoAdicFriPcs:
     def __init__(
         self,
+        F: FieldOps,
+        E: ExtOps,
         host_field: HostField,
         host_ext: HostExtField,
         hasher,
@@ -79,13 +82,15 @@ class TwoAdicFriPcs:
     ):
         if not 1 <= fri_parameters.max_log_arity <= 4:
             raise ValueError("max_log_arity must be in [1, 4]")
+        self.F = F
+        self.E = E
         self.hf = host_field
         self.he = host_ext
         self.mmcs = MerkleMmcs(hasher, commitment_parameters.cap_height)
         self.params = commitment_parameters
         self.fri = fri_parameters
         self.device = torch.device(device)
-        self.engine = NttEngine(self.device)
+        self.engine = NttEngine(F, host_field, self.device)
         self._x_tables: Dict[tuple, torch.Tensor] = {}
 
     # -- domains ----------------------------------------------------------
@@ -107,8 +112,8 @@ class TwoAdicFriPcs:
             s = shift
             if inverse:
                 g, s = self.hf.inv(g), self.hf.inv(shift)
-            tab = gl_mul(np_powers(self.hf, g, 1 << log_n), s)[bit_reverse_indices(log_n)]
-            self._x_tables[key] = fd.from_np(tab, self.device)
+            tab = np_mul(self.hf, np_powers(self.hf, g, 1 << log_n), s)[bit_reverse_indices(log_n)]
+            self._x_tables[key] = self.F.from_np(tab, self.device)
         return self._x_tables[key]
 
     def x_table_natural(self, log_n: int, shift: int) -> torch.Tensor:
@@ -116,7 +121,8 @@ class TwoAdicFriPcs:
         key = (log_n, shift % self.hf.p, "nat")
         if key not in self._x_tables:
             g = self.hf.two_adic_generator(log_n)
-            self._x_tables[key] = fd.from_np(gl_mul(np_powers(self.hf, g, 1 << log_n), shift), self.device)
+            tab = np_mul(self.hf, np_powers(self.hf, g, 1 << log_n), shift)
+            self._x_tables[key] = self.F.from_np(tab, self.device)
         return self._x_tables[key]
 
     # -- commit -----------------------------------------------------------
@@ -140,7 +146,7 @@ class TwoAdicFriPcs:
         ldes, logs = [], []
         for coeffs in coeff_mats:
             log_n = coeffs.shape[-1].bit_length() - 1
-            shifted = fd.mul(coeffs, self.engine.scale_table(log_n, self.hf.generator))
+            shifted = self.F.mul(coeffs, self.engine.scale_table(log_n, self.hf.generator))
             ldes.append(self.engine.lde_bitrev_from_coeffs(shifted, log_n + self.log_blowup))
             logs.append(log_n)
         return self._commit_ldes(ldes, logs)
@@ -190,15 +196,15 @@ class TwoAdicFriPcs:
                     continue
                 mat = data.mmcs_data.mats[m_idx]
                 vals = self._eval_matrix(mat, data.log_trace_heights[m_idx], points)
-                round_vals.append([fd.ext_to_host(v) for v in vals])
+                round_vals.append([self.E.to_host(v) for v in vals])
             opened.append(round_vals)
         return opened
 
     def _eval_matrix(self, mat: torch.Tensor, log_n: int, points) -> List[torch.Tensor]:
         """Barycentric evaluation of a stored bit-reversed LDE at each point:
         p(z) = (z^n - s^n)/(n·s^n) · Σ_i e_i·x_i/(z - x_i) over the size-n
-        same-shift sub-coset.  Returns one (2, w) tensor per point."""
-        hf, he = self.hf, self.he
+        same-shift sub-coset.  Returns one (D, w) tensor per point."""
+        F, E, hf, he = self.F, self.E, self.hf, self.he
         small = self.engine.prefix_to_natural(mat, log_n)  # (w, n) on GEN·H_n
         n = 1 << log_n
         s = hf.generator
@@ -207,13 +213,13 @@ class TwoAdicFriPcs:
         inv_ns = hf.inv(hf.mul(n % hf.p, s_n))
         out = []
         for z in points:
-            w_i = fd.ext_scale(batch_inv(_ext_minus_base(z, x, self.device), ext=True), x)
+            w_i = E.scale(batch_inv(_ext_minus_base(F, E, z, x), E), x)
             zn = z
             for _ in range(log_n):
                 zn = he.square(zn)
             c = he.scale(he.sub(zn, he.from_base(s_n)), inv_ns)
-            acc = torch.stack([field_sum(fd.mul(small, w_i[d])) for d in range(2)])  # (2, w)
-            out.append(fd.ext_mul(acc, fd.ext_const(c, self.device)))
+            acc = torch.stack([field_sum(F.mul(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
+            out.append(E.mul(acc, E.const(c, self.device)))
         return out
 
     def _reduced_openings(self, rounds, opened, alpha) -> Dict[int, torch.Tensor]:
@@ -221,7 +227,7 @@ class TwoAdicFriPcs:
         stored LDEs, with u = Σ_j α^j·col_j and S_p = Σ_j α^j·v_{p,j}.
         1/(z_p - x) depends only on (height, point), so it is computed once
         per pair and shared by every matrix of that height."""
-        he = self.he
+        F, E, he = self.F, self.E, self.he
         ro: Dict[int, torch.Tensor] = {}
         offsets: Dict[int, int] = {}
         inv_diffs: Dict[tuple, torch.Tensor] = {}
@@ -235,8 +241,8 @@ class TwoAdicFriPcs:
                 apows = self._host_ext_powers(alpha, w)
                 u = None
                 for j in range(w):
-                    term = fd.ext_scale(fd.ext_const(apows[j], self.device), mat[j])
-                    u = term if u is None else fd.ext_add(u, term)
+                    term = E.scale(E.const(apows[j], self.device), mat[j])
+                    u = term if u is None else E.add(u, term)
                 x_full = self.x_table_storage(log_lde, self.hf.generator)
                 off = offsets.get(log_lde, 0)
                 for p_idx, z in enumerate(points):
@@ -244,12 +250,12 @@ class TwoAdicFriPcs:
                     for a, v in zip(apows, round_vals[m_idx][p_idx]):
                         s_p = he.add(s_p, he.mul(a, v))
                     if (log_lde, z) not in inv_diffs:
-                        inv_diffs[log_lde, z] = batch_inv(_ext_minus_base(z, x_full, self.device), ext=True)
+                        inv_diffs[log_lde, z] = batch_inv(_ext_minus_base(F, E, z, x_full), E)
                     inv_diff = inv_diffs[log_lde, z]
-                    num = fd.ext_sub(u, fd.ext_const(s_p, self.device))
+                    num = E.sub(u, E.const(s_p, self.device))
                     aoff = he.neg(he.pow(alpha, off + p_idx * w))
-                    contrib = fd.ext_mul(fd.ext_mul(num, inv_diff), fd.ext_const(aoff, self.device))
-                    ro[log_lde] = contrib if log_lde not in ro else fd.ext_add(ro[log_lde], contrib)
+                    contrib = E.mul(E.mul(num, inv_diff), E.const(aoff, self.device))
+                    ro[log_lde] = contrib if log_lde not in ro else E.add(ro[log_lde], contrib)
                 offsets[log_lde] = off + w * len(points)
         return ro
 
@@ -287,7 +293,7 @@ class TwoAdicFriPcs:
             current = self._fold_multi(current, beta, log_size, a_bits, shift)
             log_size -= a_bits
             if log_size in ro:
-                current = fd.ext_add(current, ro[log_size])
+                current = self.E.add(current, ro[log_size])
         final_poly, query_pow, indices = self._commit_tail(current, log_size, log_max_ro, log_max, challenger)
         return caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro
 
@@ -304,15 +310,15 @@ class TwoAdicFriPcs:
     def _fold_multi(self, current, beta: ExtVal, log_size: int, a_bits: int, shift: int) -> torch.Tensor:
         """Arity-2^a fold as a chain of pair folds with β, β², β⁴, ...
         Each pair step: (v_even+v_odd)/2 + β_s·(v_even-v_odd)/(2x)."""
-        hf, he = self.hf, self.he
-        half_inv = fd.const(hf.inv(2), self.device)
+        F, E, hf, he = self.F, self.E, self.hf, self.he
+        half_inv = F.const(hf.inv(2), self.device)
         beta_s = beta
         for s in range(a_bits):
             inv_x = self.x_table_storage(log_size - s, hf.exp_power_of_2(shift, s), inverse=True)
             a, b = current[:, 0::2], current[:, 1::2]
-            sm = fd.ext_scale(fd.ext_add(a, b), half_inv)
-            df = fd.ext_scale(fd.ext_sub(a, b), fd.mul(inv_x[0::2], half_inv))
-            current = fd.ext_add(sm, fd.ext_mul(df, fd.ext_const(beta_s, self.device)))
+            sm = E.scale(E.add(a, b), half_inv)
+            df = E.scale(E.sub(a, b), F.mul(inv_x[0::2], half_inv))
+            current = E.add(sm, E.mul(df, E.const(beta_s, self.device)))
             beta_s = he.square(beta_s)
         return current
 
@@ -321,7 +327,7 @@ class TwoAdicFriPcs:
         Degree < 2^log_final_poly_len for honest provers."""
         he, hf = self.he, self.hf
         n = 1 << log_size
-        evals = fd.ext_to_host(current)
+        evals = self.E.to_host(current)
         nat = [he.zero] * n
         for i in range(n):
             nat[reverse_bits(i, log_size)] = evals[i]
@@ -378,14 +384,14 @@ class TwoAdicFriPcs:
         return out
 
 
-def _ext_minus_base(z: ExtVal, x: torch.Tensor, device) -> torch.Tensor:
-    """Host ext scalar z minus a base vector x -> (2, n) ext tensor."""
-    c0 = fd.sub(fd.const(z[0], device), x)
-    return torch.stack([c0, fd.const(z[1], device).expand_as(c0)])
+def _ext_minus_base(F: FieldOps, E: ExtOps, z: ExtVal, x: torch.Tensor) -> torch.Tensor:
+    """Host ext scalar z minus a base vector x -> (D, n) ext tensor."""
+    c0 = F.sub(F.const(z[0], x.device), x)
+    return torch.stack([c0] + [F.const(z[d], x.device).expand_as(c0) for d in range(1, E.D)])
 
 
 def _fold_rows(vec: torch.Tensor, a_bits: int) -> torch.Tensor:
-    """A (2, N) ext vector as the (A·2, N/A) base matrix a fold level
-    commits: row (j·2 + d) = coordinate d of vec[j::A] (flatten_to_base)."""
-    A = 1 << a_bits
-    return vec.reshape(2, -1, A).permute(2, 0, 1).reshape(2 * A, -1).contiguous()
+    """A (D, N) ext vector as the (A·D, N/A) base matrix a fold level
+    commits: row (j·D + d) = coordinate d of vec[j::A] (flatten_to_base)."""
+    A, D = 1 << a_bits, vec.shape[0]
+    return vec.reshape(D, -1, A).permute(2, 0, 1).reshape(D * A, -1).contiguous()

@@ -19,7 +19,6 @@ from .challenger import observe_claims as _observe_claims
 from .domains import TwoAdicCoset
 from .evaluator import TorchAlgebra, constraint_values, lookup_values as graph_lookup_values, sweep
 from .expr import Source
-from .fields import device as fd
 from .pcs import FriProof
 from .system import ProverKey, System, SystemWitness
 
@@ -45,6 +44,7 @@ class Proof:
     stage2_opened: List[List[List[ExtVal]]]
     quotient_opened: List[List[List[ExtVal]]]
     fri_proof: FriProof
+    field_bytes: int = 8  # serialized width of a base element: 8 Goldilocks, 4 BabyBear
 
     def to_bytes(self) -> bytes:
         from .serialization import proof_to_bytes
@@ -92,7 +92,7 @@ def prove_multiple_claims(
 
     # STAGE-2: lookup traces
     s2_mats, accs = lk.stage_2_traces(
-        he, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0, config.device
+        config.ext, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0, config.device
     )
     s2_cap, s2_data = pcs.commit(
         [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
@@ -155,6 +155,7 @@ def prove_multiple_claims(
         stage2_opened=opened[r + 1],
         quotient_opened=opened[r + 2],
         fri_proof=fri_proof,
+        field_bytes=8 if hf.p.bit_length() > 32 else 4,
     )
 
 
@@ -184,7 +185,7 @@ def _quotient_chunk_coeffs(
     mats = {src: pcs.engine.prefix_to_natural(mat, log_m) for src, mat in raw.items()}
     selectors = _selectors_device(system, log_n, q)
     pubs = tuple(
-        tuple(fd.const(c, config.device) for c in v) for v in (beta, gamma, acc_prev, acc_final)
+        tuple(config.field.const(c, config.device) for c in v) for v in (beta, gamma, acc_prev, acc_final)
     )
     qmat = _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha)
     coeffs = pcs.engine.icoset_from_natural(qmat, log_m, hf.generator)  # (D, m)
@@ -194,26 +195,27 @@ def _quotient_chunk_coeffs(
 
 def _selectors_device(system, log_n: int, q: int) -> dict:
     """The trace domain's unnormalized selectors on the quotient coset
-    (natural order), built on the device through K1 and cached on the system:
+    (natural order), built on the device through the field's elementwise
+    kernel and cached on the system:
     with v = x/shift,  first = Z_H/(v-1), last = Z_H/(v-g^-1),
     transition = v - g^-1, inv_vanishing = 1/Z_H, where Z_H = v^n - 1 has
     period q over the coset."""
     key = (log_n, q)
     if key not in system.selector_cache:
         config = system.config
-        hf, dev = config.host_field, config.device
+        F, hf, dev = config.field, config.host_field, config.device
         trace_dom = TwoAdicCoset(hf, log_n, 1)
         qdom = trace_dom.create_disjoint_domain((1 << log_n) * q)
         v = config.pcs.x_table_natural(qdom.log_n, hf.mul(qdom.shift, hf.inv(trace_dom.shift)))
         n = 1 << log_n
-        head = [hf.sub(hf.pow(int(x), n), 1) for x in fd.to_np(v[:q])]
-        z_h = fd.from_np(np.tile(np.asarray(head, np.uint64), n), dev)
-        inv_z_h = fd.from_np(np.tile(np.asarray([hf.inv(h) for h in head], np.uint64), n), dev)
-        g_inv = fd.const(hf.inv(trace_dom.gen), dev)
-        trans = fd.sub(v, g_inv)
+        head = [hf.sub(hf.pow(int(x), n), 1) for x in F.to_np(v[:q])]
+        z_h = F.from_np(np.tile(np.asarray(head, np.uint64), n), dev)
+        inv_z_h = F.from_np(np.tile(np.asarray([hf.inv(h) for h in head], np.uint64), n), dev)
+        g_inv = F.const(hf.inv(trace_dom.gen), dev)
+        trans = F.sub(v, g_inv)
         system.selector_cache[key] = {
-            "first": fd.mul(z_h, fd.inv(fd.sub(v, fd.const(1, dev)))),
-            "last": fd.mul(z_h, fd.inv(trans)),
+            "first": F.mul(z_h, F.inv(F.sub(v, F.const(1, dev)))),
+            "last": F.mul(z_h, F.inv(trans)),
             "transition": trans,
             "inv_vanishing": inv_z_h,
         }
@@ -223,7 +225,7 @@ def _selectors_device(system, log_n: int, q: int) -> dict:
 def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha) -> torch.Tensor:
     """The constraint sweep + α-fold + Z_H division on the quotient domain,
     returning the (D, m) composition (natural order)."""
-    hf, he = config.host_field, config.host_ext
+    F, hf, he = config.field, config.host_field, config.host_ext
     ep = config.extension_params
     D = ep.degree
     dev = config.device
@@ -235,7 +237,7 @@ def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha
     def publics(idx):
         return pubs[idx // D][idx % D]
 
-    alg = TorchAlgebra(dev, var_provider, publics, selectors)
+    alg = TorchAlgebra(F, dev, var_provider, publics, selectors)
     buf = sweep(circuit.graph, alg)
     values = list(constraint_values(circuit.graph, buf))
     logup_vals = lk.logup_constraint_values(
@@ -253,10 +255,10 @@ def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha
     apows = [he.one]
     for _ in range(K - 1):
         apows.append(he.mul(apows[-1], alpha))
-    coords = [fd.const(0, dev) for _ in range(D)]
+    coords = [F.const(0, dev) for _ in range(D)]
     for i, v in enumerate(values):
         ap = apows[K - 1 - i]
         for d in range(D):
-            coords[d] = fd.add(coords[d], fd.mul(v, fd.const(ap[d], dev)))
+            coords[d] = F.add(coords[d], F.mul(v, F.const(ap[d], dev)))
     inv_van = selectors["inv_vanishing"]
-    return torch.stack([fd.mul(c, inv_van) for c in coords])
+    return torch.stack([F.mul(c, inv_van) for c in coords])

@@ -46,8 +46,11 @@ byte, fixed-size arrays with no length prefix):
         opened_row         Vec<F>          (flattened ext values)
         opening_proof      Vec<[u8; 32]>
 
-Base field elements (Goldilocks) are u64 LE, p3's serde of the canonical
-value.  The verifier, and with it the proof reader, is not ported yet.
+Base field elements are u64 LE for 64-bit fields (Goldilocks) and u32 LE
+for 31-bit fields (BabyBear), p3's serde of the canonical value
+(`Proof.field_bytes`).  A Poseidon2 digest is 8 canonical field elements,
+written as 8 u32 LE words like a BLAKE3 digest.  The verifier, and with it
+the proof reader, is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,8 +64,9 @@ from .merkle import BatchOpening
 
 
 class _Writer:
-    def __init__(self):
+    def __init__(self, field_bytes: int):
         self.parts: List[bytes] = []
+        self.field_bytes = field_bytes
 
     def u8(self, v: int):
         self.parts.append(struct.pack("<B", v))
@@ -71,7 +75,7 @@ class _Writer:
         self.parts.append(struct.pack("<Q", v))
 
     def field(self, v: int):
-        self.parts.append(int(v).to_bytes(8, "little"))
+        self.parts.append(int(v).to_bytes(self.field_bytes, "little"))
 
     def ext(self, v):
         for c in v:
@@ -142,7 +146,7 @@ def _write_fri_proof(w: _Writer, fp):
 def proof_to_bytes(proof) -> bytes:
     """Serialize in the Rust Proof struct's bincode field order
     (prover.rs:215-238; see module doc)."""
-    w = _Writer()
+    w = _Writer(proof.field_bytes)
     w.u64(len(proof.active))
     for b in proof.active:
         w.u8(1 if b else 0)

@@ -16,8 +16,7 @@ import torch
 from . import lookup as lk
 from .evaluator import TorchAlgebra, sweep_lookup_prefix
 from .expr import Expr, ExtExpr, Lookup, Source
-from .fields import device as fd
-from .fields.npref import gl_sub, np_powers
+from .fields.npref import NpField, np_powers
 from .graph import ConstraintGraph, compile_graph
 
 
@@ -109,7 +108,7 @@ class System:
             h, _ = ci.preprocessed.shape
             if h & (h - 1) or h == 0:
                 raise ValueError("preprocessed height must be a power of two")
-            mat = fd.from_np(np.asarray(ci.preprocessed, np.uint64).T, config.device)  # (w, h)
+            mat = config.field.from_np(np.asarray(ci.preprocessed, np.uint64).T, config.device)  # (w, h)
             pre_index.append(len(pre_pairs))
             pre_pairs.append((config.pcs.natural_domain_for_degree(h), mat))
             pre_mats.append(mat)
@@ -140,7 +139,7 @@ def domain_selector_arrays(hf, log_n: int) -> dict:
     first[0] = n % hf.p
     last = np.zeros(n, np.uint64)
     last[-1] = hf.mul(n % hf.p, g)
-    trans = gl_sub(np_powers(hf, g, n), np.uint64(hf.inv(g)))
+    trans = NpField(hf).sub(np_powers(hf, g, n), np.uint64(hf.inv(g)))
     return {"first": first, "last": last, "transition": trans}
 
 
@@ -155,14 +154,17 @@ class SystemWitness:
     @staticmethod
     def from_stage_1(traces: Sequence, system: System, key: ProverKey) -> "SystemWitness":
         """traces: per circuit a (h, w) uint64 numpy array or int64 tensor
-        (as `witness_from_numpy` returns them)."""
-        device = system.config.device
+        (as `witness_from_numpy` returns them); values become field elements
+        as the config's `from_np` makes them (BabyBear reduces mod p)."""
+        F, device = system.config.field, system.config.device
         dev_traces: List[Optional[torch.Tensor]] = []
         heights: List[int] = []
         lvs: List[Optional[lk.LookupValues]] = []
         for c_idx, (circuit, trace) in enumerate(zip(system.circuits, traces)):
-            if not isinstance(trace, torch.Tensor):
-                trace = fd.from_np(np.asarray(trace, np.uint64), device)
+            if isinstance(trace, torch.Tensor):
+                trace = F.canonical(trace)
+            else:
+                trace = F.from_np(np.asarray(trace, np.uint64), device)
             h = trace.shape[0]
             heights.append(h)
             if h == 0:
@@ -185,12 +187,12 @@ def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat,
     """Sweep the lookup prefix over the whole trace at once (next row = a
     roll by one)."""
     circuit = system.circuits[c_idx]
-    device = system.config.device
+    F, device = system.config.field, system.config.device
     pre_idx = system.preprocessed_index[c_idx]
     pre_mat = key.preprocessed_mats_device[pre_idx] if pre_idx is not None else None
     log_n = height.bit_length() - 1
     selectors = {
-        k: fd.from_np(v, device) for k, v in domain_selector_arrays(system.config.host_field, log_n).items()
+        k: F.from_np(v, device) for k, v in domain_selector_arrays(system.config.host_field, log_n).items()
     }
 
     def var_provider(source, col, offset):
@@ -207,7 +209,7 @@ def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat,
     def publics(_):
         raise ValueError("publics are not available during witness generation")
 
-    buf = sweep_lookup_prefix(circuit.graph, TorchAlgebra(device, var_provider, publics, selectors))
+    buf = sweep_lookup_prefix(circuit.graph, TorchAlgebra(F, device, var_provider, publics, selectors))
 
     def column(v):  # sweep results can be shape-() constants
         return v.expand(height).contiguous()

@@ -2,11 +2,13 @@
 helpers.
 
 `batch_inv`, `cumsum` and `field_sum` work along the LAST axis of a base
-tensor (..., n) or a coordinate-major extension tensor (2, ..., n).  A CUDA
-tensor launches the hand-written kernel (csrc/gl_scan.cu): a tile-local scan
-or sum, the same kernels over the (rows, tiles) array of tile totals, and an
-add-back.  A CPU tensor takes the plain PyTorch version beside it
-(log-depth Hillis-Steele scans over the field ops of fields/device.py).
+tensor (..., n) or a coordinate-major extension tensor (D, ..., n), and take
+the ops of its field (fields/device.py: GL_OPS, BB_OPS, or an extension's
+GL2_OPS, BB4_OPS).  A CUDA tensor launches the hand-written kernel
+(csrc/gl_scan.cu, which serves both fields): a tile-local scan or sum, the
+same kernels over the (rows, tiles) array of tile totals, and an add-back.
+A CPU tensor takes the plain PyTorch version beside it (log-depth
+Hillis-Steele scans over the plain field ops).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .fields import device as fd
+from .fields.device import ExtOps
 
 _TILE = 2048  # THREADS * ITEMS in csrc/gl_scan.cu
 _MAX_ROWS = 65535  # gridDim.y
@@ -49,75 +51,82 @@ def _scan_plain(x: torch.Tensor, combine, reverse: bool = False) -> torch.Tensor
     return x.flip(-1) if reverse else x
 
 
-def cumsum_plain(x: torch.Tensor) -> torch.Tensor:
-    return _scan_plain(x, fd.add_plain)
+def _split(ops):
+    """(base FieldOps, extension degree or 0) of a field's ops."""
+    return (ops.base, ops.D) if isinstance(ops, ExtOps) else (ops, 0)
 
 
-def field_sum_plain(x: torch.Tensor) -> torch.Tensor:
+def cumsum_plain(x: torch.Tensor, ops) -> torch.Tensor:
+    return _scan_plain(x, _split(ops)[0].add_plain)
+
+
+def field_sum_plain(x: torch.Tensor, ops) -> torch.Tensor:
     """Mod-p sum along the last axis by pairwise halving."""
+    F = _split(ops)[0]
     while x.shape[-1] > 1:
         if x.shape[-1] & 1:
             x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        x = fd.add_plain(x[..., 0::2], x[..., 1::2])
+        x = F.add_plain(x[..., 0::2], x[..., 1::2])
     return x[..., 0]
 
 
-def batch_inv_plain(x: torch.Tensor, ext: bool) -> torch.Tensor:
+def batch_inv_plain(x: torch.Tensor, ops) -> torch.Tensor:
     """Montgomery-trick inverse of every element along the last axis:
     prefix and suffix products of the zero-masked values and one inversion
     of each row's total; zeros map to zero."""
-    if ext:
-        zero = (x[0] == 0) & (x[1] == 0)
-        safe = torch.stack([torch.where(zero, torch.ones_like(x[0]), x[0]), torch.where(zero, 0, x[1])])
-        mul, inv = fd.ext_mul_plain, fd.ext_inv_plain
-        one = torch.stack([torch.ones_like(x[0][..., :1]), torch.zeros_like(x[0][..., :1])])
+    F, D = _split(ops)
+    if D:
+        zero = (x == 0).all(dim=0)
+        safe = x.clone()  # a zero element becomes the one (1, 0, ..., 0)
+        safe[0] = torch.where(zero, 1, x[0])
+        one = torch.zeros_like(x[..., :1])
+        one[0] = 1
     else:
         zero = x == 0
         safe = torch.where(zero, torch.ones_like(x), x)
-        mul, inv = fd.mul_plain, fd.inv_plain
         one = torch.ones_like(x[..., :1])
-    pre = _scan_plain(safe, mul)
-    suf = _scan_plain(safe, mul, reverse=True)
-    tinv = inv(pre[..., -1:])
+    pre = _scan_plain(safe, ops.mul_plain)
+    suf = _scan_plain(safe, ops.mul_plain, reverse=True)
+    tinv = ops.inv_plain(pre[..., -1:])
     pre_prev = torch.cat([one, pre[..., :-1]], dim=-1)
     suf_next = torch.cat([suf[..., 1:], one], dim=-1)
-    out = mul(mul(pre_prev, suf_next), tinv)
+    out = ops.mul_plain(ops.mul_plain(pre_prev, suf_next), tinv)
     return torch.where(zero, 0, out)
 
 
 # --- CUDA launches --------------------------------------------------------------
 
-def _rows(x: torch.Tensor, ext: bool):
+def _rows(x: torch.Tensor, D: int):
     """(coordinate stride, rows, n) of a contiguous base or ext tensor."""
     n = x.shape[-1]
-    per_coord = x.numel() // (2 if ext else 1)
+    per_coord = x.numel() // max(D, 1)
     rows = per_coord // n if n else 0
     if rows > _MAX_ROWS:
         raise ValueError(f"gl_scan takes at most {_MAX_ROWS} rows, got {rows}")
     return per_coord, rows, n
 
 
-def _scan_cuda(x: torch.Tensor, ext: bool, combine: int, reverse: bool) -> torch.Tensor:
-    cs, rows, n = _rows(x, ext)
+def _scan_cuda(x: torch.Tensor, F, D: int, combine: int, reverse: bool) -> torch.Tensor:
+    cs, rows, n = _rows(x, D)
     out = torch.empty_like(x)
     tiles = -(-n // _TILE)
-    tot = torch.empty(((2,) if ext else ()) + (rows, tiles), dtype=torch.int64, device=x.device)
+    tot = torch.empty(((D,) if D else ()) + (rows, tiles), dtype=torch.int64, device=x.device)
     p = kernels.ptr
     kernels.GL_SCAN.launch(
-        "gls_scan_tile", int(ext), p(x), cs, p(out), cs, p(tot), rows * tiles, rows, n,
+        "gls_scan_tile", F.field_id, int(D > 0), p(x), cs, p(out), cs, p(tot), rows * tiles, rows, n,
         combine, int(reverse),
     )
     if tiles > 1:
         # tile totals are in logical (scan) order, so their scan runs forward
-        tot = _scan_cuda(tot, ext, combine, reverse=False)
+        tot = _scan_cuda(tot, F, D, combine, reverse=False)
         kernels.GL_SCAN.launch(
-            "gls_scan_addback", int(ext), p(out), cs, p(tot), rows * tiles, rows, n,
+            "gls_scan_addback", F.field_id, int(D > 0), p(out), cs, p(tot), rows * tiles, rows, n,
             combine, int(reverse),
         )
     return out
 
 
-def _sum_cuda(x: torch.Tensor) -> torch.Tensor:
+def _sum_cuda(x: torch.Tensor, F) -> torch.Tensor:
     lead = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
     while x.shape[-1] > 1:
@@ -127,22 +136,22 @@ def _sum_cuda(x: torch.Tensor) -> torch.Tensor:
         tiles = -(-n // _TILE)
         tot = torch.empty((rows, tiles), dtype=torch.int64, device=x.device)
         kernels.GL_SCAN.launch(
-            "gls_sum_tile", 0, kernels.ptr(x), rows * n, kernels.ptr(tot), rows * tiles, rows, n,
+            "gls_sum_tile", F.field_id, 0, kernels.ptr(x), rows * n, kernels.ptr(tot), rows * tiles, rows, n,
         )
         x = tot
     return x[:, 0].reshape(lead)
 
 
-def _batch_inv_cuda(x: torch.Tensor, ext: bool) -> torch.Tensor:
-    cs, rows, n = _rows(x, ext)
-    pre = _scan_cuda(x, ext, _MUL_NONZERO, reverse=False)
-    suf = _scan_cuda(x, ext, _MUL_NONZERO, reverse=True)
-    tinv = torch.empty(((2,) if ext else ()) + (rows,), dtype=torch.int64, device=x.device)
+def _batch_inv_cuda(x: torch.Tensor, F, D: int) -> torch.Tensor:
+    cs, rows, n = _rows(x, D)
+    pre = _scan_cuda(x, F, D, _MUL_NONZERO, reverse=False)
+    suf = _scan_cuda(x, F, D, _MUL_NONZERO, reverse=True)
+    tinv = torch.empty(((D,) if D else ()) + (rows,), dtype=torch.int64, device=x.device)
     out = torch.empty_like(x)
-    p = kernels.ptr
-    kernels.GL_SCAN.launch("gls_row_inv", int(ext), p(pre), cs, p(tinv), rows, rows, n)
+    p, ext = kernels.ptr, int(D > 0)
+    kernels.GL_SCAN.launch("gls_row_inv", F.field_id, ext, p(pre), cs, p(tinv), rows, rows, n)
     kernels.GL_SCAN.launch(
-        "gls_binv_finish", int(ext), p(x), cs, p(pre), p(suf), cs, p(tinv), rows,
+        "gls_binv_finish", F.field_id, ext, p(x), cs, p(pre), p(suf), cs, p(tinv), rows,
         p(out), cs, rows, n,
     )
     return out
@@ -150,31 +159,31 @@ def _batch_inv_cuda(x: torch.Tensor, ext: bool) -> torch.Tensor:
 
 # --- dispatch -------------------------------------------------------------------
 
-def batch_inv(x: torch.Tensor, ext: bool) -> torch.Tensor:
+def batch_inv(x: torch.Tensor, ops) -> torch.Tensor:
     """Elementwise inverse along the last axis, zeros mapping to zero."""
     x = x.contiguous()
     if x.shape[-1] == 0:
         return x.clone()
     if not kernels.use_kernel(x):
-        return batch_inv_plain(x, ext)
+        return batch_inv_plain(x, ops)
     kernels.check_cuda(x)
-    return _batch_inv_cuda(x, ext)
+    return _batch_inv_cuda(x, *_split(ops))
 
 
-def cumsum(x: torch.Tensor) -> torch.Tensor:
+def cumsum(x: torch.Tensor, ops) -> torch.Tensor:
     """Inclusive mod-p prefix sum along the last axis (base or ext: the
     extension adds coordinatewise)."""
     x = x.contiguous()
     if not kernels.use_kernel(x):
-        return cumsum_plain(x)
+        return cumsum_plain(x, ops)
     kernels.check_cuda(x)
-    return _scan_cuda(x, False, _ADD, reverse=False)
+    return _scan_cuda(x, _split(ops)[0], 0, _ADD, reverse=False)
 
 
-def field_sum(x: torch.Tensor) -> torch.Tensor:
+def field_sum(x: torch.Tensor, ops) -> torch.Tensor:
     """Mod-p sum along the last axis (base or ext)."""
     x = x.contiguous()
     if not kernels.use_kernel(x):
-        return field_sum_plain(x)
+        return field_sum_plain(x, ops)
     kernels.check_cuda(x)
-    return _sum_cuda(x)
+    return _sum_cuda(x, _split(ops)[0])

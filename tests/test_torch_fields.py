@@ -1,6 +1,7 @@
-"""K1 (gl_arith): the port's Goldilocks / GL2 ops on CPU tensors (their plain
-PyTorch versions) against the JAX package's GL_OPS / GL2_OPS, bit-exact, on
-random values and on the edge values 0, 1, p-1, 2^32 and 2^32-1."""
+"""K1 (gl_arith): the port's Goldilocks / GL2 ops (GL_OPS / GL2_OPS) on CPU
+tensors (their plain PyTorch versions) against the JAX package's GL_OPS /
+GL2_OPS, bit-exact, on random values and on the edge values 0, 1, p-1, 2^32
+and 2^32-1."""
 
 import os
 import subprocess
@@ -12,8 +13,9 @@ import torch
 
 from multistark_tpu.fields.device import GL2_OPS, GL_OPS
 from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.device import GL2_OPS as TGL2, GL_OPS as TGL
 
-P = fd.P
+P = TGL.p
 EDGES = np.asarray([0, 1, P - 1, 1 << 32, (1 << 32) - 1], np.uint64)
 
 
@@ -26,33 +28,33 @@ def _operands(seed: int, n: int = 400):
 
 
 def _t(x):
-    return fd.from_np(x, "cpu")
+    return TGL.from_np(x, "cpu")
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul"])
 def test_base_binary_ops_match_jax(op):
     a, b = _operands(1)
     want = GL_OPS.to_np(getattr(GL_OPS, op)(GL_OPS.from_np(a), GL_OPS.from_np(b)))
-    got = fd.to_np(getattr(fd, op)(_t(a), _t(b)))
+    got = fd.to_np(getattr(TGL, op)(_t(a), _t(b)))
     np.testing.assert_array_equal(got, want)
 
 
 def test_neg_and_inverse_match_jax():
     a, _ = _operands(2, n=60)
-    np.testing.assert_array_equal(fd.to_np(fd.neg(_t(a))), GL_OPS.to_np(GL_OPS.neg(GL_OPS.from_np(a))))
-    np.testing.assert_array_equal(fd.to_np(fd.inv(_t(a))), GL_OPS.to_np(GL_OPS.inv(GL_OPS.from_np(a))))
-    assert fd.to_np(fd.inv(_t(np.zeros(1, np.uint64))))[0] == 0  # 0 maps to 0
+    np.testing.assert_array_equal(fd.to_np(TGL.neg(_t(a))), GL_OPS.to_np(GL_OPS.neg(GL_OPS.from_np(a))))
+    np.testing.assert_array_equal(fd.to_np(TGL.inv(_t(a))), GL_OPS.to_np(GL_OPS.inv(GL_OPS.from_np(a))))
+    assert fd.to_np(TGL.inv(_t(np.zeros(1, np.uint64))))[0] == 0  # 0 maps to 0
 
 
 def test_pow_and_broadcast_scalar():
     a, b = _operands(3, n=50)
     e = 0xDEADBEEF12345
     np.testing.assert_array_equal(
-        fd.to_np(fd.pow(_t(a), e)), GL_OPS.to_np(GL_OPS.pow_const(GL_OPS.from_np(a), e))
+        fd.to_np(TGL.pow(_t(a), e)), GL_OPS.to_np(GL_OPS.pow_const(GL_OPS.from_np(a), e))
     )
-    s = fd.const(int(b[0]), "cpu")
+    s = TGL.const(int(b[0]), "cpu")
     np.testing.assert_array_equal(
-        fd.to_np(fd.mul(_t(a), s)), GL_OPS.to_np(GL_OPS.mul(GL_OPS.from_np(a), GL_OPS.const(int(b[0]), a.shape)))
+        fd.to_np(TGL.mul(_t(a), s)), GL_OPS.to_np(GL_OPS.mul(GL_OPS.from_np(a), GL_OPS.const(int(b[0]), a.shape)))
     )
 
 
@@ -64,7 +66,7 @@ def _ext_pair(seed: int, n: int = 200):
 
 
 def _te(x):  # (N, 2) host -> coordinate-major (2, N) tensor
-    return fd.from_np(np.ascontiguousarray(x.T), "cpu")
+    return TGL.from_np(np.ascontiguousarray(x.T), "cpu")
 
 
 def _ne(t):
@@ -75,33 +77,33 @@ def _ne(t):
 def test_ext_binary_ops_match_jax(op):
     a, b = _ext_pair(4)
     want = GL2_OPS.to_np(getattr(GL2_OPS, op)(GL2_OPS.from_np(a), GL2_OPS.from_np(b)))
-    got = _ne(getattr(fd, f"ext_{op}")(_te(a), _te(b)))
+    got = _ne(getattr(TGL2, op)(_te(a), _te(b)))
     np.testing.assert_array_equal(got, want)
 
 
 def test_ext_square_scale_inverse_match_jax():
     a, b = _ext_pair(5, n=60)
     ja, jb = GL2_OPS.from_np(a), GL2_OPS.from_np(b)
-    np.testing.assert_array_equal(_ne(fd.ext_square(_te(a))), GL2_OPS.to_np(GL2_OPS.square(ja)))
+    np.testing.assert_array_equal(_ne(TGL2.square(_te(a))), GL2_OPS.to_np(GL2_OPS.square(ja)))
     np.testing.assert_array_equal(
-        _ne(fd.ext_scale(_te(a), _t(b[:, 0]))), GL2_OPS.to_np(GL2_OPS.scale(ja, jb[0]))
+        _ne(TGL2.scale(_te(a), _t(b[:, 0]))), GL2_OPS.to_np(GL2_OPS.scale(ja, jb[0]))
     )
-    np.testing.assert_array_equal(_ne(fd.ext_inv(_te(a))), GL2_OPS.to_np(GL2_OPS.inv(ja)))
+    np.testing.assert_array_equal(_ne(TGL2.inv(_te(a))), GL2_OPS.to_np(GL2_OPS.inv(ja)))
 
 
 def test_ext_scalar_broadcasts_by_period():
     a, b = _ext_pair(6, n=30)
-    z = fd.ext_const((int(b[0, 0]), int(b[0, 1])), "cpu")
-    got = _ne(fd.ext_mul(_te(a), z))
+    z = TGL2.const((int(b[0, 0]), int(b[0, 1])), "cpu")
+    got = _ne(TGL2.mul(_te(a), z))
     want = GL2_OPS.to_np(GL2_OPS.mul(GL2_OPS.from_np(a), GL2_OPS.from_np(np.broadcast_to(b[0], a.shape))))
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):  # column broadcasts are not a period
-        fd.mul(torch.zeros((3, 4), dtype=torch.int64), torch.zeros((3, 1), dtype=torch.int64))
+        TGL.mul(torch.zeros((3, 4), dtype=torch.int64), torch.zeros((3, 1), dtype=torch.int64))
 
 
 def test_unsupported_device_raises():
     with pytest.raises(ValueError):
-        fd.add(torch.zeros(2, dtype=torch.int64, device="meta"), torch.zeros(2, dtype=torch.int64, device="meta"))
+        TGL.add(torch.zeros(2, dtype=torch.int64, device="meta"), torch.zeros(2, dtype=torch.int64, device="meta"))
 
 
 def test_import_leaves_jax_out():

@@ -21,7 +21,7 @@ LOG_N = 10
 @pytest.fixture(scope="module")
 def entry():
     with open(golden.GOLDEN_PATH) as f:
-        return json.load(f)[str(LOG_N)]
+        return json.load(f)["goldilocks_blake3"][str(LOG_N)]
 
 
 def test_jax_package_reproduces_the_golden_entry(entry):
@@ -37,7 +37,7 @@ def test_port_reproduces_the_golden_entry(entry):
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs, u32_add_witness
 
     config = GoldilocksBlake3Config(
-        CommitmentParameters(**golden.BENCH_COMMIT), FriParameters(**golden.BENCH_FRI)
+        CommitmentParameters(**golden.BENCH_COMMIT), FriParameters(**golden.BENCH_FRI), device="cpu"
     )
     system, key = System.new(config, u32_add_system_inputs())
     traces, claims = mt.witness_from_numpy(

@@ -7,7 +7,7 @@ import pytest
 
 from multistark_tpu.fields.device import GL_OPS
 from multistark_tpu.merkle import Blake3FieldHasher as JaxHasher, MerkleMmcs as JaxMmcs
-from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.device import GL_OPS as TGL
 from multistark_tpu_torch.fields.host import GOLDILOCKS
 from multistark_tpu_torch.hash import blake3 as b3
 from multistark_tpu_torch.hash.blake3_host import native_hash_words
@@ -21,7 +21,7 @@ def _mats(dims, seed):
 
 def _both(mats_np, cap_height):
     jax_cap, jax_data = JaxMmcs(JaxHasher(GL_OPS), cap_height).commit([GL_OPS.from_np(m) for m in mats_np])
-    cap, data = MerkleMmcs(Blake3FieldHasher(), cap_height).commit([fd.from_np(m, "cpu") for m in mats_np])
+    cap, data = MerkleMmcs(Blake3FieldHasher(), cap_height).commit([TGL.from_np(m, "cpu") for m in mats_np])
     return (jax_cap, jax_data), (cap, data)
 
 
@@ -46,7 +46,7 @@ def test_mixed_height_caps_match_jax(case, cap_height):
 def test_rows_wider_than_a_chunk(width):
     """1024-byte rows are one chunk; wider ones take the BLAKE3 chunk tree."""
     m = _mats([(width, 8)], width)[0]
-    got = b3.hash_rows([fd.from_np(m, "cpu")]).numpy().view(np.uint32)
+    got = b3.hash_rows([TGL.from_np(m, "cpu")]).numpy().view(np.uint32)
     words = np.stack([m & np.uint64(0xFFFFFFFF), m >> np.uint64(32)], axis=1).reshape(2 * width, 8)
     want = native_hash_words(words.T.astype(np.uint32))
     np.testing.assert_array_equal(got, want)
@@ -71,4 +71,4 @@ def test_sub_cap_matrices_are_rejected():
     with pytest.raises(AssertionError):
         JaxMmcs(JaxHasher(GL_OPS), 3).commit([GL_OPS.from_np(m) for m in mats])
     with pytest.raises(ValueError, match="below cap size"):
-        MerkleMmcs(Blake3FieldHasher(), 3).commit([fd.from_np(m, "cpu") for m in mats])
+        MerkleMmcs(Blake3FieldHasher(), 3).commit([TGL.from_np(m, "cpu") for m in mats])

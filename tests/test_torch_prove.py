@@ -31,7 +31,9 @@ def _prove_both(jax_inputs, torch_inputs, traces, claims, cap_height, fri):
     jcfg = JaxConfig(JaxCommit(log_blowup=2, cap_height=cap_height), JaxFri(**fri))
     jsys, jkey = JaxSystem.new(jcfg, jax_inputs)
     jproof = jax_prove(jsys, jkey, JaxWitness.from_stage_1(traces, jsys, jkey), claims)
-    tcfg = GoldilocksBlake3Config(CommitmentParameters(log_blowup=2, cap_height=cap_height), FriParameters(**fri))
+    tcfg = GoldilocksBlake3Config(
+        CommitmentParameters(log_blowup=2, cap_height=cap_height), FriParameters(**fri), device="cpu"
+    )
     tsys, tkey = System.new(tcfg, torch_inputs)
     ttraces, tclaims = mt.witness_from_numpy(traces, claims, tcfg.device)
     tproof = prove_multiple_claims(tsys, tkey, SystemWitness.from_stage_1(ttraces, tsys, tkey), tclaims)

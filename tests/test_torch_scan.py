@@ -9,6 +9,7 @@ from multistark_tpu import utils as jax_utils
 from multistark_tpu.fields.device import GL2_OPS, GL_OPS
 from multistark_tpu_torch import utils
 from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.device import GL2_OPS as TGL2, GL_OPS as TGL
 from multistark_tpu_torch.fields.host import GOLDILOCKS
 
 SIZES = [1, 5, 300]
@@ -30,21 +31,21 @@ def _ext(n, seed):
 
 
 def _te(x):  # (n, 2) host -> (2, n) tensor
-    return fd.from_np(np.ascontiguousarray(x.T), "cpu")
+    return TGL.from_np(np.ascontiguousarray(x.T), "cpu")
 
 
 @pytest.mark.parametrize("n", SIZES)
 def test_base_batch_inverse_matches_jax(n):
     x = _base(n, n)
     want = np.stack([GL_OPS.to_np(jax_utils._batch_inv_impl(GL_OPS, GL_OPS.from_np(row))) for row in x])
-    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(fd.from_np(x, "cpu"), ext=False)), want)
+    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(TGL.from_np(x, "cpu"), TGL)), want)
 
 
 @pytest.mark.parametrize("n", SIZES)
 def test_ext_batch_inverse_matches_jax(n):
     x = _ext(n, n)
     want = GL2_OPS.to_np(jax_utils._batch_inv_impl(GL2_OPS, GL2_OPS.from_np(x), axis=0))
-    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(_te(x), ext=True)).T, want)
+    np.testing.assert_array_equal(fd.to_np(utils.batch_inv(_te(x), TGL2)).T, want)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -52,10 +53,10 @@ def test_sum_and_cumsum_match_jax(n):
     x = _base(n, 10 + n, rows=3)
     jx = GL_OPS.from_np(x)
     np.testing.assert_array_equal(
-        fd.to_np(utils.field_sum(fd.from_np(x, "cpu"))), GL_OPS.to_np(jax_utils.field_sum(GL_OPS, jx, axis=-1))
+        fd.to_np(utils.field_sum(TGL.from_np(x, "cpu"), TGL)), GL_OPS.to_np(jax_utils.field_sum(GL_OPS, jx, axis=-1))
     )
     np.testing.assert_array_equal(
-        fd.to_np(utils.cumsum(fd.from_np(x, "cpu"))), GL_OPS.to_np(jax_utils.cumsum(GL_OPS, jx, axis=-1))
+        fd.to_np(utils.cumsum(TGL.from_np(x, "cpu"), TGL)), GL_OPS.to_np(jax_utils.cumsum(GL_OPS, jx, axis=-1))
     )
 
 
@@ -64,8 +65,8 @@ def test_ext_sum_and_cumsum_match_jax(n):
     x = _ext(n, 20 + n)
     jx = GL2_OPS.from_np(x)
     np.testing.assert_array_equal(
-        fd.to_np(utils.field_sum(_te(x))), GL2_OPS.to_np(jax_utils.field_sum(GL2_OPS, jx, axis=0))
+        fd.to_np(utils.field_sum(_te(x), TGL2)), GL2_OPS.to_np(jax_utils.field_sum(GL2_OPS, jx, axis=0))
     )
     np.testing.assert_array_equal(
-        fd.to_np(utils.cumsum(_te(x))).T, GL2_OPS.to_np(jax_utils.cumsum(GL2_OPS, jx, axis=0))
+        fd.to_np(utils.cumsum(_te(x), TGL2)).T, GL2_OPS.to_np(jax_utils.cumsum(GL2_OPS, jx, axis=0))
     )

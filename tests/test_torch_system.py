@@ -19,6 +19,7 @@ from multistark_tpu_torch import lookup as lk
 from multistark_tpu_torch.config import CommitmentParameters, FriParameters
 from multistark_tpu_torch.configs import GoldilocksBlake3Config
 from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.device import GL2_OPS as TGL2
 from multistark_tpu_torch.system import System, SystemWitness
 from multistark_tpu_torch.test_circuits import u32_add_system_inputs
 
@@ -29,7 +30,7 @@ LOG_N = 5
 def both():
     fri = FriParameters.standard_fast()
     jcfg = JaxConfig(JaxCommit(log_blowup=2, cap_height=1), JaxFri(**vars(fri)))
-    tcfg = GoldilocksBlake3Config(CommitmentParameters(log_blowup=2, cap_height=1), fri)
+    tcfg = GoldilocksBlake3Config(CommitmentParameters(log_blowup=2, cap_height=1), fri, device="cpu")
     jsys, jkey = JaxSystem.new(jcfg, jax_u32_inputs())
     tsys, tkey = System.new(tcfg, u32_add_system_inputs())
     rng = np.random.default_rng(11)
@@ -56,7 +57,10 @@ def test_transcript_profile_is_the_jax_default():
     from multistark_tpu.config import DEFAULT_TRANSCRIPT_PROFILE as jax_profile
     from multistark_tpu_torch.config import TranscriptProfile
 
-    for name in ("fri_observe_claims_before_alpha", "commit_pow_witness_placement"):
+    for name in (
+        "fri_observe_claims_before_alpha", "commit_pow_witness_placement", "duplex_observe_bytes",
+        "poseidon2_constants",
+    ):
         assert getattr(TranscriptProfile, name) == getattr(jax_profile, name), name
 
 
@@ -95,7 +99,7 @@ def test_stage_2_traces_and_accumulators_are_equal(both):
     jmats, jaccs = jax_lk.stage_2_traces(
         GL_OPS, GL2_OPS, GOLDILOCKS, GOLDILOCKS_EXT2, jwit.lookup_values, beta, gamma, acc0
     )
-    tmats, taccs = lk.stage_2_traces(GOLDILOCKS_EXT2, twit.lookup_values, beta, gamma, acc0, tcfg.device)
+    tmats, taccs = lk.stage_2_traces(TGL2, twit.lookup_values, beta, gamma, acc0, tcfg.device)
     assert taccs == jaccs
     for jm, tm in zip(jmats, tmats):
         np.testing.assert_array_equal(fd.to_np(tm), GL_OPS.to_np(jm))
