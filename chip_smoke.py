@@ -8,21 +8,28 @@ without printing a result:
 
   1. device  -- torch.cuda must be available; prints the card's name and
                 its `nvidia-smi` name and power limit
-  2. build   -- compiles the six CUDA kernels from csrc/ (one nvcc per
+  2. build   -- compiles the ten CUDA kernels from csrc/ (one nvcc per
                 source, all at once, then one link; sm_90a)
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear;
-                outputs must be bit-equal (all arithmetic is exact mod p);
-                warm CUDA-event times of both
+                outputs must be bit-equal (all arithmetic is exact mod p,
+                all hashing exact); warm CUDA-event times of both
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
-                witness) at 2^14 and 2^18 rows on `cuda`, under
-                GoldilocksBlake3Config and then BabyBearPoseidon2Config;
-                proof bytes must match the JAX package's golden sha256 and
-                length (fixtures/torch_port_golden.json); warm prove
-                seconds and peak device memory.  The launch counts are set
-                to 0 before each config's path and read after it; every
-                kernel of that path must have launched
+                witness) at 2^14 and 2^18 rows on `cuda` along three paths:
+                GoldilocksBlake3Config through `prove_multiple_claims` (the
+                device transcript) and through `prove_host_transcript`,
+                then BabyBearPoseidon2Config; proof bytes must match the
+                JAX package's golden sha256 and length
+                (fixtures/torch_port_golden.json); warm prove seconds, peak
+                device memory and the launches of each warm prove.  The
+                launch counts are set to 0 before each path and read right
+                after its proves; every kernel of that path must have
+                launched.  After that read, the device transcript's path up
+                to its one global fetch runs once more per size under
+                torch.cuda.set_sync_debug_mode("error") (any op there that
+                waits for the device raises), and the path must count no
+                fallback
 
 Then a JSON line of per-kernel results (with each kernel's bound: the least
 time the card could take for the same work), the nvidia-smi line, and as
@@ -41,11 +48,25 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZES = (14, 18)
 WITNESS_SEED = 0xDEADBEEF  # bench.py u32_add_case
-# each config's main path and the kernels it must launch
+# each path: (config, prover entry point, the kernels it must launch)
 PATHS = {
-    "goldilocks_blake3": ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan"),
-    "babybear_poseidon2": ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan"),
+    "goldilocks_blake3 device transcript": (
+        "goldilocks_blake3", "prove_multiple_claims",
+        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "dt_flush", "fri_grind", "claims_fp", "fri_fold"),
+    ),
+    "goldilocks_blake3 host transcript": (
+        "goldilocks_blake3", "prove_host_transcript",
+        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "fri_grind", "claims_fp", "fri_fold"),
+    ),
+    "babybear_poseidon2": (
+        "babybear_poseidon2", "prove_multiple_claims",
+        ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan", "claims_fp", "fri_fold"),
+    ),
 }
+BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
+BENCH_FRI = dict(log_final_poly_len=0, max_log_arity=1, num_queries=100,
+                 commit_proof_of_work_bits=10, query_proof_of_work_bits=10)
+CLAIM_WIDTH = 4  # values per claim of the bench workload (u32_add: channel, x, y, x + y mod 2^32)
 # One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s,
 # and 32-bit operations/s on the CUDA cores (the float32 non-tensor rate;
 # integer instructions run no faster, so this gives the least time)
@@ -110,7 +131,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import utils
+    from multistark_tpu_torch import device_transcript as dt, lookup as lk, pcs, utils
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
     from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
@@ -131,7 +152,7 @@ def check_kernels(dev):
         ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
         bound_ms, bound_by = bound(*cost)
         say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"bound_ms={bound_ms:.4g} ({bound_by})")
         if err != 0:
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
         if name is not None:  # no single PyTorch call computes any of these mod p: library_ms is null
@@ -157,6 +178,14 @@ def check_kernels(dev):
                 (16 * D * k2, ext_inv_muls * mul_ops * k2))
         compare(f"{arith} ext_mul ({D}, 2^20)", lambda: E.mul(ea, eb), lambda: E.mul_plain(ea, eb),
                 (3 * 8 * D * m, ext_muls * mul_ops * m), name=arith)
+        # a transcript scalar, (D,) or (D, 1), against a (D, n) vector on either side
+        for shape in ((D,), (D, 1)):
+            sc = rnd(F, D).reshape(shape)
+            full = sc.reshape(D, 1).expand(D, m).contiguous()
+            for op in (E.add, E.sub, E.mul):
+                if not (torch.equal(op(ea, sc), op(ea, full)) and torch.equal(op(sc, ea), op(full, ea))):
+                    raise AssertionError(f"{arith}: an ext scalar of shape {shape} broadcasts wrongly")
+        say("kernels", f"{arith}: ext scalars of shape ({D},) and ({D}, 1) broadcast against ({D}, 2^20)")
 
         # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages
         lde = rnd(F, lde_w, 1 << lde_log)
@@ -218,7 +247,92 @@ def check_kernels(dev):
             ref = mod.compress_pairs_plain(ref[0::2], ref[1::2])
         if not np.array_equal(cap, ref.cpu().numpy().view(np.uint32)):
             raise AssertionError(f"{hname}: 2^20-leaf tree root disagrees with the plain version")
+
+        # K10: one arity-2 fold round of a (D, 2^20) vector, as the device
+        # FRI rounds and the host loop run it; and arity 4 with an absorb
+        hf = F.host
+        cur, beta = rnd(F, D, m), rnd(F, D)
+        tabs = [rnd(F, m >> s) for s in range(2)]
+        fold_ops = D + D + 1 + ext_muls  # the two scales, the x product, the β product
+        compare(f"fri_fold {E.name} arity 2 ({D}, 2^20)",
+                lambda: pcs.fri_fold(E, cur, beta, tabs[:1], hf.inv(2)),
+                lambda: pcs.fri_fold_plain(E, cur, beta, tabs[:1], hf.inv(2)),
+                (8 * D * m + 8 * (m // 2) + 8 * D * (m // 2), fold_ops * mul_ops * (m // 2)),
+                name="fri_fold" if F is GL_OPS else None)
+        absorb = rnd(F, D, m // 4)
+        compare(f"fri_fold {E.name} arity 4 + absorb ({D}, 2^20)",
+                lambda: pcs.fri_fold(E, cur, beta, tabs, hf.inv(2), absorb),
+                lambda: pcs.fri_fold_plain(E, cur, beta, tabs, hf.inv(2), absorb),
+                (8 * D * m + 8 * (m // 2 + m // 8) + 16 * D * (m // 4), fold_ops * mul_ops * (m // 2 + m // 4)))
+
+        # K9: the messages of 2^18 claims of the bench's width
+        n_claims = 1 << 18
+        cols, g, b = rnd(F, CLAIM_WIDTH, n_claims), rnd(F, D), rnd(F, D)
+        compare(f"claims_fp {E.name} ({CLAIM_WIDTH}, 2^18)", lambda: lk.claims_fp(E, cols, b, g),
+                lambda: lk.claims_fp_plain(E, cols, b, g),
+                (8 * CLAIM_WIDTH * n_claims + 8 * D * n_claims + 16 * D,
+                 CLAIM_WIDTH * ext_muls * mul_ops * n_claims),
+                name="claims_fp" if F is GL_OPS else None)
+
+    # K8: one FRI round's grind at the bench's 10 bits over chain ‖ cap
+    bits = BENCH_FRI["commit_proof_of_work_bits"]
+    inp = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 16).astype(np.int32)).to(dev)
+    n_cands = 64 << bits
+    blocks = -(-(4 * 16 + 8) // 64)
+
+    def grind(fn):
+        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn(inp, bits, 2)])
+
+    compare(f"fri_grind 2^{bits} bits, {n_cands} candidates", grind(dt.fri_grind), grind(dt.fri_grind_plain),
+            (4 * 16 + 8 * 4 + 32, n_cands * blocks * OPS_PER_BLAKE3), name="fri_grind")
+
+    # K7: the β/γ flush of a 2^18-row prove (random cap and claims)
+    inputs = beta_gamma_flush(dev, 18, rng)
+    plan = inputs.plan.tolist()
+    T, S, n_ops = plan[1], plan[2], plan[3]
+    compressions = sum(max(1, -(-plan[6 + 2 * t] // 64)) for t in range(T)) + n_ops
+    say("kernels", f"dt_flush plan: {plan[0]} chunks, {T} on the device, {S} host siblings, {n_ops} parent ops")
+
+    def flush(fn):
+        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn(*inputs)])
+
+    compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
+            (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
     return rows
+
+
+def bench_config(dev, config_name: str):
+    from multistark_tpu_torch.config import CommitmentParameters, FriParameters
+    from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
+
+    cls = {"goldilocks_blake3": GoldilocksBlake3Config, "babybear_poseidon2": BabyBearPoseidon2Config}[config_name]
+    return cls(CommitmentParameters(**BENCH_COMMIT), FriParameters(**BENCH_FRI), device=dev)
+
+
+def beta_gamma_flush(dev, log_n: int, rng):
+    """K7's operands for the first flush of a device-transcript prove of the
+    bench system at 2^log_n rows: the config seed, the shape, the activity
+    bytes, the preprocessed cap, the stage-1 cap (random, on the device),
+    the log degrees and 2^log_n random claims."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import device_transcript as dt, dt_prover
+    from multistark_tpu_torch.system import System
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    config = bench_config(dev, "goldilocks_blake3")
+    system, _ = System.new(config, u32_add_system_inputs())
+    dd = dt.DeviceDuplex(dev)
+    dd.observe_bytes(bytes(config.initialise_challenger().inner.input_buffer))
+    system.observe_shape(dd)
+    dd.observe_bytes(b"\x01" * len(system.circuits))
+    dd.observe_bytes(dt_prover._cap_bytes(system.preprocessed_commit))
+    dd.observe_cap_device(torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (1, 8)).astype(np.int32)).to(dev))
+    dd.observe_bytes(bytes([log_n, 8]))
+    claims = rng.integers(0, 1 << 32, (1 << log_n, CLAIM_WIDTH), dtype=np.uint64)
+    dt_prover._observe_claims_dd(dd, claims, config.host_field.p)
+    return dd.flush_inputs()
 
 
 def _dit(F, stage, x, tables):
@@ -228,31 +342,27 @@ def _dit(F, stage, x, tables):
     return x
 
 
-def prove_sizes(dev, config_name: str):
-    """Phase 4: the bench workload on the card under one config; returns the
+def prove_sizes(dev, path: str):
+    """Phase 4: the bench workload on the card along one path; returns the
     launch counts of that path (set to 0 just before it, read just after)."""
     import numpy as np
     import torch
 
     import multistark_tpu_torch as mt
-    from multistark_tpu_torch import kernels
-    from multistark_tpu_torch.config import CommitmentParameters, FriParameters
-    from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
-    from multistark_tpu_torch.prover import prove_multiple_claims
+    from multistark_tpu_torch import device_transcript as dt, dt_prover, kernels, prover
     from multistark_tpu_torch.system import System, SystemWitness
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs, u32_add_witness
 
+    config_name, entry, needed = PATHS[path]
     with open(os.path.join(ROOT, "fixtures", "torch_port_golden.json")) as f:
         golden = json.load(f)[config_name]
-    cls = {"goldilocks_blake3": GoldilocksBlake3Config, "babybear_poseidon2": BabyBearPoseidon2Config}[config_name]
-    config = cls(
-        CommitmentParameters(log_blowup=2, cap_height=0),
-        FriParameters(log_final_poly_len=0, max_log_arity=1, num_queries=100,
-                      commit_proof_of_work_bits=10, query_proof_of_work_bits=10),
-        device=dev,
-    )
+    prove = getattr(prover, entry)
+    config = bench_config(dev, config_name)
+    device_transcript = config_name == "goldilocks_blake3" and entry == "prove_multiple_claims"
     kernels.reset_launch_counts()  # phase 3's comparison launches and other paths do not count
+    dt.FALLBACKS.clear()
     system, key = System.new(config, u32_add_system_inputs())
+    sync_checks = []
     for log_n in SIZES:
         n = 1 << log_n
         rng = np.random.default_rng(WITNESS_SEED)
@@ -265,27 +375,45 @@ def prove_sizes(dev, config_name: str):
         torch.cuda.synchronize()
         t_wit = time.perf_counter() - t0
         t0 = time.perf_counter()
-        proof = prove_multiple_claims(system, key, witness, claims)
+        proof = prove(system, key, witness, claims)
         torch.cuda.synchronize()
         t_cold = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()
         t0 = time.perf_counter()
-        proof = prove_multiple_claims(system, key, witness, claims)
+        proof = prove(system, key, witness, claims)
         torch.cuda.synchronize()
         t_warm = time.perf_counter() - t0
+        per_prove = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
         peak = torch.cuda.max_memory_allocated()
         data = proof.to_bytes()
         got = {"sha256": hashlib.sha256(data).hexdigest(), "n_bytes": len(data)}
-        say("prove", f"{config_name} log_n={log_n}: witness {t_wit:.3f} s, first prove {t_cold:.3f} s, "
+        say("prove", f"{path} log_n={log_n}: witness {t_wit:.3f} s, first prove {t_cold:.3f} s, "
             f"warm prove {t_warm:.4f} s, peak device memory {peak / 2**20:.1f} MiB, "
             f"proof {got['n_bytes']} bytes sha256 {got['sha256']}")
+        say("prove", f"{path} log_n={log_n}: launches of the warm prove {per_prove}")
         if got != golden[str(log_n)]:
-            raise AssertionError(f"{config_name} log_n={log_n}: proof {got} != JAX golden {golden[str(log_n)]}")
-    counts = kernels.launch_counts()
-    say("prove", f"{config_name} kernel launches over the path: {counts}")
-    idle = [k for k in PATHS[config_name] if counts[k] <= 0]
+            raise AssertionError(f"{path} log_n={log_n}: proof {got} != JAX golden {golden[str(log_n)]}")
+        if device_transcript:
+            sync_checks.append((log_n, witness, claims))
+    counts = kernels.launch_counts()  # the path's proves, and nothing else
+    say("prove", f"{path} kernel launches over the path: {counts}; fallbacks {dict(dt.FALLBACKS)}")
+    for log_n, witness, claims in sync_checks:
+        # the device transcript's path up to its global fetch once more, with
+        # every op that waits for the device raising (after the read above:
+        # these launches are not the path's)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dt_prover._device_phase(system, key, witness, claims)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say("prove", f"{path} log_n={log_n}: 0 syncs before the global fetch (sync debug mode \"error\")")
+    if config_name == "goldilocks_blake3" and dt.FALLBACKS:
+        raise AssertionError(f"{path}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
+    idle = [k for k in needed if counts[k] <= 0]
     if idle:
-        raise AssertionError(f"{config_name}: kernels never launched on its path: {idle}")
+        raise AssertionError(f"{path}: kernels never launched on its path: {idle}")
     return counts
 
 
@@ -313,8 +441,8 @@ def main() -> int:
 
     checked = check_kernels(dev)
     launches = {k.name: 0 for k in kernels.KERNELS}
-    for config_name in PATHS:
-        for name, count in prove_sizes(dev, config_name).items():
+    for path in PATHS:
+        for name, count in prove_sizes(dev, path).items():
             launches[name] += count
 
     rows = []

@@ -6,10 +6,12 @@ same modules and layouts, the same transcript, the same proof bytes, for
 both of its configs: GoldilocksBlake3Config (Goldilocks, GL2, BLAKE3) and
 BabyBearPoseidon2Config (BabyBear, BB4, Poseidon2).  Field elements are
 int64 tensors holding canonical values; on a CUDA device all field
-arithmetic, NTT butterflies, Merkle hashing and scans run in six kernels
-built from csrc/ at first use (kernels.py), and on the CPU in their plain
-PyTorch versions.  The configs run on "cuda" unless asked for "cpu".  This
-package never imports JAX.
+arithmetic, NTT butterflies, Merkle hashing, scans, FRI folds and the
+device transcript's duplex run in ten kernels built from csrc/ at first use
+(kernels.py), and on the CPU in their plain PyTorch versions.  The configs
+run on "cuda" unless asked for "cpu".  GoldilocksBlake3 proves through the
+whole-prove device transcript (dt_prover.py), BabyBearPoseidon2 through the
+host transcript.  This package never imports JAX.
 
     config = GoldilocksBlake3Config(commit_params, fri_params)  # device="cuda"
     system, key = System.new(config, u32_add_system_inputs())

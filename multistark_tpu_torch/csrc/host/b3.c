@@ -1,12 +1,11 @@
-/* Portable BLAKE3 (hash + 2-to-1 compress) and the Goldilocks^2 claims
- * accumulator: the host C helper of the PyTorch port's GoldilocksBlake3
- * config.
+/* Portable BLAKE3 (hash + 2-to-1 compress): the host C helper of the
+ * PyTorch port's GoldilocksBlake3 config.
  *
  * The GPU does the batched hashing (kernel K3, csrc/blake3_merkle.cu); this
  * covers the host-side serial uses: challenger flushes, the commit- and
- * query-phase grinds and the claims accumulator.  It is the port's own copy
- * of the JAX package's csrc/b3.c, so that the port builds nothing from
- * outside its package.
+ * query-phase grinds and the host half of a device-duplex flush.  It is the
+ * port's own copy of the BLAKE3 part of the JAX package's csrc/b3.c, so
+ * that the port builds nothing from outside its package.
  *
  * Built with poseidon2.c into build/torch_kernels/libmshost.so by
  * multistark_tpu_torch/native.py.
@@ -193,207 +192,28 @@ uint64_t msb3_grind(const uint8_t *prefix, uint64_t prefix_len, uint64_t start,
     return (uint64_t)-1;
 }
 
-/* ---- Goldilocks F_p[X]/(X^2 - 7) claims accumulator -----------------------
- * acc = sum_i (beta + sum_j gamma^j * v_ij)^-1 over n claims of L base
- * values each (reference src/prover.rs:381-387).  Host-linear transcript
- * work that must run at native speed at 2^20 claims; pinned against the
- * Python host field in tests/test_lookup.py. */
-
-#define GLP 0xFFFFFFFF00000001ull
-#define GLW 7ull /* X^2 = 7 */
-
-static inline uint64_t gla(uint64_t a, uint64_t b) {
-    uint64_t s = a + b;
-    if (s < a) s += 0xFFFFFFFFull; /* wrap: +2^64 ≡ +(2^32-1) */
-    if (s >= GLP) s -= GLP;
-    return s;
-}
-
-static inline uint64_t gls(uint64_t a, uint64_t b) {
-    uint64_t d = a - b;
-    if (a < b) d -= 0xFFFFFFFFull; /* borrow: -2^64 ≡ -(2^32-1) */
-    return d;
-}
-
-static inline uint64_t glm(uint64_t a, uint64_t b) {
-    unsigned __int128 x = (unsigned __int128)a * b;
-    uint64_t lo = (uint64_t)x, hi = (uint64_t)(x >> 64);
-    uint64_t x2 = hi & 0xFFFFFFFFull, x3 = hi >> 32;
-    uint64_t l = lo >= GLP ? lo - GLP : lo;
-    uint64_t m = x2 * 0xFFFFFFFFull; /* exact, < 2^64 */
-    if (m >= GLP) m -= GLP;
-    return gls(gla(l, m), x3); /* x3 < 2^32 < p */
-}
-
-static inline uint64_t glinv(uint64_t a) { /* Fermat: a^(p-2) */
-    uint64_t r = 1, e = GLP - 2;
-    while (e) {
-        if (e & 1) r = glm(r, a);
-        a = glm(a, a);
-        e >>= 1;
-    }
-    return r;
-}
-
-typedef struct { uint64_t c0, c1; } gl2;
-
-static inline gl2 gl2_add(gl2 a, gl2 b) { return (gl2){gla(a.c0, b.c0), gla(a.c1, b.c1)}; }
-
-static inline gl2 gl2_mul(gl2 a, gl2 b) {
-    return (gl2){gla(glm(a.c0, b.c0), glm(GLW, glm(a.c1, b.c1))),
-                 gla(glm(a.c0, b.c1), glm(a.c1, b.c0))};
-}
-
-static inline uint64_t glneg(uint64_t a) { return a ? GLP - a : 0; }
-
-static inline gl2 gl2_inv(gl2 a) { /* (c0 - c1 X)/(c0^2 - W c1^2) */
-    uint64_t d = gls(glm(a.c0, a.c0), glm(GLW, glm(a.c1, a.c1)));
-    uint64_t di = glinv(d);
-    return (gl2){glm(a.c0, di), glneg(glm(a.c1, di))};
-}
-
-/* vals: n*L row-major canonical base values; gamma/beta: 2 coords each;
- * scratch: caller-provided n*2 u64 buffer; out: 2 coords.
- * Returns 0 on success, 1 if some denominator was zero. */
-int msgl_claims_acc2(const uint64_t *vals, uint64_t n, uint64_t L,
-                     const uint64_t *gamma, const uint64_t *beta,
-                     uint64_t *scratch, uint64_t *out) {
-    gl2 g = {gamma[0], gamma[1]}, b = {beta[0], beta[1]};
-    gl2 *d = (gl2 *)scratch;
-    for (uint64_t i = 0; i < n; i++) {
-        gl2 f = {0, 0};
-        const uint64_t *row = vals + i * L;
-        for (uint64_t j = L; j-- > 0;) {
-            f = gl2_mul(f, g);
-            f.c0 = gla(f.c0, row[j]);
-        }
-        d[i] = gl2_add(f, b);
-    }
-    /* Montgomery batch inverse: forward prefix products in place, one
-     * inversion, backward sweep. */
-    gl2 run = {1, 0};
-    for (uint64_t i = 0; i < n; i++) {
-        gl2 di = d[i];
-        if ((di.c0 | di.c1) == 0) return 1;
-        d[i] = run;          /* prefix product BEFORE element i */
-        run = gl2_mul(run, di);
-    }
-    gl2 tinv = gl2_inv(run);
-    /* walk back: inv_i = prefix_i * suffix_inv; suffix_inv *= d_i.
-     * d_i was overwritten, so recompute fingerprints in reverse. */
-    gl2 acc = {0, 0};
-    for (uint64_t i = n; i-- > 0;) {
-        gl2 f = {0, 0};
-        const uint64_t *row = vals + i * L;
-        for (uint64_t j = L; j-- > 0;) {
-            f = gl2_mul(f, g);
-            f.c0 = gla(f.c0, row[j]);
-        }
-        gl2 di = gl2_add(f, b);
-        acc = gl2_add(acc, gl2_mul(d[i], tinv));
-        tinv = gl2_mul(tinv, di);
-    }
-    out[0] = acc.c0;
-    out[1] = acc.c1;
-    return 0;
-}
-
-/* ---- Goldilocks radix-2 butterfly passes (host NTT accelerator) -----------
- * In-place DIF/DIT over a row-major (w, n) u64 matrix, mirroring
- * ntt.py _dif_np/_dit_np exactly (same stage order and butterfly algebra).
- * tw = concatenated per-stage twiddle tables in INCREASING stage order
- * (lengths 1, 2, 4, ..., n/2 — ntt.py _np_twiddles layout); DIF applies
- * them in reverse, DIT forward.  OpenMP-parallel over rows. */
-
-#ifdef _OPENMP
-#include <omp.h>
-#endif
-
-static void gl_dif_row(uint64_t *x, uint64_t n, uint64_t log_n, const uint64_t *tw) {
-    for (uint64_t s = log_n; s >= 1; s--) {
-        uint64_t half = 1ull << (s - 1);
-        const uint64_t *t = tw + (half - 1); /* offset of stage s table */
-        for (uint64_t blk = 0; blk < n; blk += 2 * half) {
-            uint64_t *a = x + blk, *b = x + blk + half;
-            for (uint64_t i = 0; i < half; i++) {
-                uint64_t lo = gla(a[i], b[i]);
-                uint64_t hi = glm(gls(a[i], b[i]), t[i]);
-                a[i] = lo;
-                b[i] = hi;
-            }
-        }
+/* Non-root chaining values of every 1024-byte chunk of a message (chunk i
+ * with counter i; the last chunk may be short): the host half of the device
+ * duplex flush, which hashes on the device only the chunks that hold device
+ * bytes.  out receives n_chunks x 8 words. */
+void msb3_chunk_cvs(const uint8_t *data, uint64_t len, uint32_t *out) {
+    uint64_t n_chunks = len == 0 ? 1 : (len + CHUNK_LEN - 1) / CHUNK_LEN;
+    for (uint64_t c = 0; c < n_chunks; c++) {
+        uint64_t take = len - c * CHUNK_LEN < CHUNK_LEN ? len - c * CHUNK_LEN : CHUNK_LEN;
+        chunk_cv(data + c * CHUNK_LEN, take, c, 0, out + 8 * c);
     }
 }
 
-static void gl_dit_row(uint64_t *x, uint64_t n, uint64_t log_n, const uint64_t *tw) {
-    for (uint64_t s = 1; s <= log_n; s++) {
-        uint64_t half = 1ull << (s - 1);
-        const uint64_t *t = tw + (half - 1);
-        for (uint64_t blk = 0; blk < n; blk += 2 * half) {
-            uint64_t *a = x + blk, *b = x + blk + half;
-            for (uint64_t i = 0; i < half; i++) {
-                uint64_t m = glm(b[i], t[i]);
-                uint64_t lo = gla(a[i], m);
-                uint64_t hi = gls(a[i], m);
-                a[i] = lo;
-                b[i] = hi;
-            }
-        }
+/* One level of the chunk tree: adjacent pairs of n chaining values combine
+ * into non-root parents, and an odd last value carries up unchanged (the
+ * level-wise form of BLAKE3's left-largest-power-of-two tree).  out receives
+ * (n + 1) / 2 x 8 words. */
+void msb3_parent_level(const uint32_t *cvs, uint64_t n, uint32_t *out) {
+    uint32_t block[16], out16[16];
+    for (uint64_t p = 0; p < n / 2; p++) {
+        memcpy(block, cvs + 16 * p, 64);
+        compress(IV, block, 0, BLOCK_LEN, PARENT, out16);
+        memcpy(out + 8 * p, out16, 32);
     }
-}
-
-/* But the Python mirrors interleave ACROSS the whole array (the stage's
- * butterfly pairs elements blk+i and blk+half+i within each 2*half block),
- * exactly as above.  DIF stage order: largest half first == reversed
- * increasing-stage tables; here s runs log_n..1 with table offset half-1,
- * matching _np_twiddles (stage s table starts at half-1 = 2^(s-1)-1). */
-
-void msgl_dif(uint64_t *x, uint64_t w, uint64_t log_n, const uint64_t *tw) {
-    uint64_t n = 1ull << log_n;
-#pragma omp parallel for schedule(static)
-    for (uint64_t r = 0; r < w; r++) gl_dif_row(x + r * n, n, log_n, tw);
-}
-
-void msgl_dit(uint64_t *x, uint64_t w, uint64_t log_n, const uint64_t *tw) {
-    uint64_t n = 1ull << log_n;
-#pragma omp parallel for schedule(static)
-    for (uint64_t r = 0; r < w; r++) gl_dit_row(x + r * n, n, log_n, tw);
-}
-
-/* Batch inverse over n Goldilocks^2 elements (rows of 2 u64 coords), zeros
- * mapping to zero (p3 batch_multiplicative_inverse semantics).  Montgomery
- * trick with caller scratch (n*2 u64).  Returns 0. */
-int msgl_batch_inv2(const uint64_t *in, uint64_t n, uint64_t *scratch, uint64_t *out) {
-    gl2 *pre = (gl2 *)scratch;
-    gl2 run = {1, 0};
-    for (uint64_t i = 0; i < n; i++) {
-        pre[i] = run; /* product of nonzero elements BEFORE i */
-        gl2 v = {in[2 * i], in[2 * i + 1]};
-        if ((v.c0 | v.c1) != 0) run = gl2_mul(run, v);
-    }
-    gl2 tinv = ((run.c0 | run.c1) != 0) ? gl2_inv(run) : (gl2){0, 0};
-    for (uint64_t i = n; i-- > 0;) {
-        gl2 v = {in[2 * i], in[2 * i + 1]};
-        if ((v.c0 | v.c1) == 0) {
-            out[2 * i] = 0;
-            out[2 * i + 1] = 0;
-        } else {
-            gl2 r = gl2_mul(pre[i], tinv);
-            out[2 * i] = r.c0;
-            out[2 * i + 1] = r.c1;
-            tinv = gl2_mul(tinv, v);
-        }
-    }
-    return 0;
-}
-
-/* In-place inclusive prefix sum of n Goldilocks^2 elements. */
-void msgl_prefix_sum2(uint64_t *x, uint64_t n) {
-    uint64_t a = 0, b = 0;
-    for (uint64_t i = 0; i < n; i++) {
-        a = gla(a, x[2 * i]);
-        b = gla(b, x[2 * i + 1]);
-        x[2 * i] = a;
-        x[2 * i + 1] = b;
-    }
+    if (n % 2) memcpy(out + 8 * (n / 2), cvs + 8 * (n - 1), 32);
 }

@@ -134,6 +134,7 @@ class FieldOps:
         self.field_id = field_id
         self.kernel = kernel
         self.add_plain, self.sub_plain, self.neg_plain, self.mul_plain = plain
+        self._consts = {}  # (value, device) -> the shape-() tensor `const` made
 
     # -- plain versions (any device) ---------------------------------------
     def pow_plain(self, a, e: int):
@@ -213,18 +214,28 @@ class FieldOps:
         """uint64 numpy -> int64 tensor on `device`.  Goldilocks keeps the
         bit patterns; BabyBear reduces mod p, as the JAX package's from_np
         does (a u32 trace value ≥ p is its residue)."""
+        from ..utils import to_device
+
         a = np.asarray(arr, np.uint64)
         if self.p < (1 << 32):
             a = a % np.uint64(self.p)
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(device)
+        return to_device(np.ascontiguousarray(a).view(np.int64), device)
 
     @staticmethod
     def to_np(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
     def const(self, value: int, device) -> torch.Tensor:
-        """A base scalar (shape ()) on `device`."""
-        return self.from_np(np.uint64(value % self.p), device).reshape(())
+        """A base scalar (shape ()) on `device`, uploaded once per value and
+        device and shared afterwards (callers never write to it).  Every
+        caller passes a fixed value of the circuit or domain (a constraint
+        constant, a generator, an inverse size), so a warm prove uploads
+        none of them."""
+        key = (value % self.p, str(torch.device(device)))
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = self.from_np(np.uint64(key[0]), device).reshape(())
+        return t
 
     def canonical(self, t: torch.Tensor) -> torch.Tensor:
         """A trace tensor's values as field elements (BabyBear reduces
@@ -341,4 +352,6 @@ def to_np(t: torch.Tensor) -> np.ndarray:
 def from_u64(arr, device) -> torch.Tensor:
     """uint64 numpy -> int64 tensor with the same bit patterns (no
     reduction: the caller's values are already canonical)."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.uint64)).view(np.int64)).to(device)
+    from ..utils import to_device
+
+    return to_device(np.ascontiguousarray(np.asarray(arr, np.uint64)).view(np.int64), device)

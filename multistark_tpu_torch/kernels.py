@@ -1,4 +1,4 @@
-"""Build, load and count the port's six hand-written CUDA kernels.
+"""Build, load and count the port's ten hand-written CUDA kernels.
 
 Each source under csrc/ compiles with its own nvcc process (all started
 together) into an object, and the objects link into one shared library with
@@ -44,6 +44,10 @@ _SIGNATURES = {
     "gls_sum_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
     "gls_row_inv": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
     "gls_binv_finish": [_i32, _i32, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "dt_flush": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp],
+    "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp],
+    "claims_fp": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp],
+    "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -175,7 +179,24 @@ POSEIDON2_MERKLE = CudaKernel(
     "poseidon2_merkle", "multistark_tpu_torch/csrc/poseidon2_merkle.cu",
     "multistark_tpu/hash/poseidon2.py:295",
 )
-KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE)
+DT_FLUSH = CudaKernel(
+    "dt_flush", "multistark_tpu_torch/csrc/dt_blake3.cu",
+    "multistark_tpu/device_transcript.py:358",
+)
+FRI_GRIND = CudaKernel(
+    "fri_grind", "multistark_tpu_torch/csrc/dt_blake3.cu",
+    "multistark_tpu/device_transcript.py:74",
+)
+CLAIMS_FP = CudaKernel(
+    "claims_fp", "multistark_tpu_torch/csrc/claims_fp.cu",
+    "multistark_tpu/lookup.py:507",
+)
+FRI_FOLD = CudaKernel(
+    "fri_fold", "multistark_tpu_torch/csrc/fri_fold.cu",
+    "multistark_tpu/pcs.py:1393",
+)
+KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE, DT_FLUSH, FRI_GRIND, CLAIMS_FP,
+           FRI_FOLD)
 
 
 def launch_counts() -> Dict[str, int]:

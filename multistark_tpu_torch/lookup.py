@@ -16,23 +16,25 @@ Chained accumulators: with m_{r,j} = beta + fingerprint(gamma, args_{r,j}),
 
 The stage-2 traces are built on the device: messages through the field's
 elementwise kernel (K1 or K5), their inverses through the K4 batch inverse,
-the chain through the K4 prefix sum.  The claims accumulator stays on the
-host: a native C pass for Goldilocks^2, NumPy for BabyBear^4.
+the chain through the K4 prefix sum.  The claims accumulator of both
+transcripts and both fields runs on the device with β and γ device scalars:
+the messages in kernel K9 (csrc/claims_fp.cu, `claims_fp` below), their
+inverses and sum in K4.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .fields.device import ExtOps
+from . import kernels
+from .fields.device import ExtOps, FieldOps
 from .fields.host import ExtensionParams, HostExtField, HostField
-from .fields.npref import NpExt, NpField
 from .graph import ConstraintGraph
-from .utils import batch_inv, cumsum
+from .utils import batch_inv, cumsum, field_sum
 
 ExtVal = Tuple[int, ...]
 
@@ -73,19 +75,9 @@ def fingerprint(he: HostExtField, gamma: ExtVal, vals: Sequence[int]) -> ExtVal:
 def claims_accumulator(
     he: HostExtField, beta: ExtVal, gamma: ExtVal, claims: Sequence[Sequence[int]]
 ) -> ExtVal:
-    """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 on the host.
-    Homogeneous claim batches (the bench proves one claim per row) take one
-    vectorized pass: for Goldilocks^2 the native C helper
-    (csrc/host/b3.c msgl_claims_acc2), for BabyBear^4 NumPy (Horner
-    fingerprints and a product-tree batch inverse); short or ragged lists
-    the scalar loop."""
-    from .challenger import _canonical_claims_array
-
-    vals = _canonical_claims_array(claims, he.base.p)
-    if vals is not None:
-        if he.name == "Goldilocks^2":
-            return _claims_accumulator_native(he, beta, gamma, vals)
-        return _claims_accumulator_np(he, beta, gamma, vals)
+    """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 on the host, one
+    claim at a time: for ragged claims, which `claims_matrix` cannot stack.
+    Both transcripts take `claims_accumulator_device` for every other batch."""
     acc = he.zero
     for claim in claims:
         fp = fingerprint(he, gamma, [int(v) for v in claim])
@@ -93,44 +85,66 @@ def claims_accumulator(
     return acc
 
 
-def _claims_accumulator_np(he, beta, gamma, vals: np.ndarray) -> ExtVal:
-    """vals: (n, L) canonical uint64 claims.  Raises ZeroDivisionError on a
-    zero denominator like the scalar path."""
-    nf = NpField(he.base)
-    ne = NpExt(nf, he)
-    n = vals.shape[0]
-    g = ne.of_scalar(gamma)
-    acc = np.zeros((n, he.D), np.uint64)
-    for j in range(vals.shape[1] - 1, -1, -1):  # Horner over claim positions
-        acc = ne.mul(acc, g)
-        acc[..., 0] = nf.add(acc[..., 0], vals[:, j])
-    acc = ne.add(acc, ne.of_scalar(beta, (n,)))
-    total = nf.sum_axis(ne.batch_inv(acc), 0)  # (D,)
-    return tuple(int(c) for c in total)
+def claims_matrix(claims, p: int) -> Optional[np.ndarray]:
+    """The claims as an (n, L) canonical-uint64 array, or None when there
+    are none or they are ragged (not all of one length)."""
+    from .challenger import _canonical_claims_array
+
+    arr = _canonical_claims_array(claims, p)
+    if arr is not None or len(claims) == 0:
+        return arr
+    lens = {len(c) for c in claims}
+    if len(lens) != 1:
+        return None
+    return np.asarray([[int(v) % p for v in c] for c in claims], np.uint64).reshape(len(claims), lens.pop())
 
 
-def _claims_accumulator_native(he, beta, gamma, vals: np.ndarray) -> ExtVal:
-    """vals: (n, L) canonical uint64 claims.  Raises ZeroDivisionError on a
-    zero denominator like the scalar path."""
-    import ctypes
+# --- the device claims accumulator (kernel K9, then K4) ------------------------
 
-    from .native import lib
+def claims_fp_plain(E: ExtOps, cols: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: (L, n) claim columns -> the (D, n) messages
+    β + Σ_j γ^j·v_j, by Horner over the claim positions."""
+    L, n = cols.shape
+    g, b = gamma.reshape(E.D, 1), beta.reshape(E.D, 1)
+    m = torch.zeros((E.D, n), dtype=torch.int64, device=cols.device)
+    for j in range(L - 1, -1, -1):
+        m = E.mul_plain(m, g)
+        m[0] = E.base.add_plain(m[0], cols[j])
+    return E.add_plain(m, b)
 
-    n, L = vals.shape
-    vals = np.ascontiguousarray(vals, np.uint64)
-    g = np.asarray([c % he.base.p for c in gamma], np.uint64)
-    b = np.asarray([c % he.base.p for c in beta], np.uint64)
-    scratch = np.empty(2 * n, np.uint64)
-    out = np.empty(2, np.uint64)
-    u64p = ctypes.POINTER(ctypes.c_uint64)
-    rc = lib().msgl_claims_acc2(
-        vals.ctypes.data_as(u64p), n, L, g.ctypes.data_as(u64p),
-        b.ctypes.data_as(u64p), scratch.ctypes.data_as(u64p),
-        out.ctypes.data_as(u64p),
+
+def claims_fp(E: ExtOps, cols: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """The logUp messages of a batch of claims: cols (L, n) canonical
+    values, β and γ (D,) device scalars -> (D, n).  K9 on a CUDA tensor, the
+    plain version on a CPU one."""
+    if cols.dim() != 2 or cols.dtype != torch.int64:
+        raise ValueError("claims_fp takes (L, n) int64 claim columns")
+    if not kernels.use_kernel(cols):
+        return claims_fp_plain(E, cols, beta, gamma)
+    cols = cols.contiguous()
+    beta, gamma = beta.reshape(-1).contiguous(), gamma.reshape(-1).contiguous()
+    if beta.shape[0] != E.D or gamma.shape[0] != E.D:
+        raise ValueError("claims_fp: β and γ must have D coordinates")
+    kernels.check_cuda(cols, beta, gamma)
+    L, n = cols.shape
+    out = torch.empty((E.D, n), dtype=torch.int64, device=cols.device)
+    kernels.CLAIMS_FP.launch(
+        "claims_fp", E.base.field_id, kernels.ptr(cols), L, n, kernels.ptr(beta), kernels.ptr(gamma),
+        kernels.ptr(out),
     )
-    if rc != 0:
-        raise ZeroDivisionError("zero denominator in claims accumulator")
-    return (int(out[0]), int(out[1]))
+    return out
+
+
+def claims_accumulator_device(F: FieldOps, E: ExtOps, claims_arr: np.ndarray, beta: torch.Tensor,
+                              gamma: torch.Tensor) -> torch.Tensor:
+    """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 over an (n, L)
+    canonical-uint64 claims array, with β and γ device scalars: one upload
+    (not waited for), the messages (K9), their batch inverse and sum (K4).
+    Returns a (D,) device scalar.  A zero message maps to zero (the scalar
+    `claims_accumulator` raises instead; either is a ~2^-128 event for
+    Goldilocks^2, ~2^-124 for BabyBear^4)."""
+    cols = F.from_np(np.ascontiguousarray(claims_arr.T), beta.device)  # (L, n)
+    return field_sum(batch_inv(claims_fp(E, cols, beta, gamma), E), E)
 
 
 # --- generic ext-coordinate arithmetic over a working algebra ----------------
@@ -247,26 +261,26 @@ class LookupValues:
     args: List[List[torch.Tensor]]  # L lists of tensors (n,)
 
 
-def stage_2_traces(E: ExtOps, lookup_values: Sequence[LookupValues], beta, gamma, acc0, device):
-    """All active circuits' stage-2 traces + per-circuit intermediate
-    accumulators, threading one global accumulator; each circuit's serial row
-    chain is a parallel prefix sum.
+def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta, gamma, acc0):
+    """All active circuits' stage-2 traces + per-circuit running
+    accumulators, threading one global accumulator from acc₀; each circuit's
+    serial row chain is a parallel prefix sum.  β, γ, acc₀ are (D,) device
+    scalars and no value leaves the device.
 
-    Returns (stage2_mats: [(max(L,1)·D, n) tensors], accs: [ExtVal])."""
-    beta_t, gamma_t = E.const(beta, device), E.const(gamma, device)
+    Returns (stage2_mats: [(max(L,1)·D, n) tensors], accs: [(D,) tensors])."""
     mats, accs = [], []
-    acc = acc0
+    acc = acc0.reshape(E.D)
     for lv in lookup_values:
         n, L = lv.height, len(lv.mults)
         if L == 0:
             # pass-through: a (D, n) matrix of the constant accumulator
-            mats.append(E.const(acc, device)[:, None].expand(E.D, n).contiguous())
+            mats.append(acc[:, None].expand(E.D, n).contiguous())
             accs.append(acc)
             continue
-        flat_msgs, flat_mults = _stage2_msgs(E, lv.args, lv.mults, beta_t, gamma_t)
+        flat_msgs, flat_mults = _stage2_msgs(E, lv.args, lv.mults, beta, gamma)
         inv_msgs = batch_inv(flat_msgs, E)
-        mat, total = _stage2_scan(E, L, inv_msgs, flat_mults, E.const(acc, device))
-        acc = E.host.add(acc, E.to_host(total)[0])
+        mat, total = _stage2_scan(E, L, inv_msgs, flat_mults, acc)
+        acc = E.add(acc, total.reshape(E.D))
         mats.append(mat)
         accs.append(acc)
     return mats, accs

@@ -83,6 +83,13 @@ class MerkleMmcs:
     def commit(self, mats: Sequence[torch.Tensor]) -> Tuple[np.ndarray, MerkleProverData]:
         """mats: (w, n) int64 matrices, power-of-two heights.  Returns
         (cap (2^cap_height, 8) uint32 numpy, prover data)."""
+        cap, data = self.commit_device(mats)
+        return digest_layer_to_np(cap), data
+
+    def commit_device(self, mats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, MerkleProverData]:
+        """`commit` with the cap left where the tree is: a (2^cap_height, 8)
+        int32 digest layer, which the device transcript observes without a
+        fetch."""
         dims = [(int(m.shape[0]), int(m.shape[1])) for m in mats]
         heights = sorted({h for _, h in dims}, reverse=True)
         for h in heights:
@@ -103,7 +110,7 @@ class MerkleMmcs:
         data = MerkleProverData(
             mats=list(mats), dims=dims, layers=layers, log_max=max_h.bit_length() - 1
         )
-        return digest_layer_to_np(layers[-1]), data
+        return layers[-1], data
 
     def _commit_impl(self, mats, dims) -> List[torch.Tensor]:
         heights = sorted({h for _, h in dims}, reverse=True)

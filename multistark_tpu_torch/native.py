@@ -1,7 +1,8 @@
 """The port's host C helper: csrc/host/*.c (BLAKE3 with its grind and the
-Goldilocks^2 claims accumulator; the Poseidon2 permutation with the duplex
-absorb and grind), built with `cc` into build/torch_kernels/libmshost.so at
-first use and again whenever a source is newer than the library.
+chunk chaining values of a device-duplex flush; the Poseidon2 permutation
+with the duplex absorb and grind), built with `cc` into
+build/torch_kernels/libmshost.so at first use and again whenever a source
+is newer than the library.
 
 The Fiat-Shamir transcripts of both configs run on the host; at 2^18
 claims they are not worth running in pure Python, so a failed build
@@ -24,7 +25,6 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libmshost.so")
 
 _u32p = ctypes.POINTER(ctypes.c_uint32)
-_u64p = ctypes.POINTER(ctypes.c_uint64)
 _u64, _u32 = ctypes.c_uint64, ctypes.c_uint32
 
 # C entry point -> (argument types, return type)
@@ -32,7 +32,8 @@ _SIGNATURES = {
     "msb3_hash": ([ctypes.c_char_p, _u64, ctypes.POINTER(ctypes.c_uint8)], None),
     "msb3_grind": ([ctypes.c_char_p, _u64, _u64, _u64, _u32, _u64], _u64),
     "msb3_hash_batch": ([ctypes.c_char_p, _u64, _u64, _u64, _u32p], None),
-    "msgl_claims_acc2": ([_u64p, _u64, _u64, _u64p, _u64p, _u64p, _u64p], ctypes.c_int),
+    "msb3_chunk_cvs": ([ctypes.c_char_p, _u64, _u32p], None),
+    "msb3_parent_level": ([_u32p, _u64, _u32p], None),
     "msp2_permute": ([_u32p, _u32p], None),
     "msp2_absorb": ([_u32p, _u32p, _u32p, _u32p, _u64, _u32p], ctypes.c_int),
     "msp2_grind": ([_u32p, _u32p, _u32, _u32, _u64, _u32p], _u64),

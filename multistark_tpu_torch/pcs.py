@@ -17,27 +17,40 @@ values -> sample α -> per fold round (observe cap, grind commit PoW, sample
 
 The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
-its hasher the hashing (merkle.py: K3 or K6); slicing, stacking and gathers
-are plain tensor indexing.  Scalars the transcript produces (α powers, S_p,
-z^n) are computed on the host with the host field, as transcript values.
+its hasher the hashing (merkle.py: K3 or K6); each fold round runs K10
+(csrc/fri_fold.cu, `fri_fold` below); slicing, stacking and gathers are plain
+tensor indexing.  Opening points and α are device extension scalars ((D,)
+tensors), whether they came from the host challenger or the device duplex,
+so the same code serves both transcripts.
+
+With a Goldilocks/BLAKE3 byte challenger the FRI commit phase runs its
+rounds on the device (K8 grinds and samples β from the duplex digest, K10
+folds with it, K3 commits the next level) and syncs once at the end; the
+host challenger then replays the rounds from the fetched caps, witnesses and
+βs and stays the authority (`replay_commit_phase_host`).  Other challengers
+take the host loop, one β per round.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from . import device_transcript as dt
+from . import kernels
+from .challenger import SerializingChallenger64
 from .config import CommitmentParameters, FriParameters
 from .domains import TwoAdicCoset
 from .fields.device import ExtOps, FieldOps
 from .fields.host import HostExtField, HostField
 from .fields.npref import np_mul, np_powers
-from .merkle import BatchOpening, MerkleMmcs, MerkleProverData
+from .merkle import BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np
 from .ntt import NttEngine
-from .utils import batch_inv, bit_reverse_indices, field_sum, reverse_bits
+from .utils import batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum, reverse_bits, to_device
 
 ExtVal = Tuple[int, ...]  # host extension element
 
@@ -126,13 +139,14 @@ class TwoAdicFriPcs:
         return self._x_tables[key]
 
     # -- commit -----------------------------------------------------------
-    def _commit_ldes(self, ldes, logs) -> Tuple[np.ndarray, PcsProverData]:
-        cap, mdata = self.mmcs.commit(ldes)
+    def _commit_ldes(self, ldes, logs) -> Tuple[torch.Tensor, PcsProverData]:
+        cap, mdata = self.mmcs.commit_device(ldes)
         return cap, PcsProverData(mdata, logs, self.log_blowup)
 
-    def commit(self, domains_and_mats) -> Tuple[np.ndarray, PcsProverData]:
+    def commit_device(self, domains_and_mats) -> Tuple[torch.Tensor, PcsProverData]:
         """domains_and_mats: [(TwoAdicCoset, natural-order evals (w, n))].
-        LDEs land on GENERATOR·H_{n·B}, bit-reversed."""
+        LDEs land on GENERATOR·H_{n·B}, bit-reversed.  The cap stays a
+        device (2^cap_height, 8) int32 tensor."""
         ldes, logs = [], []
         for dom, mat in domains_and_mats:
             shift = self.hf.mul(self.hf.generator, self.hf.inv(dom.shift))
@@ -140,9 +154,15 @@ class TwoAdicFriPcs:
             logs.append(dom.log_n)
         return self._commit_ldes(ldes, logs)
 
-    def commit_from_coeffs(self, coeff_mats) -> Tuple[np.ndarray, PcsProverData]:
+    def commit(self, domains_and_mats) -> Tuple[np.ndarray, PcsProverData]:
+        """`commit_device` with the cap fetched as (2^cap_height, 8) uint32."""
+        cap, data = self.commit_device(domains_and_mats)
+        return digest_layer_to_np(cap), data
+
+    def commit_from_coeffs_device(self, coeff_mats) -> Tuple[torch.Tensor, PcsProverData]:
         """coeff_mats: [(w, n) natural coefficient matrices].  Commits their
-        evaluations on GENERATOR·H_{n·B} directly from the coefficients."""
+        evaluations on GENERATOR·H_{n·B} directly from the coefficients; the
+        cap stays on the device."""
         ldes, logs = [], []
         for coeffs in coeff_mats:
             log_n = coeffs.shape[-1].bit_length() - 1
@@ -150,6 +170,10 @@ class TwoAdicFriPcs:
             ldes.append(self.engine.lde_bitrev_from_coeffs(shifted, log_n + self.log_blowup))
             logs.append(log_n)
         return self._commit_ldes(ldes, logs)
+
+    def commit_from_coeffs(self, coeff_mats) -> Tuple[np.ndarray, PcsProverData]:
+        cap, data = self.commit_from_coeffs_device(coeff_mats)
+        return digest_layer_to_np(cap), data
 
     def get_evaluations_on_domain(self, data: PcsProverData, idx: int, domain: TwoAdicCoset):
         """Natural-order evals of matrix `idx` on `domain` (the GENERATOR-
@@ -160,18 +184,24 @@ class TwoAdicFriPcs:
 
     # -- open -------------------------------------------------------------
     def open(self, rounds, challenger):
-        """rounds: [(PcsProverData, points_per_matrix: [[ExtVal]])].
-        Returns (opened_values[r][m][p] = [ExtVal per column], FriProof).
-        Every claimed value is observed before α is sampled
+        """rounds: [(PcsProverData, points_per_matrix: [[ExtVal]])] with
+        host points.  Returns (opened_values[r][m][p] = [ExtVal per column],
+        FriProof).  Every claimed value is observed before α is sampled
         (TranscriptProfile.fri_observe_claims_before_alpha)."""
-        opened = self._claimed_evaluations(rounds)
+        consts = {}
+        dev_rounds = [
+            (data, [[(z, consts.setdefault(z, self.E.const(z, self.device))) for z in pts] for pts in points_list])
+            for data, points_list in rounds
+        ]
+        vals = self._claimed_evaluations(dev_rounds)
+        opened = opened_to_host(vals)
         for round_vals in opened:
             for mat_vals in round_vals:
                 for pt_vals in mat_vals:
                     for v in pt_vals:
                         challenger.observe_ext(v)
         alpha = challenger.sample_ext()
-        ro = self._reduced_openings(rounds, opened, alpha)
+        ro = self._reduced_openings(dev_rounds, vals, self.E.const(alpha, self.device))
         caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro = (
             self._commit_phase(rounds, ro, challenger)
         )
@@ -186,8 +216,13 @@ class TwoAdicFriPcs:
         return opened, proof
 
     def _claimed_evaluations(self, rounds):
-        """Opened values [round][matrix][point] = [host ext value per column]."""
-        opened = []
+        """rounds: [(PcsProverData, [[(key, z (D,) device point)] per
+        matrix])].  Returns [round][matrix] = one (D, w) device tensor per
+        point.  The barycentric weights depend only on (point, height), so
+        they are computed once per pair and shared by every matrix of that
+        height."""
+        weights = {}
+        out = []
         for data, points_list in rounds:
             round_vals = []
             for m_idx, points in enumerate(points_list):
@@ -195,139 +230,240 @@ class TwoAdicFriPcs:
                     round_vals.append([])
                     continue
                 mat = data.mmcs_data.mats[m_idx]
-                vals = self._eval_matrix(mat, data.log_trace_heights[m_idx], points)
-                round_vals.append([self.E.to_host(v) for v in vals])
-            opened.append(round_vals)
-        return opened
-
-    def _eval_matrix(self, mat: torch.Tensor, log_n: int, points) -> List[torch.Tensor]:
-        """Barycentric evaluation of a stored bit-reversed LDE at each point:
-        p(z) = (z^n - s^n)/(n·s^n) · Σ_i e_i·x_i/(z - x_i) over the size-n
-        same-shift sub-coset.  Returns one (D, w) tensor per point."""
-        F, E, hf, he = self.F, self.E, self.hf, self.he
-        small = self.engine.prefix_to_natural(mat, log_n)  # (w, n) on GEN·H_n
-        n = 1 << log_n
-        s = hf.generator
-        x = self.x_table_natural(log_n, s)
-        s_n = hf.pow(s, n)
-        inv_ns = hf.inv(hf.mul(n % hf.p, s_n))
-        out = []
-        for z in points:
-            w_i = E.scale(batch_inv(_ext_minus_base(F, E, z, x), E), x)
-            zn = z
-            for _ in range(log_n):
-                zn = he.square(zn)
-            c = he.scale(he.sub(zn, he.from_base(s_n)), inv_ns)
-            acc = torch.stack([field_sum(F.mul(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
-            out.append(E.mul(acc, E.const(c, self.device)))
+                round_vals.append(self._eval_matrix(mat, data.log_trace_heights[m_idx], points, weights))
+            out.append(round_vals)
         return out
 
-    def _reduced_openings(self, rounds, opened, alpha) -> Dict[int, torch.Tensor]:
+    def _eval_matrix(self, mat: torch.Tensor, log_n: int, points, weights: dict) -> List[torch.Tensor]:
+        """Barycentric evaluation of a stored bit-reversed LDE at each device
+        point z ((key, (D,) tensor) pairs): p(z) = (z^n - s^n)/(n·s^n) ·
+        Σ_i e_i·x_i/(z - x_i) over the size-n same-shift sub-coset.  weights
+        caches each (key, log_n)'s x_i/(z - x_i) and scale.  Returns one (D, w)
+        tensor per point."""
+        F, E, hf = self.F, self.E, self.hf
+        small = self.engine.prefix_to_natural(mat, log_n)  # (w, n) on GEN·H_n
+        out = []
+        for key, z in points:
+            if (key, log_n) not in weights:
+                n = 1 << log_n
+                x = self.x_table_natural(log_n, hf.generator)
+                s_n = hf.pow(hf.generator, n)
+                zn = z
+                for _ in range(log_n):
+                    zn = E.square(zn)
+                inv_ns = F.const(hf.inv(hf.mul(n % hf.p, s_n)), self.device)
+                weights[key, log_n] = (
+                    E.scale(batch_inv(_ext_minus_base(F, E, z, x), E), x),
+                    E.scale(E.sub(zn, E.from_base(F.const(s_n, self.device))), inv_ns),
+                )
+            w_i, c = weights[key, log_n]
+            acc = torch.stack([field_sum(F.mul(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
+            out.append(E.mul(acc, c))
+        return out
+
+    def _reduced_openings(self, rounds, vals, alpha: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Per LDE height, Σ_p (-α^{off_p})·(u - S_p)/(z_p - x) over the
-        stored LDEs, with u = Σ_j α^j·col_j and S_p = Σ_j α^j·v_{p,j}.
-        1/(z_p - x) depends only on (height, point), so it is computed once
-        per pair and shared by every matrix of that height."""
-        F, E, he = self.F, self.E, self.he
-        ro: Dict[int, torch.Tensor] = {}
-        offsets: Dict[int, int] = {}
-        inv_diffs: Dict[tuple, torch.Tensor] = {}
-        for (data, points_list), round_vals in zip(rounds, opened):
+        stored LDEs, with u = Σ_j α^j·col_j and S_p = Σ_j α^j·v_{p,j}, for a
+        device α; rounds as `_claimed_evaluations` takes them, vals as it
+        returns them.  1/(z_p - x) depends only on (height, point), so it is
+        computed once per pair and shared by every matrix of that height."""
+        F, E = self.F, self.E
+        plan, offsets = [], {}
+        for r_idx, (data, points_list) in enumerate(rounds):
             for m_idx, points in enumerate(points_list):
                 if not points:
                     continue
-                mat = data.mmcs_data.mats[m_idx]
                 w = data.mmcs_data.dims[m_idx][0]
                 log_lde = data.log_trace_heights[m_idx] + self.log_blowup
-                apows = self._host_ext_powers(alpha, w)
-                u = None
-                for j in range(w):
-                    term = E.scale(E.const(apows[j], self.device), mat[j])
-                    u = term if u is None else E.add(u, term)
-                x_full = self.x_table_storage(log_lde, self.hf.generator)
                 off = offsets.get(log_lde, 0)
-                for p_idx, z in enumerate(points):
-                    s_p = he.zero
-                    for a, v in zip(apows, round_vals[m_idx][p_idx]):
-                        s_p = he.add(s_p, he.mul(a, v))
-                    if (log_lde, z) not in inv_diffs:
-                        inv_diffs[log_lde, z] = batch_inv(_ext_minus_base(F, E, z, x_full), E)
-                    inv_diff = inv_diffs[log_lde, z]
-                    num = E.sub(u, E.const(s_p, self.device))
-                    aoff = he.neg(he.pow(alpha, off + p_idx * w))
-                    contrib = E.mul(E.mul(num, inv_diff), E.const(aoff, self.device))
-                    ro[log_lde] = contrib if log_lde not in ro else E.add(ro[log_lde], contrib)
+                plan.append((r_idx, m_idx, w, log_lde, off))
                 offsets[log_lde] = off + w * len(points)
+        if not plan:
+            return {}
+        count = max(max(p[2] for p in plan), max(offsets.values()))
+        apows = ext_powers_device(E, alpha, count)  # (D, count)
+        ro: Dict[int, torch.Tensor] = {}
+        inv_diffs: Dict[tuple, torch.Tensor] = {}
+        for r_idx, m_idx, w, log_lde, off in plan:
+            data, points_list = rounds[r_idx]
+            mat = data.mmcs_data.mats[m_idx]
+            u = None
+            for j in range(w):
+                term = E.scale(apows[:, j], mat[j])
+                u = term if u is None else E.add(u, term)
+            x_full = self.x_table_storage(log_lde, self.hf.generator)
+            for p_idx, (key, z) in enumerate(points_list[m_idx]):
+                s_p = field_sum(E.mul(vals[r_idx][m_idx][p_idx], apows[:, :w]), E)  # (D,)
+                if (log_lde, key) not in inv_diffs:
+                    inv_diffs[log_lde, key] = batch_inv(_ext_minus_base(F, E, z, x_full), E)
+                num = E.sub(u, s_p)
+                aoff = F.neg(apows[:, off + p_idx * w])
+                contrib = E.mul(E.mul(num, inv_diffs[log_lde, key]), aoff)
+                ro[log_lde] = contrib if log_lde not in ro else E.add(ro[log_lde], contrib)
         return ro
 
-    def _commit_phase(self, rounds, ro, challenger):
-        """FRI commit phase on the host transcript: fold with per-round β,
-        committing each level."""
-        log_max = max(data.log_max_lde for data, _ in rounds)  # query index range
-        log_max_ro = max(ro.keys())  # fold start (tallest matrix WITH openings)
+    def fri_schedule(self, ro_heights, log_max_ro: int) -> List[int]:
+        """Deterministic arity schedule (mirrored by the verifier): arity per
+        round capped so we never fold below the final size and never skip an
+        input height that must be absorbed."""
         log_final = self.log_blowup + self.fri.log_final_poly_len
-        # deterministic arity schedule (mirrored by the verifier): arity per
-        # round capped so we never fold below the final size and never skip
-        # an input height that must be absorbed
         schedule: List[int] = []
         ls = log_max_ro
         while ls > log_final:
             a_bits = min(self.fri.max_log_arity, ls - log_final)
-            for h in ro:
+            for h in ro_heights:
                 if ls - a_bits < h < ls:
                     a_bits = ls - h
             schedule.append(a_bits)
             ls -= a_bits
+        return schedule
+
+    def _commit_phase(self, rounds, ro, challenger):
+        """FRI commit phase: the device rounds where the challenger allows
+        them (one sync, then the host replay), else the host loop; then the
+        transcript tail."""
+        log_max = max(data.log_max_lde for data, _ in rounds)  # query index range
+        log_max_ro = max(ro.keys())  # fold start (tallest matrix WITH openings)
+        schedule = self.fri_schedule(ro.keys(), log_max_ro)
+        result = None
+        if schedule and self._device_transcript_eligible(challenger):
+            result = self._commit_phase_device(ro, schedule, log_max_ro, challenger)
+        if result is None:
+            result = self._commit_phase_host(ro, schedule, log_max_ro, challenger)
+        caps, commit_datas, commit_pows, current, log_size = result
+        final_poly, query_pow, indices = self._commit_tail(
+            self.E.to_host(current), log_size, log_max_ro, log_max, challenger
+        )
+        return caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro
+
+    def _commit_phase_host(self, ro, schedule, log_max_ro, challenger):
+        """One host-transcript round per fold: commit the level, observe its
+        cap, grind, sample β, fold."""
         caps: List[np.ndarray] = []
         commit_datas: List[MerkleProverData] = []
         commit_pows: List[int] = []
         current = ro[log_max_ro]
         log_size = log_max_ro
-        for r, a_bits in enumerate(schedule):
+        for a_bits in schedule:
             cap, mdata = self.mmcs.commit([_fold_rows(current, a_bits)])
             caps.append(cap)
             commit_datas.append(mdata)
             challenger.observe_commitment(cap)
             commit_pows.append(challenger.grind(self.fri.commit_proof_of_work_bits))
-            beta = challenger.sample_ext()
-            shift = self._shift_at(log_max_ro, log_size)
-            current = self._fold_multi(current, beta, log_size, a_bits, shift)
+            beta = self.E.const(challenger.sample_ext(), self.device)
+            current = self._fold_multi(current, beta, log_size, a_bits, log_max_ro, ro.get(log_size - a_bits))
             log_size -= a_bits
-            if log_size in ro:
-                current = self.E.add(current, ro[log_size])
-        final_poly, query_pow, indices = self._commit_tail(current, log_size, log_max_ro, log_max, challenger)
-        return caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro
+        return caps, commit_datas, commit_pows, current, log_size
 
-    def _commit_tail(self, current, log_size, log_max_ro, log_max, challenger):
-        """Observe the final poly, grind the query PoW, sample the query
-        indices."""
-        final_poly = self._final_poly_host(current, log_size, log_max_ro)
+    def _device_transcript_eligible(self, challenger) -> bool:
+        """The device rounds replicate the BLAKE3 byte duplex of a
+        Goldilocks SerializingChallenger64 over BLAKE3 trees, for D <= 3 (β's
+        coordinates fit one digest after the grind draw) and a word-aligned
+        input buffer."""
+        return (
+            isinstance(challenger, SerializingChallenger64)
+            and isinstance(self.mmcs.hasher, Blake3FieldHasher)
+            and self.hf.p == dt.GOLDILOCKS_P
+            and 1 <= self.E.D <= 3
+            and len(challenger.inner.input_buffer) % 4 == 0
+        )
+
+    def _commit_phase_device(self, ro, schedule, log_max_ro, challenger):
+        """The device rounds from the challenger's state, one fetch of every
+        cap, witness, β and flag, then the host replay; None (counted in
+        device_transcript.FALLBACKS) when the replay cannot adopt them."""
+        entry = dt.entry_buffer_words(bytes(challenger.inner.input_buffer))
+        caps_d, ws, betas, oks, commit_datas, current, log_size = self._commit_phase_device_core(
+            ro, schedule, log_max_ro, to_device(entry.view(np.int32), self.device)
+        )
+        n = len(schedule)
+        got = fetch(caps_d + ws + betas + oks)
+        try:
+            caps, commit_pows = self.replay_commit_phase_host(
+                challenger, schedule, got[:n], got[n : 2 * n], got[2 * n : 3 * n], got[3 * n :]
+            )
+        except dt.Fallback as reason:
+            dt.FALLBACKS[str(reason)] += 1
+            return None
+        return caps, commit_datas, commit_pows, current, log_size
+
+    def _commit_phase_device_core(self, ro, schedule, log_max_ro, chain: torch.Tensor):
+        """The FRI rounds on the device, with no sync and no replay (the
+        caller owns both): per round, K8 grinds over chain ‖ cap and gives β,
+        K10 folds with it (adding the next height's reduced opening), and
+        the next level's tree is committed.  chain: the duplex input buffer
+        as int32 words.  Returns (caps, witnesses, βs, ok flags, commit
+        datas, the last fold, its log size)."""
+        bits = self.fri.commit_proof_of_work_bits
+        current, log_size = ro[log_max_ro], log_max_ro
+        cap, mdata = self.mmcs.commit_device([_fold_rows(current, schedule[0])])
+        caps, commit_datas = [cap], [mdata]
+        ws, betas, oks = [], [], []
+        for r, a_bits in enumerate(schedule):
+            w, ok, beta, chain = dt.fri_grind(torch.cat([chain, caps[r].reshape(-1)]), bits, self.E.D)
+            ws.append(w)
+            betas.append(beta)
+            oks.append(ok)
+            current = self._fold_multi(current, beta, log_size, a_bits, log_max_ro, ro.get(log_size - a_bits))
+            log_size -= a_bits
+            if r + 1 < len(schedule):
+                cap, mdata = self.mmcs.commit_device([_fold_rows(current, schedule[r + 1])])
+                caps.append(cap)
+                commit_datas.append(mdata)
+        return caps, ws, betas, oks, commit_datas, current, log_size
+
+    def replay_commit_phase_host(self, challenger, schedule, caps_np, ws_np, betas_np, oks_np):
+        """The authoritative host replay of the device rounds from their
+        fetched values: observe each cap, check each witness, compare each β
+        with the host's draw.  Adopts the replayed challenger state and
+        returns (caps, witnesses).  Raises device_transcript.Fallback on a
+        round the device could not finish (a grind miss, a draw >= p) and
+        device_transcript.TranscriptDivergence on a witness the host rejects
+        or a β it draws otherwise; either leaves the challenger as it was."""
+        bits = self.fri.commit_proof_of_work_bits
+        if not all(int(o) == 1 for o in oks_np):
+            raise dt.Fallback("grind miss or non-canonical β draw in a FRI round")
+        probe = challenger.clone()
+        caps = [np.asarray(c, np.uint32) for c in caps_np]
+        commit_pows: List[int] = []
+        for r in range(len(schedule)):
+            probe.observe_commitment(caps[r])
+            w = int(ws_np[r])
+            if not probe.check_witness(bits, w):
+                raise dt.TranscriptDivergence(f"FRI replay: the host rejects round {r}'s witness {w}")
+            host_beta, device_beta = probe.sample_ext(), tuple(int(c) for c in betas_np[r])
+            if host_beta != device_beta:
+                raise dt.TranscriptDivergence(
+                    f"FRI replay: the device drew round {r}'s β = {device_beta}, the host {host_beta}"
+                )
+            commit_pows.append(w)
+        challenger.inner.input_buffer = probe.inner.input_buffer
+        challenger.inner.output_buffer = probe.inner.output_buffer
+        return caps, commit_pows
+
+    def _commit_tail(self, current_host, log_size, log_max_ro, log_max, challenger):
+        """Observe the final poly (from the last fold's host values, storage
+        order), grind the query PoW, sample the query indices."""
+        final_poly = self._final_poly_host(current_host, log_size, log_max_ro)
         for c in final_poly:
             challenger.observe_ext(c)
         query_pow = challenger.grind(self.fri.query_proof_of_work_bits)
         indices = [challenger.sample_bits(log_max) for _ in range(self.fri.num_queries)]
         return final_poly, query_pow, indices
 
-    def _fold_multi(self, current, beta: ExtVal, log_size: int, a_bits: int, shift: int) -> torch.Tensor:
-        """Arity-2^a fold as a chain of pair folds with β, β², β⁴, ...
-        Each pair step: (v_even+v_odd)/2 + β_s·(v_even-v_odd)/(2x)."""
-        F, E, hf, he = self.F, self.E, self.hf, self.he
-        half_inv = F.const(hf.inv(2), self.device)
-        beta_s = beta
-        for s in range(a_bits):
-            inv_x = self.x_table_storage(log_size - s, hf.exp_power_of_2(shift, s), inverse=True)
-            a, b = current[:, 0::2], current[:, 1::2]
-            sm = E.scale(E.add(a, b), half_inv)
-            df = E.scale(E.sub(a, b), F.mul(inv_x[0::2], half_inv))
-            current = E.add(sm, E.mul(df, E.const(beta_s, self.device)))
-            beta_s = he.square(beta_s)
-        return current
+    def _fold_multi(self, current, beta: torch.Tensor, log_size: int, a_bits: int, log_max_ro: int, absorb=None):
+        """One arity-2^a fold round with the device β (K10), plus `absorb`
+        (the next height's reduced opening) when given."""
+        shift = self._shift_at(log_max_ro, log_size)
+        tables = [self.x_table_storage(log_size - s, self.hf.exp_power_of_2(shift, s), inverse=True)
+                  for s in range(a_bits)]
+        return fri_fold(self.E, current, beta, tables, self.hf.inv(2), absorb)
 
-    def _final_poly_host(self, current, log_size: int, log_max_ro: int) -> List[ExtVal]:
+    def _final_poly_host(self, evals, log_size: int, log_max_ro: int) -> List[ExtVal]:
         """Host iDFT of the remaining (tiny) fold vector -> coefficients.
         Degree < 2^log_final_poly_len for honest provers."""
         he, hf = self.he, self.hf
         n = 1 << log_size
-        evals = self.E.to_host(current)
         nat = [he.zero] * n
         for i in range(n):
             nat[reverse_bits(i, log_size)] = evals[i]
@@ -377,17 +513,68 @@ class TwoAdicFriPcs:
         """LDE shift after folding from log_max to log_size: GENERATOR^(2^k)."""
         return self.hf.exp_power_of_2(self.hf.generator, log_max - log_size)
 
-    def _host_ext_powers(self, alpha: ExtVal, count: int) -> List[ExtVal]:
-        out = [self.he.one]
-        for _ in range(1, count):
-            out.append(self.he.mul(out[-1], alpha))
-        return out
+
+def _ext_minus_base(F: FieldOps, E: ExtOps, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Device ext scalar z ((D,)) minus a base vector x -> (D, n) ext tensor."""
+    c0 = F.sub(z[0], x)
+    return torch.stack([c0] + [z[d].expand_as(c0) for d in range(1, E.D)])
 
 
-def _ext_minus_base(F: FieldOps, E: ExtOps, z: ExtVal, x: torch.Tensor) -> torch.Tensor:
-    """Host ext scalar z minus a base vector x -> (D, n) ext tensor."""
-    c0 = F.sub(F.const(z[0], x.device), x)
-    return torch.stack([c0] + [F.const(z[d], x.device).expand_as(c0) for d in range(1, E.D)])
+def opened_to_host(vals) -> list:
+    """[round][matrix] lists of (D, w) device tensors -> [round][matrix]
+    [point] = [ExtVal per column], in one fetch."""
+    flat = [v for round_vals in vals for mat_vals in round_vals for v in mat_vals]
+    host = iter(fetch(flat))
+    return [[[[tuple(int(c) for c in col) for col in next(host).T] for _ in mat_vals] for mat_vals in round_vals]
+            for round_vals in vals]
+
+
+# --- K10: one FRI fold round -----------------------------------------------------
+
+def fri_fold_plain(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables, half_inv: int, absorb=None):
+    """Plain version of K10: the chain of pair steps with β, β², β⁴, ...
+    Each step: (v_even + v_odd)/2 + β_s·(v_even - v_odd)/(2x)."""
+    F = E.base
+    half = torch.full((), half_inv, dtype=torch.int64, device=current.device)
+    beta_s = beta.reshape(E.D, 1)
+    for inv_x in inv_x_tables:
+        a, b = current[:, 0::2], current[:, 1::2]
+        sm = E.scale_plain(E.add_plain(a, b), half)
+        df = E.scale_plain(E.sub_plain(a, b), F.mul_plain(inv_x[0::2], half))
+        current = E.add_plain(sm, E.mul_plain(df, beta_s))
+        beta_s = E.mul_plain(beta_s, beta_s)
+    if absorb is not None:
+        current = E.add_plain(current, absorb)
+    return current
+
+
+def fri_fold(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables, half_inv: int, absorb=None):
+    """Fold a (D, N) storage-order vector by 2^a (a = len(inv_x_tables)) with
+    the device β ((D,)): step s reads the inverse-x table of its domain
+    (pcs.x_table_storage, length N >> s).  Adds `absorb` ((D, N >> a)) when
+    given.  K10 on a CUDA tensor, the plain version on a CPU one."""
+    if not kernels.use_kernel(current):
+        return fri_fold_plain(E, current, beta, inv_x_tables, half_inv, absorb)
+    a = len(inv_x_tables)
+    current = current.contiguous()
+    beta = beta.reshape(-1).contiguous()
+    tables = [t.contiguous() for t in inv_x_tables]
+    n_in = current.shape[-1]
+    if not 1 <= a <= 4 or current.shape[0] != E.D or n_in >> a == 0:
+        raise ValueError(f"fri_fold takes a (D, N) vector and 1 to 4 tables, got {tuple(current.shape)}, {a}")
+    if any(t.shape[0] != n_in >> s for s, t in enumerate(tables)):
+        raise ValueError("fri_fold: inverse-x table s must have N >> s entries")
+    if beta.shape[0] != E.D or (absorb is not None and tuple(absorb.shape) != (E.D, n_in >> a)):
+        raise ValueError("fri_fold: β must have D coordinates and absorb the folded shape")
+    extra = () if absorb is None else (absorb.contiguous(),)
+    kernels.check_cuda(current, beta, *tables, *extra)
+    out = torch.empty((E.D, n_in >> a), dtype=torch.int64, device=current.device)
+    ptrs = (ctypes.c_void_p * a)(*[t.data_ptr() for t in tables])
+    kernels.FRI_FOLD.launch(
+        "fri_fold", E.base.field_id, kernels.ptr(current), n_in, a, ctypes.cast(ptrs, ctypes.c_void_p),
+        kernels.ptr(beta), half_inv, kernels.ptr(extra[0]) if extra else None, kernels.ptr(out),
+    )
+    return out
 
 
 def _fold_rows(vec: torch.Tensor, a_bits: int) -> torch.Tensor:

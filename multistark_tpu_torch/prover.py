@@ -1,9 +1,14 @@
-"""The prover (the counterpart of multistark_tpu/prover.py, host transcript).
+"""The prover (the counterpart of multistark_tpu/prover.py).
 
-Device work happens in the big stages (stage-1 commit, stage-2 lookup
-traces + commit, quotient evaluation + commit, FRI open); the Fiat-Shamir
-challenger runs on the host between them.  The proof bytes are the JAX
-package's, bit for bit.
+`prove_multiple_claims` takes the whole-prove device transcript
+(dt_prover.py) whenever `dt_prover.eligible(config)` holds (the
+GoldilocksBlake3 config, on any device) and the host transcript otherwise
+(the BabyBearPoseidon2 config), or when the device transcript's host replay
+cannot adopt its result.  `prove_host_transcript` is the host-transcript
+prove: device work happens in the big stages (stage-1 commit, stage-2 lookup
+traces + commit, quotient evaluation + commit, FRI open) and the Fiat-Shamir
+challenger runs on the host between them.  Both give the JAX package's proof
+bytes, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from .evaluator import TorchAlgebra, constraint_values, lookup_values as graph_l
 from .expr import Source
 from .pcs import FriProof
 from .system import ProverKey, System, SystemWitness
+from .utils import ext_pack_device, ext_powers_device, fetch
 
 ExtVal = Tuple[int, ...]
 
@@ -59,6 +65,25 @@ def prove(system: System, key: ProverKey, witness: SystemWitness, claims=None) -
 def prove_multiple_claims(
     system: System, key: ProverKey, witness: SystemWitness, claims: Sequence[Sequence[int]]
 ) -> Proof:
+    """The device transcript where the config allows it, else (or when its
+    replay falls back, counted in device_transcript.FALLBACKS) the host
+    transcript; the same proof bytes either way."""
+    from . import dt_prover
+
+    if dt_prover.eligible(system.config):
+        proof = dt_prover.prove_device_transcript(system, key, witness, claims)
+        if proof is not None:
+            return proof
+    return prove_host_transcript(system, key, witness, claims)
+
+
+def prove_host_transcript(
+    system: System, key: ProverKey, witness: SystemWitness, claims: Sequence[Sequence[int]]
+) -> Proof:
+    """The prove with its Fiat-Shamir challenger on the host: every cap,
+    accumulator and claimed value is fetched before the next challenge (the
+    FRI commit phase still runs its rounds on the device where the
+    challenger allows, pcs.py)."""
     config = system.config
     hf, he = config.host_field, config.host_ext
     pcs = config.pcs
@@ -88,15 +113,23 @@ def prove_multiple_claims(
 
     beta = ch.sample_ext()
     gamma = ch.sample_ext()
-    acc0 = lk.claims_accumulator(he, beta, gamma, claims)
+    E, dev = config.ext, config.device
+    beta_d, gamma_d = E.const(beta, dev), E.const(gamma, dev)
+    claims_arr = lk.claims_matrix(claims, hf.p)
+    if claims_arr is not None:
+        acc0_d = lk.claims_accumulator_device(config.field, E, claims_arr, beta_d, gamma_d)
+    else:  # no claims, or ragged ones
+        acc0_d = E.const(lk.claims_accumulator(he, beta, gamma, claims), dev)
 
-    # STAGE-2: lookup traces
-    s2_mats, accs = lk.stage_2_traces(
-        config.ext, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0, config.device
+    # STAGE-2: lookup traces (the cap and the accumulators fetched together)
+    s2_mats, accs_dev = lk.stage_2_traces_device(
+        E, [witness.lookup_values[i] for i in active_idx], beta_d, gamma_d, acc0_d
     )
-    s2_cap, s2_data = pcs.commit(
+    s2_cap_dev, s2_data = pcs.commit_device(
         [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
     )
+    s2_cap, *accs_np = fetch([s2_cap_dev] + accs_dev)
+    accs = [tuple(int(c) for c in a) for a in accs_np]
     ch.observe_commitment(s2_cap)
     for a in accs:
         ch.observe_ext(a)
@@ -104,12 +137,13 @@ def prove_multiple_claims(
     alpha = ch.sample_ext()
 
     # QUOTIENT per active circuit
+    alpha_d = E.const(alpha, dev)
+    accs_d = [acc0_d] + accs_dev
     chunk_mats = []
     for k, i in enumerate(active_idx):
-        acc_prev = acc0 if k == 0 else accs[k - 1]
         chunk_mats.append(
             _quotient_chunk_coeffs(
-                system, key, witness, s1_data, s2_data, i, k, beta, gamma, alpha, acc_prev, accs[k],
+                system, key, witness, s1_data, s2_data, i, k, beta_d, gamma_d, alpha_d, accs_d[k], accs_d[k + 1],
             )
         )
     q_cap, q_data = pcs.commit_from_coeffs(chunk_mats)
@@ -164,7 +198,8 @@ def _quotient_chunk_coeffs(
 ) -> torch.Tensor:
     """Evaluate the α-folded constraint composition on the disjoint quotient
     domain, divide by Z_H, and return the chunked coefficient matrix
-    (q·D, n) for the quotient commit."""
+    (q·D, n) for the quotient commit.  β, γ, α and the accumulators are (D,)
+    device scalars."""
     config = system.config
     hf = config.host_field
     pcs = config.pcs
@@ -184,9 +219,7 @@ def _quotient_chunk_coeffs(
         raw[Source.PREPROCESSED.value] = key.preprocessed_data.mmcs_data.mats[p_idx]
     mats = {src: pcs.engine.prefix_to_natural(mat, log_m) for src, mat in raw.items()}
     selectors = _selectors_device(system, log_n, q)
-    pubs = tuple(
-        tuple(config.field.const(c, config.device) for c in v) for v in (beta, gamma, acc_prev, acc_final)
-    )
+    pubs = ext_pack_device((beta, gamma, acc_prev, acc_final))  # (4, D): the publics' layout
     qmat = _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha)
     coeffs = pcs.engine.icoset_from_natural(qmat, log_m, hf.generator)  # (D, m)
     # chunk i·D + d = coordinate d of coefficients [i·n, (i+1)·n)
@@ -224,8 +257,10 @@ def _selectors_device(system, log_n: int, q: int) -> dict:
 
 def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha) -> torch.Tensor:
     """The constraint sweep + α-fold + Z_H division on the quotient domain,
-    returning the (D, m) composition (natural order)."""
-    F, hf, he = config.field, config.host_field, config.host_ext
+    returning the (D, m) composition (natural order).  pubs: the (4, D)
+    device publics (β, γ, acc_initial, acc_final); alpha: a (D,) device
+    scalar."""
+    F, hf = config.field, config.host_field
     ep = config.extension_params
     D = ep.degree
     dev = config.device
@@ -235,7 +270,7 @@ def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha
         return torch.roll(colv, -q) if offset == 1 else colv  # next row: g_n = G_m^q
 
     def publics(idx):
-        return pubs[idx // D][idx % D]
+        return pubs[idx // D, idx % D]
 
     alg = TorchAlgebra(F, dev, var_provider, publics, selectors)
     buf = sweep(circuit.graph, alg)
@@ -243,22 +278,21 @@ def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha
     logup_vals = lk.logup_constraint_values(
         alg, ep, hf, circuit.num_lookups,
         lambda col, off: var_provider(Source.STAGE2.value, col, off),
-        graph_lookup_values(circuit.graph, buf), selectors["last"], pubs, log_n,
+        graph_lookup_values(circuit.graph, buf), selectors["last"], tuple(tuple(r) for r in pubs), log_n,
     )
     for lv in logup_vals:
         values.extend(lv)
     if len(values) != circuit.constraint_count:
         raise AssertionError("constraint count mismatch")
 
-    # α-fold: value i gets α^(K-1-i) (Horner order on the verifier side)
+    # α-fold: value i gets α^(K-1-i) (Horner order on the verifier side);
+    # the powers come from the device α by doubling
     K = len(values)
-    apows = [he.one]
-    for _ in range(K - 1):
-        apows.append(he.mul(apows[-1], alpha))
-    coords = [F.const(0, dev) for _ in range(D)]
+    apows = ext_powers_device(config.ext, alpha, K)  # (D, K)
+    coords = [None] * D
     for i, v in enumerate(values):
-        ap = apows[K - 1 - i]
         for d in range(D):
-            coords[d] = F.add(coords[d], F.mul(v, F.const(ap[d], dev)))
+            term = F.mul(v, apows[d, K - 1 - i])
+            coords[d] = term if coords[d] is None else F.add(coords[d], term)
     inv_van = selectors["inv_vanishing"]
     return torch.stack([F.mul(c, inv_van) for c in coords])

@@ -1,20 +1,28 @@
 """Where a prove's time goes on the card: per-stage spans and the device's
-busy share, for the bench workload under either config.
+busy share, for the bench workload under either config, and for
+GoldilocksBlake3 along both of its paths side by side.
 
     python3 -m multistark_tpu_torch.spans [--config NAME ...] [--log-n N ...] [--proves K]
 
-For each config and size it builds the system and witness, runs one cold
-prove, then K warm proves with every stage below wrapped in a host-clock
-span that synchronises the device on both sides (so device work lands in
-the stage that queued it), and prints the last warm prove's spans.  Then
-one more warm prove runs under `torch.profiler`, and the device's busy time
-(the sum of the kernels' own device time) is printed beside the median wall
-time of the warm proves.  Needs a CUDA device; the spans add a synchronise per stage,
-so their sum exceeds an unwrapped prove by a little.
+Paths: GoldilocksBlake3 through `prove_multiple_claims` (the device
+transcript, "dt") and through `prove_host_transcript` ("host");
+BabyBearPoseidon2 through `prove_multiple_claims` (its host transcript).
+First, for each path and size, it builds the system and witness, runs one
+cold prove, then K warm proves with nothing wrapped, and prints their wall
+times (host clock ending in a synchronise).  Then it wraps every stage
+below in a host-clock span that synchronises the device on both sides (so
+device work lands in the stage that queued it; the spans therefore add
+syncs the device transcript otherwise avoids), runs K warm proves again
+and prints the last one's spans.  Last, one more warm prove runs under
+`torch.profiler`, and the device's busy time (the sum of the kernels' own
+device time) is printed beside the median unwrapped warm prove.  Needs a
+CUDA device.
 
 Spans nest: a commit contains its Merkle tree; the FRI commit phase
 contains the level trees and the PoW grinds; "host duplex" is every
-other challenger call (observe, sample), counted once where they nest.
+other host challenger call (observe, sample), counted once where they
+nest, "device duplex" every DeviceDuplex call; the device transcript's
+"global fetch + host replay" contains the replay's host duplex calls.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from . import lookup, prover
+from . import dt_prover, kernels, lookup, prover
 from .challenger import DuplexChallenger, SerializingChallenger64
+from .device_transcript import DeviceDuplex
 from .config import CommitmentParameters, FriParameters
 from .configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
 from .system import System, SystemWitness
@@ -37,16 +46,35 @@ from .test_circuits import u32_add_system_inputs, u32_add_witness
 
 CONFIGS = {"goldilocks_blake3": GoldilocksBlake3Config, "babybear_poseidon2": BabyBearPoseidon2Config}
 WITNESS_SEED = 0xDEADBEEF  # bench.py u32_add_case
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's HBM rate (NVIDIA's data sheet)
 _CHALLENGER_METHODS = ("observe_field", "observe_u64", "observe_ext", "observe_bytes", "observe_commitment",
                        "observe_claims", "sample_field", "sample_ext", "sample_bits", "grind")
+_DUPLEX_METHODS = ("observe_bytes", "observe_u64", "observe_words_device", "observe_cap_device",
+                   "observe_ext_device", "sample_ext", "entry_words")
+# (path name, config, prover entry point)
+PATHS = (
+    ("goldilocks_blake3 dt", "goldilocks_blake3", "prove_multiple_claims"),
+    ("goldilocks_blake3 host", "goldilocks_blake3", "prove_host_transcript"),
+    ("babybear_poseidon2", "babybear_poseidon2", "prove_multiple_claims"),
+)
+
+
+def _launches() -> int:
+    return sum(kernels.launch_counts().values())
 
 
 class Spans:
-    """Inclusive seconds per span name, with a synchronise on both sides."""
+    """Inclusive seconds and kernel launches per span name, with a
+    synchronise on both sides."""
 
     def __init__(self):
         self.seconds = defaultdict(float)
+        self.launches = defaultdict(int)
         self._depth = defaultdict(int)
+
+    def clear(self) -> None:
+        self.seconds.clear()
+        self.launches.clear()
 
     def wrap(self, name: str, fn):
         @functools.wraps(fn)
@@ -55,34 +83,72 @@ class Spans:
                 return fn(*args, **kwargs)
             self._depth[name] += 1
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, n0 = time.perf_counter(), _launches()
             try:
                 return fn(*args, **kwargs)
             finally:
                 torch.cuda.synchronize()
                 self.seconds[name] += time.perf_counter() - t0
+                self.launches[name] += _launches() - n0
                 self._depth[name] -= 1
         return timed
 
 
+def program_bytes(system, witness) -> dict:
+    """The bytes each device program of the prove must move (each input read
+    once, each output written once), from the system's shapes: the
+    lookup-values sweep of the witness build, stage 2, the quotient sweep,
+    the three commits (LDE and tree), the claimed evaluations and the
+    reduced openings.  A lower bound on their time is bytes / HBM rate."""
+    config = system.config
+    D, B = config.ext.D, 1 << config.commitment_parameters.log_blowup
+    out = defaultdict(int)
+    n_max = max(witness.heights)
+    for c, n in zip(system.circuits, witness.heights):
+        if not n:
+            continue
+        pw = c.preprocessed_dims[1] if c.preprocessed_dims else 0
+        lk_cols = sum(1 + len(args) for _, args in c.graph.lookups)  # multiplicity + arguments per slot
+        m = n * c.quotient_degree
+        out["lookup-values sweep (witness)"] += 8 * n * (c.main_width + pw + lk_cols)
+        out["stage-2 traces"] += 8 * n * (lk_cols + c.stage2_width)
+        out["quotient sweep"] += 8 * m * (c.main_width + c.stage2_width + pw + 4 + D)  # 4 selector columns
+        widths = (c.main_width, c.stage2_width, c.quotient_degree * D)  # stage 1, stage 2, quotient chunks
+        out["commits (LDE + tree)"] += sum(8 * w * n + 8 * w * B * n for w in widths)
+        out["claimed evaluations"] += 8 * n * (pw + sum(widths))
+        out["reduced openings"] += 8 * B * n * (pw + sum(widths))
+    out["commits (LDE + tree)"] += 3 * 64 * B * n_max  # leaves and inner nodes of three trees
+    out["reduced openings"] += 8 * D * B * n_max  # the output at the tallest height
+    return dict(out)
+
+
 def instrument(config, spans: Spans):
     """Wrap the prover's stages in spans (module functions, the config's PCS
-    and Merkle instances, and the challenger classes)."""
+    and Merkle instances, and the challenger and duplex classes)."""
     pcs = config.pcs
-    prover._observe_claims = spans.wrap("observe claims (host)", prover._observe_claims)
-    lookup.claims_accumulator = spans.wrap("claims accumulator (host)", lookup.claims_accumulator)
-    lookup.stage_2_traces = spans.wrap("stage-2 traces", lookup.stage_2_traces)
-    prover._quotient_chunk_coeffs = spans.wrap("quotient sweep + iDFT", prover._quotient_chunk_coeffs)
-    for attr, name in (("commit", "stage commits (LDE + tree)"), ("commit_from_coeffs", "quotient commit"),
+    for mod, attr, name in (
+        (prover, "_observe_claims", "observe claims (host)"),
+        (dt_prover, "_observe_claims_host", "observe claims (host)"),
+        (lookup, "claims_accumulator_device", "claims accumulator"),
+        (lookup, "stage_2_traces_device", "stage-2 traces"),
+        (prover, "_quotient_chunk_coeffs", "quotient sweep + iDFT"),
+        (dt_prover, "_fetch_and_replay", "global fetch + host replay"),
+    ):
+        setattr(mod, attr, spans.wrap(name, getattr(mod, attr)))
+    for attr, name in (("commit_device", "stage commits (LDE + tree)"), ("commit", "stage commits (LDE + tree)"),
+                       ("commit_from_coeffs_device", "quotient commit"), ("commit_from_coeffs", "quotient commit"),
                        ("_claimed_evaluations", "claimed evaluations"), ("_reduced_openings", "reduced openings"),
-                       ("_commit_phase", "FRI commit phase"), ("_query_phase", "query phase")):
+                       ("_commit_phase", "FRI commit phase"), ("_commit_phase_device_core", "FRI commit phase"),
+                       ("_query_phase", "query phase")):
         setattr(pcs, attr, spans.wrap(name, getattr(pcs, attr)))
-    pcs.mmcs.commit = spans.wrap("Merkle trees", pcs.mmcs.commit)
-    for cls in (DuplexChallenger, SerializingChallenger64):
-        for meth in _CHALLENGER_METHODS:
+    pcs.mmcs.commit_device = spans.wrap("Merkle trees", pcs.mmcs.commit_device)
+    for cls, methods, name in ((DuplexChallenger, _CHALLENGER_METHODS, "host duplex"),
+                               (SerializingChallenger64, _CHALLENGER_METHODS, "host duplex"),
+                               (DeviceDuplex, _DUPLEX_METHODS, "device duplex")):
+        for meth in methods:
             fn = getattr(cls, meth, None)
             if fn is not None and not hasattr(fn, "__wrapped__"):  # classes are wrapped once
-                setattr(cls, meth, spans.wrap("PoW grinds (host)" if meth == "grind" else "host duplex", fn))
+                setattr(cls, meth, spans.wrap("PoW grinds (host)" if meth == "grind" else name, fn))
 
 
 def bench_inputs(log_n: int, device):
@@ -118,40 +184,58 @@ def main(argv) -> int:
         raise SystemExit("spans: needs a CUDA device")
     dev = torch.device("cuda", 0)
     print(f"[spans] {torch.cuda.get_device_name(0)}", flush=True)
-    spans = Spans()  # one for every config: the challenger classes are wrapped once
-    for name in args.config:
-        config = CONFIGS[name](
+    cases = []  # (path, log_n, run, config)
+    for path, cfg_name, entry in PATHS:
+        if cfg_name not in args.config:
+            continue
+        config = CONFIGS[cfg_name](
             CommitmentParameters(log_blowup=2, cap_height=0),
             FriParameters(log_final_poly_len=0, max_log_arity=1, num_queries=100,
                           commit_proof_of_work_bits=10, query_proof_of_work_bits=10),
             device=dev,
         )
-        instrument(config, spans)
         system, key = System.new(config, u32_add_system_inputs())
         for log_n in args.log_n:
             traces, claims = bench_inputs(log_n, dev)
+            n0 = _launches()
             witness = SystemWitness.from_stage_1(traces, system, key)
-
-            def run():
-                return prover.prove_multiple_claims(system, key, witness, claims)
-
+            print(f"[spans] {path} log_n={log_n} witness build: {_launches() - n0} launches", flush=True)
+            for prog, nbytes in program_bytes(system, witness).items():
+                print(f"[spans] {path} log_n={log_n} {prog} must move {nbytes} bytes: at least "
+                      f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms", flush=True)
+            run = functools.partial(getattr(prover, entry), system, key, witness, claims)
             run()  # cold: host tables
-            walls = []
-            for _ in range(args.proves):
-                spans.seconds.clear()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            for span, secs in sorted(spans.seconds.items(), key=lambda kv: -kv[1]):
-                print(f"[spans] {name} log_n={log_n} {span}: {secs:.4f} s", flush=True)
-            print(f"[spans] {name} log_n={log_n} warm prove with spans, {args.proves} runs: "
-                  + ", ".join(f"{w:.4f}" for w in walls) + " s", flush=True)
-            busy = device_busy_seconds(run)
-            wall = float(np.median(walls))  # the profiler's own overhead would swamp its prove's wall time
-            print(f"[spans] {name} log_n={log_n} profiled prove: device busy {busy:.4f} s against the "
-                  f"median warm prove of {wall:.4f} s ({100 * (1 - busy / wall):.1f}% idle)", flush=True)
+            cases.append((path, log_n, run, config))
+
+    def wall(run) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain = {}
+    for path, log_n, run, _ in cases:  # nothing wrapped yet
+        plain[path, log_n] = [wall(run) for _ in range(args.proves)]
+        print(f"[spans] {path} log_n={log_n} warm prove, {args.proves} runs: "
+              + ", ".join(f"{w:.4f}" for w in plain[path, log_n]) + " s", flush=True)
+    for path, log_n, run, _ in cases:
+        busy = device_busy_seconds(run)
+        median = float(np.median(plain[path, log_n]))  # the profiler's own overhead would swamp its prove's wall time
+        print(f"[spans] {path} log_n={log_n} profiled prove: device busy {busy:.4f} s against the "
+              f"median warm prove of {median:.4f} s ({100 * (1 - busy / median):.1f}% idle)", flush=True)
+    spans = Spans()  # one for every path: the challenger and duplex classes are wrapped once
+    for config in {id(c): c for *_, c in cases}.values():
+        instrument(config, spans)
+    for path, log_n, run, _ in cases:
+        with_spans = []
+        for _ in range(args.proves):
+            spans.clear()
+            with_spans.append(wall(run))
+        for span, secs in sorted(spans.seconds.items(), key=lambda kv: -kv[1]):
+            print(f"[spans] {path} log_n={log_n} {span}: {secs:.4f} s, {spans.launches[span]} launches", flush=True)
+        print(f"[spans] {path} log_n={log_n} warm prove with spans, {args.proves} runs: "
+              + ", ".join(f"{w:.4f}" for w in with_spans) + " s", flush=True)
     return 0
 
 

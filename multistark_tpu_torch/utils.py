@@ -1,5 +1,5 @@
 """Scans and reductions over field tensors: kernel K4 (gl_scan), plus index
-helpers.
+helpers and the host boundary (uploads, the one fetch, device ext scalars).
 
 `batch_inv`, `cumsum` and `field_sum` work along the LAST axis of a base
 tensor (..., n) or a coordinate-major extension tensor (D, ..., n), and take
@@ -36,6 +36,58 @@ def bit_reverse_indices(log_n: int) -> np.ndarray:
 
 def reverse_bits(i: int, bits: int) -> int:
     return int(f"{i:0{bits}b}"[::-1], 2) if bits else 0
+
+
+# --- the host boundary -----------------------------------------------------------
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device` (sharing the array's memory on
+    the CPU).  A CUDA upload is staged through pinned memory and does not
+    block the host: it queues behind the kernels already launched instead of
+    waiting for them, so uploads of transcript-derived tables and scalars
+    make no sync."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def fetch(tensors) -> list:
+    """Many device tensors to the host in ONE transfer (one sync): int64
+    tensors come back as uint64 arrays, int32 ones as uint32, each in its
+    own shape."""
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        part = flat[off : off + t.numel()]
+        off += t.numel()
+        arr = (part & 0xFFFFFFFF).astype(np.uint32) if t.dtype == torch.int32 else part.view(np.uint64)
+        out.append(arr.reshape(tuple(t.shape)))
+    return out
+
+
+def ext_pack_device(vals) -> torch.Tensor:
+    """k device extension scalars ((D,) tensors) stacked into one (k, D)
+    tensor; element [i, d] is coordinate d of value i."""
+    return torch.stack([v.reshape(-1) for v in vals])
+
+
+def ext_powers_device(E: ExtOps, alpha: torch.Tensor, count: int) -> torch.Tensor:
+    """[α^0, ..., α^(count-1)] of a device ext scalar α as a (D, count)
+    tensor, by doubling: the table so far times α^m, then α^m squared, so
+    2·log2(count) launches of the field kernel instead of count."""
+    pows = torch.zeros((E.D, 1), dtype=torch.int64, device=alpha.device)
+    pows[0] = 1
+    step = alpha.reshape(E.D, 1)
+    while pows.shape[1] < count:
+        pows = torch.cat([pows, E.mul(pows, step)], dim=1)
+        if pows.shape[1] < count:
+            step = E.square(step)
+    return pows[:, :count]
 
 
 # --- plain PyTorch versions (any device) ---------------------------------------

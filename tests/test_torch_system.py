@@ -22,6 +22,7 @@ from multistark_tpu_torch.fields import device as fd
 from multistark_tpu_torch.fields.device import GL2_OPS as TGL2
 from multistark_tpu_torch.system import System, SystemWitness
 from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+from multistark_tpu_torch.utils import fetch
 
 LOG_N = 5
 
@@ -99,7 +100,9 @@ def test_stage_2_traces_and_accumulators_are_equal(both):
     jmats, jaccs = jax_lk.stage_2_traces(
         GL_OPS, GL2_OPS, GOLDILOCKS, GOLDILOCKS_EXT2, jwit.lookup_values, beta, gamma, acc0
     )
-    tmats, taccs = lk.stage_2_traces(TGL2, twit.lookup_values, beta, gamma, acc0, tcfg.device)
-    assert taccs == jaccs
+    tmats, taccs = lk.stage_2_traces_device(
+        TGL2, twit.lookup_values, *(TGL2.const(v, tcfg.device) for v in (beta, gamma, acc0))
+    )
+    assert [tuple(int(c) for c in a) for a in fetch(taccs)] == jaccs
     for jm, tm in zip(jmats, tmats):
         np.testing.assert_array_equal(fd.to_np(tm), GL_OPS.to_np(jm))
