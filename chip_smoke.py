@@ -8,12 +8,14 @@ without printing a result:
 
   1. device  -- torch.cuda must be available; prints the card's name and
                 its `nvidia-smi` name and power limit
-  2. build   -- compiles the ten CUDA kernels from csrc/ (one nvcc per
+  2. build   -- compiles the thirteen CUDA kernels from csrc/ (one nvcc per
                 source, all at once, then one link; sm_90a)
   3. kernels -- each kernel against its plain PyTorch version on the card,
-                at the main paths' shapes, for Goldilocks and BabyBear;
-                outputs must be bit-equal (all arithmetic is exact mod p,
-                all hashing exact); warm CUDA-event times of both
+                at the main paths' shapes, for Goldilocks and BabyBear
+                (K11 on U32Add's three recorded programs at 2^18 rows, K12
+                and K13 on a (14, 2^20) stored LDE at two points); outputs
+                must be bit-equal (all arithmetic is exact mod p, all
+                hashing exact); warm CUDA-event times of both
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
                 witness) at 2^14 and 2^18 rows on `cuda` along three paths:
@@ -52,15 +54,18 @@ WITNESS_SEED = 0xDEADBEEF  # bench.py u32_add_case
 PATHS = {
     "goldilocks_blake3 device transcript": (
         "goldilocks_blake3", "prove_multiple_claims",
-        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "dt_flush", "fri_grind", "claims_fp", "fri_fold"),
+        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "dt_flush", "fri_grind", "claims_fp", "fri_fold",
+         "expr_sweep", "bary_eval", "reduced_open"),
     ),
     "goldilocks_blake3 host transcript": (
         "goldilocks_blake3", "prove_host_transcript",
-        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "fri_grind", "claims_fp", "fri_fold"),
+        ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "fri_grind", "claims_fp", "fri_fold", "expr_sweep",
+         "bary_eval", "reduced_open"),
     ),
     "babybear_poseidon2": (
         "babybear_poseidon2", "prove_multiple_claims",
-        ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan", "claims_fp", "fri_fold"),
+        ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan", "claims_fp", "fri_fold", "expr_sweep", "bary_eval",
+         "reduced_open"),
     ),
 }
 BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
@@ -274,6 +279,39 @@ def check_kernels(dev):
                  CLAIM_WIDTH * ext_muls * mul_ops * n_claims),
                 name="claims_fp" if F is GL_OPS else None)
 
+        # K11: the three programs of U32Add at 2^18 rows (the quotient on its
+        # stored LDEs, the witness's lookup values, the stage-2 messages)
+        check_programs(dev, F, E, rnd, compare, mul_ops, first=F is GL_OPS)
+
+        # K12 and K13: the claimed evaluations and the reduced opening of a
+        # (14, 2^20) stored LDE (2^18 rows at blowup 4) at two points
+        n18, P = 1 << 18, 2
+        ws, zs = [rnd(F, D, n18) for _ in range(P)], [rnd(F, D) for _ in range(P)]
+        s_n, inv_ns = hf.pow(hf.generator, n18), hf.inv(hf.mul(n18 % hf.p, hf.pow(hf.generator, n18)))
+        compare(f"bary_eval {E.name} (14, 2^20) prefix 2^18, 2 points",
+                lambda: pcs.bary_eval(E, lde, 18, ws, zs, s_n, inv_ns),
+                lambda: pcs.bary_eval_plain(E, lde, 18, ws, zs, s_n, inv_ns),
+                (8 * lde_w * n18 + 8 * P * D * n18 + 8 * P * D * lde_w, P * D * lde_w * n18 * (mul_ops + 2)),
+                name="bary_eval" if F is GL_OPS else None)
+        count = 2 * lde_w + 2 * 13 * D + D  # α powers at the tallest height: stage 1, 2 at two points, quotient at one
+        apows = rnd(F, D, count)
+        vals = [rnd(F, D, lde_w) for _ in range(P)]
+        invs = [rnd(F, D, 1 << lde_log) for _ in range(P)]
+        offs = [3, 3 + lde_w]
+        n_lde = 1 << lde_log
+        compare(f"reduced_open {E.name} (14, 2^20), 2 points",
+                lambda: pcs.reduced_open(E, lde, apows, vals, invs, offs),
+                lambda: pcs.reduced_open_plain(E, lde, apows, vals, invs, offs),
+                (8 * lde_w * n_lde + 8 * P * D * n_lde + 8 * D * n_lde,
+                 n_lde * (lde_w * D * (mul_ops + 2) + P * (2 * ext_muls * mul_ops + 4 * D))),
+                name="reduced_open" if F is GL_OPS else None)
+        acc = rnd(F, D, n_lde)
+        compare(f"reduced_open {E.name} (14, 2^20), 2 points, into a running sum",
+                lambda: pcs.reduced_open(E, lde, apows, vals, invs, offs, acc.clone()),
+                lambda: pcs.reduced_open_plain(E, lde, apows, vals, invs, offs, acc),
+                (8 * lde_w * n_lde + 8 * P * D * n_lde + 16 * D * n_lde,
+                 n_lde * (lde_w * D * (mul_ops + 2) + P * (2 * ext_muls * mul_ops + 4 * D))))
+
     # K8: one FRI round's grind at the bench's 10 bits over chain ‖ cap
     bits = BENCH_FRI["commit_proof_of_work_bits"]
     inp = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 16).astype(np.int32)).to(dev)
@@ -299,6 +337,63 @@ def check_kernels(dev):
     compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
             (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
     return rows
+
+
+def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
+    """K11 against its plain version on U32Add's three programs at 2^18 rows
+    (blowup 4): the quotient composition over the stored stage-1 and stage-2
+    LDEs (bit-reversed, next row q = 1 ahead), the lookup values over the
+    trace, and the stage-2 messages over those values."""
+    from multistark_tpu_torch import lookup as lk, program, prover, system as sm
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    name = "goldilocks_blake3" if first else "babybear_poseidon2"
+    system, _ = sm.System.new(bench_config(dev, name), u32_add_system_inputs())
+    c_idx, log_n, D = 0, 18, E.D
+    circuit = system.circuits[c_idx]
+    n = 1 << log_n
+    lde = 1 << (log_n + BENCH_COMMIT["log_blowup"])
+    q = circuit.quotient_degree
+    m = n * q
+
+    def cost(prog, rows, n_out):
+        """(bytes: each column and selector the program reads and each output
+        plane once; 32-bit operations of its arithmetic)"""
+        code = prog.code
+        cols = {(int(b) >> 1, int(a)) for op, _, a, b in code if op == program.VAR}
+        sels = {int(a) for op, _, a, _ in code if op == program.SEL}
+        muls = int((code[:, 0] == program.MUL).sum())
+        adds = int(((code[:, 0] == program.ADD) | (code[:, 0] == program.SUB) | (code[:, 0] == program.NEG)).sum())
+        return 8 * rows * (len(cols) + len(sels) + n_out), rows * (muls * mul_ops + adds * 2)
+
+    # (a) the quotient
+    qprog = system.cached_program(("quotient", c_idx, log_n), lambda: prover._quotient_program(system, c_idx, log_n))
+    sels = prover._selectors_device(system, log_n, q)
+    qops = program.Operands(
+        sources=[None, rnd(F, circuit.main_width, lde), rnd(F, circuit.stage2_width, lde)], rows=m, step=q,
+        brev_log=m.bit_length() - 1, selectors=[sels[s] for s in program.SELECTORS], pubs=rnd(F, 4 * D),
+        apows=rnd(F, D, circuit.constraint_count),
+    )
+    say("kernels", f"expr_sweep programs: {qprog.name} {len(qprog.code)} instructions, {qprog.n_regs} registers")
+    compare(f"expr_sweep {F.name} quotient of U32Add (2^18 rows)",
+            lambda: program.expr_sweep(F, qprog, qops, (D, m), m, 1),
+            lambda: program.expr_sweep_plain(F, qprog, qops, (D, m), m, 1), cost(qprog, m, D),
+            name="expr_sweep" if first else None)
+    # (b) the lookup values
+    lprog = sm._lookup_values_program(system, c_idx)
+    arities = tuple(len(a) for _, a in circuit.graph.lookups)
+    n_out = sum(1 + a for a in arities)
+    lops = program.Operands(sources=[None, rnd(F, circuit.main_width, n)], rows=n)
+    compare(f"expr_sweep {F.name} lookup values of U32Add (2^18 rows)",
+            lambda: program.expr_sweep(F, lprog, lops, (n_out, n), n, 1),
+            lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out))
+    # (c) the stage-2 messages
+    L = len(arities)
+    sprog = lk.stage2_program(F.p, system.config.extension_params, arities, "stage-2 messages of U32Add")
+    sops = program.Operands(sources=[rnd(F, n_out, n)], rows=n, pubs=rnd(F, 2 * D))
+    compare(f"expr_sweep {F.name} stage-2 messages of U32Add (2^18 rows, {L} slots)",
+            lambda: program.expr_sweep(F, sprog, sops, (D + 1, n * L), n * L, L),
+            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)))
 
 
 def bench_config(dev, config_name: str):

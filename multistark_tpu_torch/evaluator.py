@@ -1,10 +1,9 @@
 """Graph evaluation: one dense forward sweep, generic over the working
 algebra (the counterpart of multistark_tpu/evaluator.py).
 
-Each node becomes one whole-column tensor op.  `TorchAlgebra` mirrors the
-JAX package's `DeviceAlgebra`: base-field tensors over all rows at once,
-with every op going through the config's field ops (fields/device.py: K1
-for Goldilocks, K5 for BabyBear).
+The port sweeps with one algebra, `program.Recorder`, which turns the
+graph into a flat per-row program for kernel K11 (the JAX package's
+`DeviceAlgebra` made one whole-column op per node instead).
 """
 
 from __future__ import annotations
@@ -55,48 +54,3 @@ def constraint_values(graph: ConstraintGraph, buf: list) -> list:
 
 def lookup_values(graph: ConstraintGraph, buf: list) -> List[Tuple[object, tuple]]:
     return [(buf[m], tuple(buf[a] for a in args)) for m, args in graph.lookups]
-
-
-class TorchAlgebra:
-    """Whole-column evaluation over the base field F on one device.
-
-    `var_provider(source, column, offset)` returns a (n,) tensor; selectors
-    are (n,) tensors; publics and constants are shape-() tensors that the
-    ops broadcast."""
-
-    def __init__(self, F, device, var_provider, publics, selectors):
-        self.F = F
-        self.device = device
-        self._var = var_provider
-        self._publics = publics
-        self._sel = selectors
-
-    def const(self, v: int):
-        return self.F.const(v, self.device)
-
-    def var(self, source, column, offset):
-        return self._var(source, column, offset)
-
-    def public(self, index):
-        return self._publics(index)
-
-    def first(self):
-        return self._sel["first"]
-
-    def last(self):
-        return self._sel["last"]
-
-    def transition(self):
-        return self._sel["transition"]
-
-    def add(self, a, b):
-        return self.F.add(a, b)
-
-    def sub(self, a, b):
-        return self.F.sub(a, b)
-
-    def mul(self, a, b):
-        return self.F.mul(a, b)
-
-    def neg(self, a):
-        return self.F.neg(a)

@@ -329,9 +329,6 @@ class ExtOps:
         """A host extension value as a (D,) tensor on `device`."""
         return self.base.from_np(np.asarray([int(c) % self.base.p for c in coords], np.uint64), device)
 
-    def from_base(self, a: torch.Tensor) -> torch.Tensor:
-        return torch.stack([a] + [torch.zeros_like(a)] * (self.D - 1))
-
     def to_host(self, t: torch.Tensor) -> list:
         """(D, ...) tensor -> host ext tuples along the trailing axes."""
         arr = FieldOps.to_np(t)

@@ -1,4 +1,4 @@
-"""Build, load and count the port's ten hand-written CUDA kernels.
+"""Build, load and count the port's thirteen hand-written CUDA kernels.
 
 Each source under csrc/ compiles with its own nvcc process (all started
 together) into an object, and the objects link into one shared library with
@@ -48,6 +48,10 @@ _SIGNATURES = {
     "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp],
     "claims_fp": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp],
     "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
+    "expr_sweep": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _i64, _i64, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "bary_partial": [_i32, _vp, _i64, _i64, _i64, _vp, _i32, _vp, _i64, _vp],
+    "bary_finish": [_i32, _vp, _i64, _i32, _i64, _vp, _i32, _u64, _u64, _vp, _vp],
+    "reduced_open": [_i32, _vp, _i64, _i64, _vp, _i64, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -195,8 +199,20 @@ FRI_FOLD = CudaKernel(
     "fri_fold", "multistark_tpu_torch/csrc/fri_fold.cu",
     "multistark_tpu/pcs.py:1393",
 )
+EXPR_SWEEP = CudaKernel(
+    "expr_sweep", "multistark_tpu_torch/csrc/expr_sweep.cu",
+    "multistark_tpu/prover.py:640",
+)
+BARY_EVAL = CudaKernel(
+    "bary_eval", "multistark_tpu_torch/csrc/open_reduce.cu",
+    "multistark_tpu/pcs.py:1256",
+)
+REDUCED_OPEN = CudaKernel(
+    "reduced_open", "multistark_tpu_torch/csrc/open_reduce.cu",
+    "multistark_tpu/pcs.py:1284",
+)
 KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE, DT_FLUSH, FRI_GRIND, CLAIMS_FP,
-           FRI_FOLD)
+           FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,12 +14,12 @@ Chained accumulators: with m_{r,j} = beta + fingerprint(gamma, args_{r,j}),
   wrap (j=L-1) :  m_{r,L-1}·(acc_{r+1,0} - acc_{r,L-1} - is_last_row·Δ)
                       - mult_{r,L-1} = 0
 
-The stage-2 traces are built on the device: messages through the field's
-elementwise kernel (K1 or K5), their inverses through the K4 batch inverse,
-the chain through the K4 prefix sum.  The claims accumulator of both
-transcripts and both fields runs on the device with β and γ device scalars:
-the messages in kernel K9 (csrc/claims_fp.cu, `claims_fp` below), their
-inverses and sum in K4.
+The stage-2 traces are built on the device: the slot messages by each
+circuit's stage-2 program on kernel K11 (program.py), their inverses through
+the K4 batch inverse, the chain through the K4 prefix sum.  The claims
+accumulator of both transcripts and both fields runs on the device with β
+and γ device scalars: the messages in kernel K9 (csrc/claims_fp.cu,
+`claims_fp` below), their inverses and sum in K4.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from . import kernels
 from .fields.device import ExtOps, FieldOps
 from .fields.host import ExtensionParams, HostExtField, HostField
 from .graph import ConstraintGraph
-from .utils import batch_inv, cumsum, field_sum
+from .program import Operands, Program, Recorder, expr_sweep
+from .utils import batch_inv, cumsum, ext_pack_device, field_sum
 
 ExtVal = Tuple[int, ...]
 
@@ -254,50 +255,85 @@ def logup_constraint_values(
 @dataclass
 class LookupValues:
     """Per-circuit lookup witness: for each slot, the multiplicity column and
-    argument columns as (n,) base tensors."""
+    argument columns, as rows of one (Σ_j (1 + arity_j), n) matrix (slot 0's
+    multiplicity, its arguments, slot 1's multiplicity, ...), with the
+    circuit's stage-2 message program."""
 
     height: int
-    mults: List[torch.Tensor]  # L tensors (n,)
-    args: List[List[torch.Tensor]]  # L lists of tensors (n,)
+    matrix: Optional[torch.Tensor]  # None when the circuit has no lookups
+    arities: Tuple[int, ...]
+    stage2_program: Optional[Program]
+
+    def _starts(self) -> List[int]:
+        starts, row = [], 0
+        for a in self.arities:
+            starts.append(row)
+            row += 1 + a
+        return starts
+
+    @property
+    def mults(self) -> List[torch.Tensor]:  # L tensors (n,)
+        return [self.matrix[r] for r in self._starts()]
+
+    @property
+    def args(self) -> List[List[torch.Tensor]]:  # L lists of tensors (n,)
+        return [[self.matrix[r + 1 + i] for i in range(a)] for r, a in zip(self._starts(), self.arities)]
+
+
+def stage2_program(p: int, ep: ExtensionParams, arities: Sequence[int], name: str) -> Program:
+    """Record the stage-2 slot messages β + Σ_i arg_i·γ^i (Horner) of lookups
+    with these arities as a K11 program over the lookup-values matrix
+    (source 0; β at publics 0..D-1, γ at D..2D-1).  Out: plane d <
+    D = coordinate d of the message, plane D = the multiplicity, each at
+    slot j of its row: the chain order, row-major and slot-minor."""
+    rec = Recorder(p, sources=(0,))
+    X = ExtCoordOps(rec, ep)
+    D = ep.degree
+    beta = tuple(rec.public(d) for d in range(D))
+    gamma = tuple(rec.public(D + d) for d in range(D))
+    row = 0
+    for j, arity in enumerate(arities):
+        mult = rec.var(0, row, 0)
+        m = (rec.const(0),) * D
+        for i in reversed(range(arity)):
+            m = X.add(X.mul(m, gamma), X.from_w(rec.var(0, row + 1 + i, 0)))
+        m = X.add(m, beta)
+        for d in range(D):
+            rec.out(m[d], d, j)
+        rec.out(mult, D, j)
+        row += 1 + arity
+    return rec.compile(name)
 
 
 def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta, gamma, acc0):
     """All active circuits' stage-2 traces + per-circuit running
     accumulators, threading one global accumulator from acc₀; each circuit's
     serial row chain is a parallel prefix sum.  β, γ, acc₀ are (D,) device
-    scalars and no value leaves the device.
+    scalars and no value leaves the device.  Per circuit: the slot messages
+    and multiplicities in chain order (K11), the messages' inverses (K4),
+    the terms mult/message (K1 or K5) and the chain (K4).
 
     Returns (stage2_mats: [(max(L,1)·D, n) tensors], accs: [(D,) tensors])."""
     mats, accs = [], []
     acc = acc0.reshape(E.D)
+    pubs = None
     for lv in lookup_values:
-        n, L = lv.height, len(lv.mults)
+        n, L = lv.height, len(lv.arities)
         if L == 0:
             # pass-through: a (D, n) matrix of the constant accumulator
             mats.append(acc[:, None].expand(E.D, n).contiguous())
             accs.append(acc)
             continue
-        flat_msgs, flat_mults = _stage2_msgs(E, lv.args, lv.mults, beta, gamma)
-        inv_msgs = batch_inv(flat_msgs, E)
-        mat, total = _stage2_scan(E, L, inv_msgs, flat_mults, acc)
+        if pubs is None:
+            pubs = ext_pack_device((beta, gamma)).reshape(-1)
+        ops = Operands(sources=[lv.matrix], rows=n, pubs=pubs)
+        msgs = expr_sweep(E.base, lv.stage2_program, ops, (E.D + 1, n * L), n * L, L)
+        inv_msgs = batch_inv(msgs[: E.D], E)
+        mat, total = _stage2_scan(E, L, inv_msgs, msgs[E.D], acc)
         acc = E.add(acc, total.reshape(E.D))
         mats.append(mat)
         accs.append(acc)
     return mats, accs
-
-
-def _stage2_msgs(E: ExtOps, args_list, mults_list, beta_t, gamma_t):
-    """Slot messages β + Σ_i arg_i·γ^i (Horner) as one (D, n·L) ext tensor
-    in the chain order, row-major and slot-minor; multiplicities likewise."""
-    slot_msgs = []
-    for args in args_list:
-        m = torch.zeros((E.D,) + tuple(args[0].shape), dtype=torch.int64, device=beta_t.device)
-        for a in reversed(args):
-            m = E.add(E.mul(m, gamma_t), E.from_base(a))
-        slot_msgs.append(E.add(m, beta_t))
-    flat_msgs = torch.stack(slot_msgs, dim=-1).reshape(E.D, -1)
-    flat_mults = torch.stack(list(mults_list), dim=-1).reshape(-1)
-    return flat_msgs, flat_mults
 
 
 def _stage2_scan(E: ExtOps, L: int, inv_msgs, flat_mults, acc_t):

@@ -123,7 +123,11 @@ class NttEngine:
     # -- public transforms ------------------------------------------------
     def icoset_from_natural(self, evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
         """natural evals on shift·H -> natural coeffs."""
-        out = self._dit(self._unbrev(evals, log_n), log_n, inverse=True)
+        return self.icoset_from_bitrev(self._unbrev(evals, log_n), log_n, shift)
+
+    def icoset_from_bitrev(self, evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
+        """bit-reversed evals on shift·H -> natural coeffs."""
+        out = self._dit(evals, log_n, inverse=True)
         n_inv = self.host.inv((1 << log_n) % self.host.p)
         tab = self.scale_table(log_n, self.host.inv(shift), n_inv)
         return self.F.mul(out, tab).reshape(evals.shape)

@@ -17,8 +17,10 @@ values -> sample α -> per fold round (observe cap, grind commit PoW, sample
 
 The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
-its hasher the hashing (merkle.py: K3 or K6); each fold round runs K10
-(csrc/fri_fold.cu, `fri_fold` below); slicing, stacking and gathers are plain
+its hasher the hashing (merkle.py: K3 or K6).  The claimed evaluations run
+K12 per matrix (`bary_eval` below), the reduced openings K13 per matrix
+(`reduced_open`), both in csrc/open_reduce.cu, and each fold round K10
+(csrc/fri_fold.cu, `fri_fold`); slicing, stacking and gathers are plain
 tensor indexing.  Opening points and α are device extension scalars ((D,)
 tensors), whether they came from the host challenger or the device duplex,
 so the same code serves both transcripts.
@@ -50,7 +52,7 @@ from .fields.host import HostExtField, HostField
 from .fields.npref import np_mul, np_powers
 from .merkle import BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np
 from .ntt import NttEngine
-from .utils import batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum, reverse_bits, to_device
+from .utils import batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, reverse_bits, to_device
 
 ExtVal = Tuple[int, ...]  # host extension element
 
@@ -175,13 +177,6 @@ class TwoAdicFriPcs:
         cap, data = self.commit_from_coeffs_device(coeff_mats)
         return digest_layer_to_np(cap), data
 
-    def get_evaluations_on_domain(self, data: PcsProverData, idx: int, domain: TwoAdicCoset):
-        """Natural-order evals of matrix `idx` on `domain` (the GENERATOR-
-        shifted sub-coset of the LDE): a stored prefix, un-reversed."""
-        assert domain.shift == self.hf.generator
-        assert domain.log_n <= data.log_trace_heights[idx] + self.log_blowup
-        return self.engine.prefix_to_natural(data.mmcs_data.mats[idx], domain.log_n)
-
     # -- open -------------------------------------------------------------
     def open(self, rounds, challenger):
         """rounds: [(PcsProverData, points_per_matrix: [[ExtVal]])] with
@@ -237,37 +232,27 @@ class TwoAdicFriPcs:
     def _eval_matrix(self, mat: torch.Tensor, log_n: int, points, weights: dict) -> List[torch.Tensor]:
         """Barycentric evaluation of a stored bit-reversed LDE at each device
         point z ((key, (D,) tensor) pairs): p(z) = (z^n - s^n)/(n·s^n) ·
-        Σ_i e_i·x_i/(z - x_i) over the size-n same-shift sub-coset.  weights
-        caches each (key, log_n)'s x_i/(z - x_i) and scale.  Returns one (D, w)
-        tensor per point."""
-        F, E, hf = self.F, self.E, self.hf
-        small = self.engine.prefix_to_natural(mat, log_n)  # (w, n) on GEN·H_n
-        out = []
-        for key, z in points:
-            if (key, log_n) not in weights:
-                n = 1 << log_n
-                x = self.x_table_natural(log_n, hf.generator)
-                s_n = hf.pow(hf.generator, n)
-                zn = z
-                for _ in range(log_n):
-                    zn = E.square(zn)
-                inv_ns = F.const(hf.inv(hf.mul(n % hf.p, s_n)), self.device)
-                weights[key, log_n] = (
-                    E.scale(batch_inv(_ext_minus_base(F, E, z, x), E), x),
-                    E.scale(E.sub(zn, E.from_base(F.const(s_n, self.device))), inv_ns),
-                )
-            w_i, c = weights[key, log_n]
-            acc = torch.stack([field_sum(F.mul(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
-            out.append(E.mul(acc, c))
-        return out
+        Σ_i e_i·x_i/(z - x_i) over the size-n same-shift sub-coset, the
+        stored prefix, read in its storage order by K12 (`bary_eval`).
+        weights caches each (log_n, key)'s x_i/(z - x_i) in that order.
+        Returns one (D, w) tensor per point."""
+        hf = self.hf
+        n = 1 << log_n
+        self._inverse_diffs(log_n, points, weights, times_x=True)
+        ws = [weights[log_n, key] for key, _ in points]
+        s_n = hf.pow(hf.generator, n)
+        inv_ns = hf.inv(hf.mul(n % hf.p, s_n))
+        return list(bary_eval(self.E, mat, log_n, ws, [z for _, z in points], s_n, inv_ns))
 
     def _reduced_openings(self, rounds, vals, alpha: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Per LDE height, Σ_p (-α^{off_p})·(u - S_p)/(z_p - x) over the
         stored LDEs, with u = Σ_j α^j·col_j and S_p = Σ_j α^j·v_{p,j}, for a
         device α; rounds as `_claimed_evaluations` takes them, vals as it
-        returns them.  1/(z_p - x) depends only on (height, point), so it is
-        computed once per pair and shared by every matrix of that height."""
-        F, E = self.F, self.E
+        returns them.  One K13 launch per matrix (`reduced_open`) adds its
+        contribution for all of its points.  1/(z_p - x) depends only on
+        (height, point), so it is computed once per pair and shared by every
+        matrix of that height."""
+        E = self.E
         plan, offsets = [], {}
         for r_idx, (data, points_list) in enumerate(rounds):
             for m_idx, points in enumerate(points_list):
@@ -281,26 +266,35 @@ class TwoAdicFriPcs:
         if not plan:
             return {}
         count = max(max(p[2] for p in plan), max(offsets.values()))
-        apows = ext_powers_device(E, alpha, count)  # (D, count)
+        apows = ext_powers_device(E, alpha, count).contiguous()  # (D, count)
         ro: Dict[int, torch.Tensor] = {}
         inv_diffs: Dict[tuple, torch.Tensor] = {}
         for r_idx, m_idx, w, log_lde, off in plan:
             data, points_list = rounds[r_idx]
-            mat = data.mmcs_data.mats[m_idx]
-            u = None
-            for j in range(w):
-                term = E.scale(apows[:, j], mat[j])
-                u = term if u is None else E.add(u, term)
-            x_full = self.x_table_storage(log_lde, self.hf.generator)
-            for p_idx, (key, z) in enumerate(points_list[m_idx]):
-                s_p = field_sum(E.mul(vals[r_idx][m_idx][p_idx], apows[:, :w]), E)  # (D,)
-                if (log_lde, key) not in inv_diffs:
-                    inv_diffs[log_lde, key] = batch_inv(_ext_minus_base(F, E, z, x_full), E)
-                num = E.sub(u, s_p)
-                aoff = F.neg(apows[:, off + p_idx * w])
-                contrib = E.mul(E.mul(num, inv_diffs[log_lde, key]), aoff)
-                ro[log_lde] = contrib if log_lde not in ro else E.add(ro[log_lde], contrib)
+            points = points_list[m_idx]
+            self._inverse_diffs(log_lde, points, inv_diffs)
+            invs = [inv_diffs[log_lde, key] for key, _ in points]
+            offs = [off + p_idx * w for p_idx in range(len(invs))]
+            ro[log_lde] = reduced_open(E, data.mmcs_data.mats[m_idx], apows, vals[r_idx][m_idx], invs, offs,
+                                       ro.get(log_lde))
         return ro
+
+    def _inverse_diffs(self, log_n: int, points, cache: dict, times_x: bool = False) -> None:
+        """Cache under (log_n, key) 1/(z - x) (times x if times_x) over the
+        2^log_n-point coset GENERATOR·H in storage order, as a contiguous
+        (D, 2^log_n) tensor, for each (key, z) of points not cached yet: all
+        of them in one batch inverse."""
+        F, E = self.F, self.E
+        todo = [(key, z) for key, z in points if (log_n, key) not in cache]
+        if not todo:
+            return
+        x = self.x_table_storage(log_n, self.hf.generator)
+        inv = batch_inv(torch.stack([_ext_minus_base(F, E, z, x) for _, z in todo], dim=1), E)  # (D, P, n)
+        if times_x:
+            inv = E.scale(inv, x)
+        inv = inv.transpose(0, 1).contiguous()  # (P, D, n): each point's rows contiguous
+        for i, (key, _) in enumerate(todo):
+            cache[log_n, key] = inv[i]
 
     def fri_schedule(self, ro_heights, log_max_ro: int) -> List[int]:
         """Deterministic arity schedule (mirrored by the verifier): arity per
@@ -527,6 +521,111 @@ def opened_to_host(vals) -> list:
     host = iter(fetch(flat))
     return [[[[tuple(int(c) for c in col) for col in next(host).T] for _ in mat_vals] for mat_vals in round_vals]
             for round_vals in vals]
+
+
+# --- K12 and K13: the opening reductions ------------------------------------------
+
+_BARY_TILE = 2048  # THREADS * ITEMS in csrc/open_reduce.cu
+_MAX_POINTS = 4
+
+
+def bary_eval_plain(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, inv_ns: int) -> torch.Tensor:
+    """Plain version of K12: per point, Σ_t mat[:, t]·w[t] over the stored
+    prefix t < n, times (z^n - s^n)·inv_ns.  Returns (P, D, w)."""
+    F = E.base
+    small = mat[:, : 1 << log_n]
+    out = []
+    for w_i, z in zip(weights, zs):
+        acc = torch.stack([field_sum_plain(F.mul_plain(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
+        zn = z.reshape(E.D, 1)
+        for _ in range(log_n):
+            zn = E.mul_plain(zn, zn)
+        zn = zn.clone()
+        zn[0] = F.sub_plain(zn[0], F.const(s_n, zn.device))
+        out.append(E.mul_plain(acc, E.scale_plain(zn, F.const(inv_ns, zn.device))))
+    return torch.stack(out)
+
+
+def bary_eval(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, inv_ns: int) -> torch.Tensor:
+    """Claimed evaluations of a stored LDE mat ((w, N), N >= n = 2^log_n) at
+    P device points zs ((D,) each), with each point's (D, n) barycentric
+    weights in the prefix's storage order and the scale (z^n - s^n)·inv_ns:
+    (P, D, w).  K12 (two launches) on a CUDA tensor, the plain version on a
+    CPU one."""
+    P, n = len(zs), 1 << log_n
+    if not 1 <= P <= _MAX_POINTS or len(weights) != P:
+        raise ValueError(f"bary_eval takes 1 to {_MAX_POINTS} points with one weight vector each")
+    if mat.dim() != 2 or mat.shape[1] < n or any(tuple(w_i.shape) != (E.D, n) for w_i in weights):
+        raise ValueError(f"bary_eval: a (w, >= {n}) matrix and (D, {n}) weights")
+    if not kernels.use_kernel(mat):
+        return bary_eval_plain(E, mat, log_n, weights, zs, s_n, inv_ns)
+    mat = mat.contiguous()
+    weights = [w_i.contiguous() for w_i in weights]
+    zs = [z.reshape(-1).contiguous() for z in zs]
+    kernels.check_cuda(mat, *weights, *zs)
+    w = mat.shape[0]
+    tiles = -(-n // _BARY_TILE)
+    partials = torch.empty((P, E.D, w, tiles), dtype=torch.int64, device=mat.device)
+    out = torch.empty((P, E.D, w), dtype=torch.int64, device=mat.device)
+    wp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in weights])
+    zp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in zs])
+    fid = E.base.field_id
+    kernels.BARY_EVAL.launch("bary_partial", fid, kernels.ptr(mat), mat.shape[1], w, n,
+                             ctypes.cast(wp, ctypes.c_void_p), P, kernels.ptr(partials), tiles)
+    kernels.BARY_EVAL.launch("bary_finish", fid, kernels.ptr(partials), tiles, P, w, ctypes.cast(zp, ctypes.c_void_p),
+                             log_n, s_n, inv_ns, kernels.ptr(out))
+    return out
+
+
+def reduced_open_plain(E: ExtOps, mat: torch.Tensor, apows: torch.Tensor, vals, invs, offs, ro=None) -> torch.Tensor:
+    """Plain version of K13: ro + Σ_p (-α^{off_p})·(u - S_p)·inv_p with
+    u = Σ_j α^j·mat[j] and S_p = Σ_j α^j·v_{p,j}."""
+    F = E.base
+    w = mat.shape[0]
+    u = None
+    for j in range(w):
+        term = E.scale_plain(apows[:, j : j + 1], mat[j])
+        u = term if u is None else E.add_plain(u, term)
+    total = ro
+    for v, inv, off in zip(vals, invs, offs):
+        s_p = field_sum_plain(E.mul_plain(v, apows[:, :w]), E).reshape(E.D, 1)
+        aoff = F.neg_plain(apows[:, off : off + 1])
+        contrib = E.mul_plain(E.mul_plain(E.sub_plain(u, s_p), inv), aoff)
+        total = contrib if total is None else E.add_plain(total, contrib)
+    return total
+
+
+def reduced_open(E: ExtOps, mat: torch.Tensor, apows: torch.Tensor, vals, invs, offs, ro=None) -> torch.Tensor:
+    """One matrix's reduced-opening contribution for all its points, added
+    to ro ((D, N); a new tensor when ro is None): mat (w, N) stored LDE,
+    apows (D, count) α powers, vals P (D, w) claimed values, invs P (D, N)
+    1/(z_p - x), offs P offsets of α^{off_p} into apows.  K13 (in place into
+    ro) on a CUDA tensor, the plain version on a CPU one."""
+    P = len(vals)
+    if not 1 <= P <= _MAX_POINTS or len(invs) != P or len(offs) != P:
+        raise ValueError(f"reduced_open takes 1 to {_MAX_POINTS} points")
+    w, N = mat.shape
+    count = apows.shape[1]
+    if w > count or any(not 0 <= o < count for o in offs) or any(tuple(i.shape) != (E.D, N) for i in invs):
+        raise ValueError("reduced_open: α powers, offsets or inverses do not fit the matrix")
+    if not kernels.use_kernel(mat):
+        return reduced_open_plain(E, mat, apows, vals, invs, offs, ro)
+    mat, apows = mat.contiguous(), apows.contiguous()
+    vals = [v.contiguous() for v in vals]
+    invs = [i.contiguous() for i in invs]
+    init = ro is None
+    if init:
+        ro = torch.empty((E.D, N), dtype=torch.int64, device=mat.device)
+    kernels.check_cuda(mat, apows, ro, *vals, *invs)
+    vp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in vals])
+    ip = (ctypes.c_void_p * P)(*[t.data_ptr() for t in invs])
+    op = (ctypes.c_int64 * P)(*offs)
+    kernels.REDUCED_OPEN.launch(
+        "reduced_open", E.base.field_id, kernels.ptr(mat), w, N, kernels.ptr(apows), count,
+        ctypes.cast(vp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(op, ctypes.c_void_p), P,
+        int(init), kernels.ptr(ro),
+    )
+    return ro
 
 
 # --- K10: one FRI fold round -----------------------------------------------------

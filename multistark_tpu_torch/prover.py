@@ -22,9 +22,10 @@ import torch
 from . import lookup as lk
 from .challenger import observe_claims as _observe_claims
 from .domains import TwoAdicCoset
-from .evaluator import TorchAlgebra, constraint_values, lookup_values as graph_lookup_values, sweep
+from .evaluator import constraint_values, lookup_values as graph_lookup_values, sweep
 from .expr import Source
 from .pcs import FriProof
+from .program import SELECTORS, Operands, Program, Recorder, expr_sweep
 from .system import ProverKey, System, SystemWitness
 from .utils import ext_pack_device, ext_powers_device, fetch
 
@@ -210,29 +211,28 @@ def _quotient_chunk_coeffs(
     log_m = log_n + (q.bit_length() - 1)
     D = config.extension_params.degree
 
-    raw = {
+    mats = {
         Source.MAIN.value: s1_data.mmcs_data.mats[active_ord],
         Source.STAGE2.value: s2_data.mmcs_data.mats[active_ord],
     }
     p_idx = system.preprocessed_index[c_idx]
     if p_idx is not None:
-        raw[Source.PREPROCESSED.value] = key.preprocessed_data.mmcs_data.mats[p_idx]
-    mats = {src: pcs.engine.prefix_to_natural(mat, log_m) for src, mat in raw.items()}
+        mats[Source.PREPROCESSED.value] = key.preprocessed_data.mmcs_data.mats[p_idx]
     selectors = _selectors_device(system, log_n, q)
     pubs = ext_pack_device((beta, gamma, acc_prev, acc_final))  # (4, D): the publics' layout
-    qmat = _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha)
-    coeffs = pcs.engine.icoset_from_natural(qmat, log_m, hf.generator)  # (D, m)
+    qmat = _quotient_sweep_only(system, c_idx, log_n, q, mats, selectors, pubs, alpha)
+    coeffs = pcs.engine.icoset_from_bitrev(qmat, log_m, hf.generator)  # (D, m)
     # chunk i·D + d = coordinate d of coefficients [i·n, (i+1)·n)
     return coeffs.reshape(D, q, n).permute(1, 0, 2).reshape(q * D, n).contiguous()
 
 
 def _selectors_device(system, log_n: int, q: int) -> dict:
-    """The trace domain's unnormalized selectors on the quotient coset
-    (natural order), built on the device through the field's elementwise
-    kernel and cached on the system:
-    with v = x/shift,  first = Z_H/(v-1), last = Z_H/(v-g^-1),
+    """The trace domain's unnormalized selectors on the quotient coset in
+    storage (bit-reversed) order, the order of a stored LDE prefix, built on
+    the device through the field's elementwise kernel and cached on the
+    system: with v = x/shift,  first = Z_H/(v-1), last = Z_H/(v-g^-1),
     transition = v - g^-1, inv_vanishing = 1/Z_H, where Z_H = v^n - 1 has
-    period q over the coset."""
+    period q over the coset (natural order)."""
     key = (log_n, q)
     if key not in system.selector_cache:
         config = system.config
@@ -246,53 +246,68 @@ def _selectors_device(system, log_n: int, q: int) -> dict:
         inv_z_h = F.from_np(np.tile(np.asarray([hf.inv(h) for h in head], np.uint64), n), dev)
         g_inv = F.const(hf.inv(trace_dom.gen), dev)
         trans = F.sub(v, g_inv)
-        system.selector_cache[key] = {
+        natural = {
             "first": F.mul(z_h, F.inv(F.sub(v, F.const(1, dev)))),
             "last": F.mul(z_h, F.inv(trans)),
             "transition": trans,
             "inv_vanishing": inv_z_h,
         }
+        brev = config.pcs.engine.brev(qdom.log_n)
+        system.selector_cache[key] = {name: col.index_select(0, brev) for name, col in natural.items()}
     return system.selector_cache[key]
 
 
-def _quotient_sweep_only(config, circuit, log_n, q, mats, selectors, pubs, alpha) -> torch.Tensor:
-    """The constraint sweep + α-fold + Z_H division on the quotient domain,
-    returning the (D, m) composition (natural order).  pubs: the (4, D)
-    device publics (β, γ, acc_initial, acc_final); alpha: a (D,) device
-    scalar."""
-    F, hf = config.field, config.host_field
-    ep = config.extension_params
+def _quotient_program(system, c_idx: int, log_n: int) -> Program:
+    """Record the quotient composition of circuit c_idx at 2^log_n rows as a
+    K11 program: the constraint sweep, the logUp constraints over the stage-2
+    columns (publics β, γ, acc_initial, acc_final at 0, D, 2D, 3D), the
+    α-fold (value i times α^(K-1-i), read from the (D, K) α-power table) and
+    the division by Z_H; out plane d = coordinate d."""
+    config = system.config
+    hf, ep = config.host_field, config.extension_params
     D = ep.degree
-    dev = config.device
-
-    def var_provider(source, col, offset):
-        colv = mats[source][col]
-        return torch.roll(colv, -q) if offset == 1 else colv  # next row: g_n = G_m^q
-
-    def publics(idx):
-        return pubs[idx // D, idx % D]
-
-    alg = TorchAlgebra(F, dev, var_provider, publics, selectors)
-    buf = sweep(circuit.graph, alg)
+    circuit = system.circuits[c_idx]
+    rec = Recorder(hf.p)
+    buf = sweep(circuit.graph, rec)
     values = list(constraint_values(circuit.graph, buf))
+    pubs = tuple(tuple(rec.public(i * D + d) for d in range(D)) for i in range(4))
     logup_vals = lk.logup_constraint_values(
-        alg, ep, hf, circuit.num_lookups,
-        lambda col, off: var_provider(Source.STAGE2.value, col, off),
-        graph_lookup_values(circuit.graph, buf), selectors["last"], tuple(tuple(r) for r in pubs), log_n,
+        rec, ep, hf, circuit.num_lookups, lambda col, off: rec.var(Source.STAGE2.value, col, off),
+        graph_lookup_values(circuit.graph, buf), rec.last(), pubs, log_n,
     )
     for lv in logup_vals:
         values.extend(lv)
     if len(values) != circuit.constraint_count:
         raise AssertionError("constraint count mismatch")
-
-    # α-fold: value i gets α^(K-1-i) (Horner order on the verifier side);
-    # the powers come from the device α by doubling
     K = len(values)
-    apows = ext_powers_device(config.ext, alpha, K)  # (D, K)
     coords = [None] * D
     for i, v in enumerate(values):
         for d in range(D):
-            term = F.mul(v, apows[d, K - 1 - i])
-            coords[d] = term if coords[d] is None else F.add(coords[d], term)
-    inv_van = selectors["inv_vanishing"]
-    return torch.stack([F.mul(c, inv_van) for c in coords])
+            term = rec.mul(v, rec.apow(d * K + K - 1 - i))
+            coords[d] = term if coords[d] is None else rec.add(coords[d], term)
+            rec.anchor(coords[d])  # fold each value as soon as it is computed
+    inv_van = rec.selector("inv_vanishing")
+    for d in range(D):
+        rec.out(rec.mul(coords[d], inv_van), d)
+    return rec.compile(f"quotient of circuit {c_idx} at 2^{log_n} rows")
+
+
+def _quotient_sweep_only(system, c_idx, log_n, q, mats, selectors, pubs, alpha) -> torch.Tensor:
+    """The constraint sweep + α-fold + Z_H division on the quotient domain
+    (K11 running the circuit's quotient program), returning the (D, m)
+    composition in storage (bit-reversed) order.  mats: source id -> the
+    stored bit-reversed LDE (w, N >= m); selectors: `_selectors_device`'s;
+    pubs: the (4, D) device publics (β, γ, acc_initial, acc_final); alpha: a
+    (D,) device scalar (its powers come by doubling)."""
+    config = system.config
+    D = config.extension_params.degree
+    log_m = log_n + (q.bit_length() - 1)
+    m = 1 << log_m
+    prog = system.cached_program(("quotient", c_idx, log_n), lambda: _quotient_program(system, c_idx, log_n))
+    K = system.circuits[c_idx].constraint_count
+    ops = Operands(
+        sources=[mats.get(s) for s in range(3)], rows=m, step=q, brev_log=log_m,
+        selectors=[selectors[name] for name in SELECTORS], pubs=pubs.reshape(-1),
+        apows=ext_powers_device(config.ext, alpha, K).contiguous(),
+    )
+    return expr_sweep(config.field, prog, ops, (D, m), m, 1)

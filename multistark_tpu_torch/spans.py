@@ -98,12 +98,17 @@ def program_bytes(system, witness) -> dict:
     """The bytes each device program of the prove must move (each input read
     once, each output written once), from the system's shapes: the
     lookup-values sweep of the witness build, stage 2, the quotient sweep,
-    the three commits (LDE and tree), the claimed evaluations and the
-    reduced openings.  A lower bound on their time is bytes / HBM rate."""
+    the three commits (LDE and tree) and, of those, the LDE transforms and
+    their bit reversals, the claimed evaluations, the reduced openings, the
+    FRI rounds (fold, and each level's tree) and the query gathers (opened
+    rows and Merkle paths).  A lower bound on their time is bytes / HBM
+    rate."""
     config = system.config
-    D, B = config.ext.D, 1 << config.commitment_parameters.log_blowup
+    D, log_b = config.ext.D, config.commitment_parameters.log_blowup
+    B = 1 << log_b
     out = defaultdict(int)
     n_max = max(witness.heights)
+    depths = []  # (row width, tree depth) of each committed matrix
     for c, n in zip(system.circuits, witness.heights):
         if not n:
             continue
@@ -115,10 +120,18 @@ def program_bytes(system, witness) -> dict:
         out["quotient sweep"] += 8 * m * (c.main_width + c.stage2_width + pw + 4 + D)  # 4 selector columns
         widths = (c.main_width, c.stage2_width, c.quotient_degree * D)  # stage 1, stage 2, quotient chunks
         out["commits (LDE + tree)"] += sum(8 * w * n + 8 * w * B * n for w in widths)
+        out["LDE transforms"] += sum(8 * w * n + 8 * w * B * n for w in widths)
+        out["bit reversal"] += sum(16 * w * n for w in widths[:2])  # the iDFT outputs of the two trace commits
         out["claimed evaluations"] += 8 * n * (pw + sum(widths))
         out["reduced openings"] += 8 * B * n * (pw + sum(widths))
+        depths += [(w, (n * B).bit_length() - 1) for w in (pw,) + widths if w]
     out["commits (LDE + tree)"] += 3 * 64 * B * n_max  # leaves and inner nodes of three trees
     out["reduced openings"] += 8 * D * B * n_max  # the output at the tallest height
+    log_final = log_b + config.pcs.fri.log_final_poly_len
+    for k in range((n_max * B).bit_length() - 1, log_final, -1):  # arity 2: fold 2^k -> 2^(k-1), commit it
+        out["FRI rounds"] += 8 * D * (1 << k) + 2 * 8 * D * (1 << (k - 1)) + 64 * (1 << (k - 1))
+        depths.append((2 * D, k - 1))
+    out["query gathers"] += config.pcs.fri.num_queries * sum(8 * w + 32 * depth for w, depth in depths)
     return dict(out)
 
 

@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from . import lookup as lk
-from .evaluator import TorchAlgebra, sweep_lookup_prefix
+from .evaluator import sweep_lookup_prefix
 from .expr import Expr, ExtExpr, Lookup, Source
 from .fields.npref import NpField, np_powers
 from .graph import ConstraintGraph, compile_graph
+from .program import SELECTORS, Operands, Program, Recorder, expr_sweep
 
 
 @dataclass
@@ -65,8 +66,17 @@ class System:
         self.preprocessed_commit = preprocessed_commit  # cap or None
         # circuit idx -> position inside the preprocessed commitment (or None)
         self.preprocessed_index: List[Optional[int]] = preprocessed_index
-        # quotient-domain selectors per (log_n, q), built once on the device
-        self.selector_cache: Dict[Tuple[int, int], dict] = {}
+        # quotient-domain selectors per (log_n, q) and trace-domain ones per
+        # ("trace", log_n), built once on the device
+        self.selector_cache: Dict[tuple, dict] = {}
+        # K11 programs per (kind, circuit, ...), recorded once
+        self.program_cache: Dict[tuple, Program] = {}
+
+    def cached_program(self, key: tuple, record) -> Program:
+        """The program cached under key, recorded by record() at first use."""
+        if key not in self.program_cache:
+            self.program_cache[key] = record()
+        return self.program_cache[key]
 
     @staticmethod
     def new(config, inputs: Sequence[CircuitInputs]) -> Tuple["System", ProverKey]:
@@ -184,38 +194,49 @@ class SystemWitness:
 
 
 def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat, height: int) -> lk.LookupValues:
-    """Sweep the lookup prefix over the whole trace at once (next row = a
-    roll by one)."""
+    """Run the circuit's lookup-values program (K11) over the whole trace:
+    one row of the output per multiplicity and argument, next row = the
+    following one (cyclic)."""
     circuit = system.circuits[c_idx]
-    F, device = system.config.field, system.config.device
+    config = system.config
     pre_idx = system.preprocessed_index[c_idx]
     pre_mat = key.preprocessed_mats_device[pre_idx] if pre_idx is not None else None
     log_n = height.bit_length() - 1
-    selectors = {
-        k: F.from_np(v, device) for k, v in domain_selector_arrays(system.config.host_field, log_n).items()
-    }
+    sel_key = ("trace", log_n)
+    if sel_key not in system.selector_cache:
+        system.selector_cache[sel_key] = {
+            k: config.field.from_np(v, config.device)
+            for k, v in domain_selector_arrays(config.host_field, log_n).items()
+        }
+    sels = system.selector_cache[sel_key]
+    arities = tuple(len(args) for _, args in circuit.graph.lookups)
+    prog = system.cached_program(("lookup values", c_idx), lambda: _lookup_values_program(system, c_idx))
+    sources = [None, None, None]
+    sources[Source.MAIN.value] = main_mat
+    sources[Source.PREPROCESSED.value] = pre_mat
+    if Source.PREPROCESSED.value in prog.sources and pre_mat is None:
+        raise ValueError("circuit has no preprocessed trace")
+    n_out = sum(1 + a for a in arities)
+    ops = Operands(sources=sources, rows=height, selectors=[sels.get(name) for name in SELECTORS[:3]])
+    matrix = expr_sweep(config.field, prog, ops, (n_out, height), height, 1) if n_out else None
+    stage2 = system.cached_program(
+        ("stage-2 messages", c_idx), lambda: lk.stage2_program(config.host_field.p, config.extension_params, arities,
+                                                               f"stage-2 messages of circuit {c_idx}"),
+    ) if arities else None
+    return lk.LookupValues(height=height, matrix=matrix, arities=arities, stage2_program=stage2)
 
-    def var_provider(source, col, offset):
-        if source == Source.MAIN.value:
-            mat = main_mat
-        elif source == Source.PREPROCESSED.value:
-            if pre_mat is None:
-                raise ValueError("circuit has no preprocessed trace")
-            mat = pre_mat
-        else:
-            raise ValueError("stage2 cannot appear in lookup expressions")
-        return torch.roll(mat[col], -1) if offset == 1 else mat[col]
 
-    def publics(_):
-        raise ValueError("publics are not available during witness generation")
-
-    buf = sweep_lookup_prefix(circuit.graph, TorchAlgebra(F, device, var_provider, publics, selectors))
-
-    def column(v):  # sweep results can be shape-() constants
-        return v.expand(height).contiguous()
-
-    return lk.LookupValues(
-        height=height,
-        mults=[column(buf[m]) for m, _ in circuit.graph.lookups],
-        args=[[column(buf[a]) for a in args] for _, args in circuit.graph.lookups],
-    )
+def _lookup_values_program(system: System, c_idx: int) -> Program:
+    """Record the lookup prefix of circuit c_idx's graph as a K11 program
+    over the main and preprocessed traces; out plane = multiplicity of slot
+    0, its arguments, multiplicity of slot 1, ..."""
+    graph = system.circuits[c_idx].graph
+    rec = Recorder(system.config.host_field.p, sources=(Source.MAIN.value, Source.PREPROCESSED.value),
+                   publics=False)
+    buf = sweep_lookup_prefix(graph, rec)
+    plane = 0
+    for mult, args in graph.lookups:
+        for node in (mult, *args):
+            rec.out(buf[node], plane)
+            plane += 1
+    return rec.compile(f"lookup values of circuit {c_idx}")
