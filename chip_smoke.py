@@ -8,14 +8,17 @@ without printing a result:
 
   1. device  -- torch.cuda must be available; prints the card's name and
                 its `nvidia-smi` name and power limit
-  2. build   -- compiles the thirteen CUDA kernels from csrc/ (one nvcc per
-                source, all at once, then one link; sm_90a)
+  2. build   -- compiles the fifteen CUDA kernels K1-K15 from csrc/ (one
+                nvcc per source, all at once, then one link; sm_90a)
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K11 on U32Add's three recorded programs at 2^18 rows, K12
-                and K13 on a (14, 2^20) stored LDE at two points); outputs
-                must be bit-equal (all arithmetic is exact mod p, all
-                hashing exact); warm CUDA-event times of both
+                and K13 on a (14, 2^20) stored LDE at two points, K14 on the
+                stage-1 commit's tile with ByteTable injected at its top, the
+                stage-2 width and the iDFT tail, K15 on a FRI round's
+                2^19-leaf tree); outputs must be bit-equal (all arithmetic
+                is exact mod p, all hashing exact); warm CUDA-event times of
+                both
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
                 witness) at 2^14 and 2^18 rows on `cuda` along three paths:
@@ -27,8 +30,10 @@ without printing a result:
                 device memory and the launches of each warm prove.  The
                 launch counts are set to 0 before each path and read right
                 after its proves; every kernel of that path must have
-                launched.  After that read, the device transcript's path up
-                to its one global fetch runs once more per size under
+                launched, K14 and K15 on every path, and no kernel entry
+                point compresses Merkle pairs outside K14 / K15.  After that
+                read, the device transcript's path up to its one global
+                fetch runs once more per size under
                 torch.cuda.set_sync_debug_mode("error") (any op there that
                 waits for the device raises), and the path must count no
                 fallback
@@ -55,17 +60,17 @@ PATHS = {
     "goldilocks_blake3 device transcript": (
         "goldilocks_blake3", "prove_multiple_claims",
         ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "dt_flush", "fri_grind", "claims_fp", "fri_fold",
-         "expr_sweep", "bary_eval", "reduced_open"),
+         "expr_sweep", "bary_eval", "reduced_open", "lde_tile", "merkle_levels"),
     ),
     "goldilocks_blake3 host transcript": (
         "goldilocks_blake3", "prove_host_transcript",
         ("gl_arith", "ntt_stage", "blake3_merkle", "gl_scan", "fri_grind", "claims_fp", "fri_fold", "expr_sweep",
-         "bary_eval", "reduced_open"),
+         "bary_eval", "reduced_open", "lde_tile", "merkle_levels"),
     ),
     "babybear_poseidon2": (
         "babybear_poseidon2", "prove_multiple_claims",
         ("bb_arith", "ntt_stage", "poseidon2_merkle", "gl_scan", "claims_fp", "fri_fold", "expr_sweep", "bary_eval",
-         "reduced_open"),
+         "reduced_open", "lde_tile", "merkle_levels"),
     ),
 }
 BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
@@ -239,19 +244,20 @@ def check_kernels(dev):
             compare("blake3_merkle hash_rows (26, 2^20)", lambda: b3.hash_rows([s2]), lambda: b3.hash_rows_plain([s2]),
                     (8 * 26 * m + 32 * m, 4 * per_hash * m))
         leaves = mod.hash_rows([lde])
-        compare(f"{hname} compress_pairs 2^19 nodes",
-                lambda: mod.compress_pairs(leaves[0::2], leaves[1::2]),
-                lambda: mod.compress_pairs_plain(leaves[0::2], leaves[1::2]), (96 * (m // 2), per_hash * (m // 2)))
         mmcs = MerkleMmcs(hasher, 0)
         t0 = time.perf_counter()
         cap, _ = mmcs.commit([lde])
         torch.cuda.synchronize()
-        say("kernels", f"{hname} 2^20-leaf tree commit: {1e3 * (time.perf_counter() - t0):.2f} ms")
+        say("kernels", f"{hname} 2^20-leaf tree commit (leaves, then K15 levels): "
+            f"{1e3 * (time.perf_counter() - t0):.2f} ms")
         ref = leaves
         while ref.shape[0] > 1:
             ref = mod.compress_pairs_plain(ref[0::2], ref[1::2])
         if not np.array_equal(cap, ref.cpu().numpy().view(np.uint32)):
             raise AssertionError(f"{hname}: 2^20-leaf tree root disagrees with the plain version")
+
+        # K14 and K15: the bench commits' tiles and tree levels
+        check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first=F is GL_OPS)
 
         # K10: one arity-2 fold round of a (D, 2^20) vector, as the device
         # FRI rounds and the host loop run it; and arity 4 with an absorb
@@ -337,6 +343,66 @@ def check_kernels(dev):
     compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
             (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
     return rows
+
+
+def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: bool) -> None:
+    """K14 and K15 against their plain versions at the bench's shapes: the
+    stage-1 commit at 2^18 rows (U32Add (14, 2^20) after the K2 stages above
+    its tile, ten levels folded in the tile, ByteTable's (1, 1024) leaves
+    injected exactly at its top), the stage-2 commit's width, the iDFT tail
+    (no hashing) and a FRI round's tree (K15 over 2^19 leaves, two
+    launches).  K14 works in place: each call clones its input, and the
+    times include that copy."""
+    import torch
+
+    from multistark_tpu_torch import commit_tile as ct, system as sm
+    from multistark_tpu_torch.ntt import ntt as nt
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    eng = nt.NttEngine(F, F.host, dev)
+    system, _ = sm.System.new(bench_config(dev, "goldilocks_blake3" if first else "babybear_poseidon2"),
+                              u32_add_system_inputs())
+    s2_cols = system.circuits[0].stage2_width
+    leaf_hashes = (lambda c: -(-(8 * c) // 64)) if first else (lambda c: -(-c // 8))
+
+    def tile_case(label, cols, log_n, hashed, fold=True, inject_rows=None, inverse=False, name=None):
+        """K14 on a random (cols, 2^log_n) batch with the tile the commits
+        pick, folding the tile's levels if `fold` (the tallest group of a
+        commit); returns its digest layers."""
+        k = ct.tile_log_for(cols, log_n, hashed)
+        levels = k if hashed and fold else 0
+        x, tw = rnd(F, cols, 1 << log_n), eng.tail_table(k, inverse)
+        inject = {} if inject_rows is None else {log_n - inject_rows.shape[0].bit_length() + 1: inject_rows}
+        n = 1 << log_n
+
+        def run(fn):
+            def go():
+                y = x.clone()
+                layers = fn(F, hasher, y, k, tw, levels, inject, hashed)
+                return torch.cat([y.reshape(-1)] + [t.reshape(-1).to(torch.int64) for t in layers])
+            return go
+
+        injected = 0 if inject_rows is None else inject_rows.shape[0]
+        nodes = n - (n >> levels) + injected  # compressions above the leaves
+        # x read and written once; leaves and levels written, injected digests read
+        n_bytes = 16 * cols * n + (32 * (n + n - (n >> levels) + injected) if hashed else 0)
+        ops = mul_ops * k * cols * n // 2 + (per_hash * (n * leaf_hashes(cols) + nodes) if hashed else 0)
+        compare(f"lde_tile {F.name} {label} ({cols}, 2^{log_n}), tile 2^{k}, {levels} levels", run(ct.lde_tile),
+                run(ct.lde_tile_plain), (n_bytes, ops), iters=3, name=name)
+        return ct.lde_tile(F, hasher, x.clone(), k, tw, levels, inject, hashed)
+
+    byte_table = tile_case("ByteTable LDE", 1, 10, True, fold=False)[0]
+    tile_case("U32Add LDE, ByteTable injected at the tile's top", 14, 20, True, inject_rows=byte_table,
+              name="lde_tile" if first else None)
+    tile_case("stage-2 LDE", s2_cols, 20, True)
+    tile_case("iDFT tail, no hashing", 14, 18, False, inverse=True)
+
+    leaves = hasher.hash_matrices([rnd(F, 2 * (2 if first else 4), 1 << 19)])  # an arity-2 fold of (D, 2^20)
+    S, L = leaves.shape[0], 19
+    compare(f"merkle_levels {F.name} FRI round tree, 2^19 leaves, {L} levels",
+            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels(hasher, leaves, L)]),
+            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels_plain(hasher, leaves, L)]),
+            (32 * S + 32 * (S - 1), per_hash * (S - 1)), name="merkle_levels" if first else None)
 
 
 def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
@@ -509,6 +575,11 @@ def prove_sizes(dev, path: str):
     idle = [k for k in needed if counts[k] <= 0]
     if idle:
         raise AssertionError(f"{path}: kernels never launched on its path: {idle}")
+    pairs = [e for e in kernels._SIGNATURES if "compress" in e]
+    if pairs:
+        raise AssertionError(f"entry points that compress Merkle pairs outside K14 / K15: {pairs}")
+    say("prove", f"{path}: K14 lde_tile {counts['lde_tile']} and K15 merkle_levels {counts['merkle_levels']} "
+        "launches; every tree's levels went through K15 (no compress_pairs entry point exists)")
     return counts
 
 

@@ -1,34 +1,30 @@
-// K3 blake3_merkle: BLAKE3 leaf hashing of field-matrix rows and the Merkle
-// 2-to-1 compression.
+// K3 blake3_merkle: BLAKE3 leaf hashing of field-matrix rows.
 //
 // Replaces multistark_tpu/hash/blake3.py compress_batch, hash_word_cols,
-// _chunk_cv_cols, _tree and compress_planes, and the hashing inside
-// multistark_tpu/merkle.py Blake3FieldHasher.hash_matrices / compress /
-// MerkleMmcs._commit_impl.
+// _chunk_cv_cols and _tree, and the leaf hashing inside
+// multistark_tpu/merkle.py Blake3FieldHasher.hash_matrices for the trees
+// that are not LDE commits (the FRI rounds' and any MerkleMmcs.commit); the
+// Merkle 2-to-1 runs in K14 / K15 (commit_tile.cu).
 //
 // Leaf convention (merkle.py:44-55): a leaf hashes the rows of every matrix
 // of one height, concatenated in matrix order, each element as its u64
 // little-endian bytes (two u32 words, low word first), with the full BLAKE3
-// algorithm: rows longer than 1024 bytes go through the chunk tree.  A Merkle
-// node is blake3(left || right) over 64 bytes: one compression with
-// CHUNK_START | CHUNK_END | ROOT.  Digests are 8 u32 words, little-endian.
+// algorithm: rows longer than 1024 bytes go through the chunk tree.  Digests
+// are 8 u32 words, little-endian.
 //
 // Bound on the card: integer ALU.  One compression is ~7 rounds x 8 G
 // functions (~700 32-bit ops) per 64 bytes read, well above the HBM line.
-// Design: one thread per row (hash_rows) or per node (compress_pairs), the
-// whole 16-word state in registers; each thread reads column-major matrix
-// elements, so neighbouring threads (neighbouring rows) read neighbouring
-// addresses.  The compression and the streaming hash are blake3.cuh's, which
-// K7 and K8 (dt_blake3.cu) share.
+// Design: one thread per row, the whole 16-word state in registers; each
+// thread reads column-major matrix elements, so neighbouring threads
+// (neighbouring rows) read neighbouring addresses.  The compression and the
+// streaming hash are blake3.cuh's, which K7 and K8 (dt_blake3.cu) and K14 /
+// K15 share.
 #include "blake3.cuh"
 
 namespace {
 
-using b3::CHUNK_END;
-using b3::CHUNK_START;
 using b3::CHUNK_WORDS;
 using b3::MAX_STACK;
-using b3::ROOT;
 
 // Up to MAX_MATS same-height matrices, passed by value.
 constexpr int MAX_MATS = 16;
@@ -75,24 +71,6 @@ __global__ void hash_rows_kernel(MatList mats, int64_t n, int64_t total_words, u
   }
 }
 
-__global__ void compress_pairs_kernel(const uint32_t* __restrict__ left, int64_t lstride,
-                                      const uint32_t* __restrict__ right, int64_t rstride,
-                                      uint32_t* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    uint32_t block[16], cv[8];
-#pragma unroll
-    for (int k = 0; k < 8; k++) {
-      block[k] = left[i * lstride + k];
-      block[8 + k] = right[i * rstride + k];
-      cv[k] = b3::IV[k];
-    }
-    b3::compress(cv, block, 0, 64, CHUNK_START | CHUNK_END | ROOT);
-#pragma unroll
-    for (int k = 0; k < 8; k++) out[i * 8 + k] = cv[k];
-  }
-}
-
 int64_t grid_for(int64_t n, int threads) {
   int64_t blocks = (n + threads - 1) / threads;
   return blocks > (1 << 20) ? (1 << 20) : blocks;
@@ -117,15 +95,5 @@ extern "C" int b3_hash_rows(const uint64_t* const* ptrs, const int64_t* widths, 
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   hash_rows_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(mats, n, total_words, out);
-  return (int)cudaGetLastError();
-}
-
-// out[i] = blake3(left[i] || right[i]) for n digest pairs; left/right rows
-// are 8 u32 words, `lstride`/`rstride` words apart.
-extern "C" int b3_compress_pairs(const uint32_t* left, int64_t lstride, const uint32_t* right, int64_t rstride,
-                                 uint32_t* out, int64_t n, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  compress_pairs_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(left, lstride, right, rstride, out, n);
   return (int)cudaGetLastError();
 }

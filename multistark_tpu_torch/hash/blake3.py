@@ -1,9 +1,10 @@
 """BLAKE3 over tensors: kernel K3 (blake3_merkle).
 
 `hash_rows` is the full BLAKE3 of each row's u64-LE serialization across
-several same-height (w_j, n) matrices (the Merkle leaf); `compress_pairs`
-is the 64-byte Merkle 2-to-1, blake3(left || right).  Digests are (n, 8)
-int32 tensors holding the u32 words.
+several same-height (w_j, n) matrices (the Merkle leaf).  Digests are (n, 8)
+int32 tensors holding the u32 words.  The Merkle 2-to-1, blake3(left ||
+right), runs on the card inside K14 and K15 (commit_tile.py);
+`compress_pairs_plain` is its plain version.
 
 A CUDA tensor launches the hand-written kernel (csrc/blake3_merkle.cu); a
 CPU tensor takes the plain PyTorch version beside it, which computes the
@@ -137,29 +138,5 @@ def hash_rows(mats: Sequence[torch.Tensor]) -> torch.Tensor:
     kernels.BLAKE3_MERKLE.launch(
         "b3_hash_rows", ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
         len(mats), n, kernels.ptr(out),
-    )
-    return out
-
-
-def compress_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """out[i] = blake3(left[i] || right[i]) for (n, 8) int32 digest rows.
-    Rows may be strided (e.g. the even and odd rows of a layer) as long as
-    each row's 8 words are contiguous."""
-    if left.shape != right.shape or left.dim() != 2 or left.shape[1] != 8:
-        raise ValueError("compress_pairs takes two (n, 8) digest arrays")
-    if left.dtype != torch.int32 or right.dtype != torch.int32:
-        raise ValueError("compress_pairs takes int32 digests")
-    dev = left.device
-    if right.device != dev:
-        raise ValueError(f"operands on {dev} and {right.device}")
-    if not kernels.use_kernel(left):
-        return compress_pairs_plain(left, right)
-    if left.stride(1) != 1 or right.stride(1) != 1:
-        raise ValueError("compress_pairs takes digests with contiguous rows")
-    n = left.shape[0]
-    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    kernels.BLAKE3_MERKLE.launch(
-        "b3_compress_pairs", kernels.ptr(left), left.stride(0), kernels.ptr(right), right.stride(0),
-        kernels.ptr(out), n,
     )
     return out

@@ -1,9 +1,10 @@
 """Poseidon2 (BabyBear, width 16) over tensors: kernel K6 (poseidon2_merkle).
 
 `hash_rows` is the padding-free sponge (rate 8) over each row's values
-across several same-height (w_j, n) matrices (the Merkle leaf);
-`compress_pairs` is the Merkle 2-to-1, the permutation of left || right
-truncated to 8 lanes.  Inputs are int64 tensors of canonical BabyBear
+across several same-height (w_j, n) matrices (the Merkle leaf).  The Merkle
+2-to-1, the permutation of left || right truncated to 8 lanes, runs on the
+card inside K14 and K15 (commit_tile.py); `compress_pairs_plain` is its
+plain version.  Inputs are int64 tensors of canonical BabyBear
 values; digests are (n, 8) int32 tensors of canonical words, the layout
 merkle.py uses for BLAKE3.
 
@@ -78,7 +79,8 @@ def compress_pairs_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tenso
 
 # --- dispatch -------------------------------------------------------------------
 
-def _constants(device: torch.device) -> torch.Tensor:
+def device_constants(device: torch.device) -> torch.Tensor:
+    """The round constants as an int64 tensor on `device` (made once)."""
     if device not in _DEVICE_CONSTS:
         _DEVICE_CONSTS[device] = torch.from_numpy(CONSTANTS_U32.astype("int64")).to(device)
     return _DEVICE_CONSTS[device]
@@ -102,30 +104,6 @@ def hash_rows(mats: Sequence[torch.Tensor]) -> torch.Tensor:
     widths = (ctypes.c_int64 * len(mats))(*[m.shape[0] for m in mats])
     kernels.POSEIDON2_MERKLE.launch(
         "p2_hash_rows", ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
-        len(mats), n, kernels.ptr(_constants(dev)), kernels.ptr(out),
-    )
-    return out
-
-
-def compress_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """out[i] = Poseidon2(left[i] || right[i])[:8] for (n, 8) int32 digest
-    rows.  Rows may be strided (e.g. the even and odd rows of a layer) as
-    long as each row's 8 words are contiguous."""
-    if left.shape != right.shape or left.dim() != 2 or left.shape[1] != 8:
-        raise ValueError("compress_pairs takes two (n, 8) digest arrays")
-    if left.dtype != torch.int32 or right.dtype != torch.int32:
-        raise ValueError("compress_pairs takes int32 digests")
-    dev = left.device
-    if right.device != dev:
-        raise ValueError(f"operands on {dev} and {right.device}")
-    if not kernels.use_kernel(left):
-        return compress_pairs_plain(left, right)
-    if left.stride(1) != 1 or right.stride(1) != 1:
-        raise ValueError("compress_pairs takes digests with contiguous rows")
-    n = left.shape[0]
-    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    kernels.POSEIDON2_MERKLE.launch(
-        "p2_compress_pairs", kernels.ptr(left), left.stride(0), kernels.ptr(right), right.stride(0),
-        kernels.ptr(_constants(dev)), kernels.ptr(out), n,
+        len(mats), n, kernels.ptr(device_constants(dev)), kernels.ptr(out),
     )
     return out

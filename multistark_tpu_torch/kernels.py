@@ -1,4 +1,4 @@
-"""Build, load and count the port's thirteen hand-written CUDA kernels.
+"""Build, load and count the port's fifteen hand-written CUDA kernels.
 
 Each source under csrc/ compiles with its own nvcc process (all started
 together) into an object, and the objects link into one shared library with
@@ -36,9 +36,7 @@ _SIGNATURES = {
     "bb_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
     "ntt_stage": [_i32, _vp, _i64, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
-    "b3_compress_pairs": [_vp, _i64, _vp, _i64, _vp, _i64, _vp],
     "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
-    "p2_compress_pairs": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp],
     "gls_scan_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
     "gls_scan_addback": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
     "gls_sum_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
@@ -52,6 +50,8 @@ _SIGNATURES = {
     "bary_partial": [_i32, _vp, _i64, _i64, _i64, _vp, _i32, _vp, _i64, _vp],
     "bary_finish": [_i32, _vp, _i64, _i32, _i64, _vp, _i32, _u64, _u64, _vp, _vp],
     "reduced_open": [_i32, _vp, _i64, _i64, _vp, _i64, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "lde_tile": [_i32, _i32, _vp, _i32, _i32, _i32, _vp, _i32, _vp, _vp, _i32, _vp, _vp],
+    "merkle_levels": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -211,8 +211,16 @@ REDUCED_OPEN = CudaKernel(
     "reduced_open", "multistark_tpu_torch/csrc/open_reduce.cu",
     "multistark_tpu/pcs.py:1284",
 )
+LDE_TILE = CudaKernel(
+    "lde_tile", "multistark_tpu_torch/csrc/commit_tile.cu",
+    "multistark_tpu/pcs.py:189",
+)
+MERKLE_LEVELS = CudaKernel(
+    "merkle_levels", "multistark_tpu_torch/csrc/commit_tile.cu",
+    "multistark_tpu/merkle.py:275",
+)
 KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE, DT_FLUSH, FRI_GRIND, CLAIMS_FP,
-           FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN)
+           FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN, LDE_TILE, MERKLE_LEVELS)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,11 +9,12 @@ per-matrix rows (at index >> (log_max - log_h)) and the sibling path up to
 the cap.
 
 Digest layers are (h, 8) int32 tensors (row i = node i's eight u32 words),
-so the children of node i are rows 2i and 2i+1 and a layer's even and odd
-rows feed `compress` as strided views.  The config's hasher does the
-hashing: BLAKE3 through K3 (hash/blake3.py) or Poseidon2 through K6
-(hash/poseidon2.py); the tree, the injection and the openings are the same
-for both.  Gathers for openings are plain tensor indexing.
+so the children of node i are rows 2i and 2i+1.  The config's hasher hashes
+the leaves: BLAKE3 through K3 (hash/blake3.py) or Poseidon2 through K6
+(hash/poseidon2.py); every tree's levels above the leaves, injections
+included, go through K15 (commit_tile.merkle_levels), and the PCS's LDE
+commits hash their leaves and lowest levels in K14 (pcs.py).  Gathers for
+openings are plain tensor indexing.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .commit_tile import merkle_levels
 from .hash import blake3, poseidon2
 
 
@@ -31,12 +33,16 @@ class Blake3FieldHasher:
     """Hash field-matrix rows with BLAKE3 over u64-LE serialization
     (p3 SerializingHasher convention)."""
 
+    kernel_id = 0  # the hasher's number in csrc/commit_tile.cu
+    hash_plain = staticmethod(blake3.hash_rows_plain)
+    compress_plain = staticmethod(blake3.compress_pairs_plain)
+
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
         return blake3.hash_rows(mats)
 
-    def compress(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-        return blake3.compress_pairs(left, right)
+    def consts(self, device) -> None:
+        return None
 
 
 class Poseidon2FieldHasher:
@@ -44,12 +50,17 @@ class Poseidon2FieldHasher:
     (leaf) and truncated permutation (compress); digests are 8 canonical
     field elements."""
 
+    kernel_id = 1
+    hash_plain = staticmethod(poseidon2.hash_rows_plain)
+    compress_plain = staticmethod(poseidon2.compress_pairs_plain)
+
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
         return poseidon2.hash_rows(mats)
 
-    def compress(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-        return poseidon2.compress_pairs(left, right)
+    def consts(self, device) -> torch.Tensor:
+        """The round constants the kernels stage, on `device`."""
+        return poseidon2.device_constants(device)
 
 
 def digest_layer_to_np(layer: torch.Tensor) -> np.ndarray:
@@ -91,12 +102,23 @@ class MerkleMmcs:
         int32 digest layer, which the device transcript observes without a
         fetch."""
         dims = [(int(m.shape[0]), int(m.shape[1])) for m in mats]
-        heights = sorted({h for _, h in dims}, reverse=True)
+        heights = self.check_heights([h for _, h in dims])
+        by_height: Dict[int, list] = {h: [m for m, (_, mh) in zip(mats, dims) if mh == h] for h in heights}
+        leaves = self.hasher.hash_matrices(by_height[heights[0]])
+        log_max = heights[0].bit_length() - 1
+        inject = {log_max - h.bit_length() + 1: self.hasher.hash_matrices(by_height[h]) for h in heights[1:]}
+        layers = [leaves] + merkle_levels(self.hasher, leaves, log_max - self.cap_height, inject)
+        return layers[-1], MerkleProverData(mats=list(mats), dims=dims, layers=layers, log_max=log_max)
+
+    def check_heights(self, heights: Sequence[int]) -> List[int]:
+        """The distinct heights, tallest first; raises on a height that is
+        not a power of two, a tree shorter than the cap, or a matrix below
+        the cap."""
+        heights = sorted(set(heights), reverse=True)
         for h in heights:
             if h & (h - 1):
                 raise ValueError(f"height {h} not a power of two")
-        max_h = heights[0]
-        if max_h < (1 << self.cap_height):
+        if heights[0] < (1 << self.cap_height):
             raise ValueError("cap larger than tree")
         # matrices shorter than the cap would never be injected into a digest
         # (the compress loop stops at the cap), silently unbinding their data
@@ -106,25 +128,7 @@ class MerkleMmcs:
                 f"matrix height {heights[-1]} below cap size {1 << self.cap_height}: "
                 "sub-cap matrices are not bound by the commitment"
             )
-        layers = self._commit_impl(mats, dims)
-        data = MerkleProverData(
-            mats=list(mats), dims=dims, layers=layers, log_max=max_h.bit_length() - 1
-        )
-        return layers[-1], data
-
-    def _commit_impl(self, mats, dims) -> List[torch.Tensor]:
-        heights = sorted({h for _, h in dims}, reverse=True)
-        by_height: Dict[int, list] = {h: [m for m, (_, mh) in zip(mats, dims) if mh == h] for h in heights}
-        layer = self.hasher.hash_matrices(by_height[heights[0]])
-        layers = [layer]
-        size = heights[0]
-        while size > (1 << self.cap_height):
-            size >>= 1
-            layer = self.hasher.compress(layer[0::2], layer[1::2])
-            if size in by_height:
-                layer = self.hasher.compress(layer, self.hasher.hash_matrices(by_height[size]))
-            layers.append(layer)
-        return layers
+        return heights
 
     # -- open (device gathers, one host transfer, host assembly) -----------
     def gather_many(self, datas: Sequence[MerkleProverData], indices_list) -> list:

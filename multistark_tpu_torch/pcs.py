@@ -15,9 +15,19 @@ Transcript schedule (same bytes as the JAX package): observe all claimed
 values -> sample α -> per fold round (observe cap, grind commit PoW, sample
 β) -> observe final poly -> grind query PoW -> sample query indices.
 
+A commit follows a plan made on the host from the shapes alone
+(`commit_plan`): per LDE height, each matrix's iDFT runs K2 stages above a
+tile and K14 (commit_tile.lde_tile, no hashing) for the tile's stages; the
+height's matrices are stacked, K2 runs the forward DIF's stages above the
+tile, and one K14 launch runs the tile's stages, hashes the leaves and folds
+the lowest tree levels in shared memory, injecting the shorter heights'
+leaf digests (from their own K14 launches); K15 (commit_tile.merkle_levels)
+folds the levels above, up to the cap.
+
 The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
-its hasher the hashing (merkle.py: K3 or K6).  The claimed evaluations run
+its hasher the hashing of the trees that are not LDE commits (merkle.py: K3
+or K6 leaves, K15 levels).  The claimed evaluations run
 K12 per matrix (`bary_eval` below), the reduced openings K13 per matrix
 (`reduced_open`), both in csrc/open_reduce.cu, and each fold round K10
 (csrc/fri_fold.cu, `fri_fold`); slicing, stacking and gathers are plain
@@ -37,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ import torch
 from . import device_transcript as dt
 from . import kernels
 from .challenger import SerializingChallenger64
+from .commit_tile import lde_tile, merkle_levels, tile_log_for
 from .config import CommitmentParameters, FriParameters
 from .domains import TwoAdicCoset
 from .fields.device import ExtOps, FieldOps
@@ -81,6 +92,47 @@ class FriProof:
     final_poly: List[ExtVal]
     query_pow_witness: int
     query_proofs: List[QueryProof]
+
+
+@dataclass(frozen=True)
+class CommitGroup:
+    """The matrices of one LDE height in a commit, and how their transforms
+    and tree split between K2, K14 and K15."""
+
+    members: Tuple[int, ...]  # positions in the commit's matrix list
+    cols: int  # their widths summed: the columns of one K14 row
+    log_n: int  # the trace height: each member's iDFT (or coefficient count)
+    log_lde: int
+    idft_tile: int  # K14's tile (no hashing) of each member's iDFT: K2 runs the log_n - idft_tile stages above
+    tile: int  # K14's tile of the forward DIF, hashed: K2 runs the log_lde - tile stages above
+    levels: int  # tree levels K14 folds inside its tiles (the tallest group; 0 for the others)
+    inject_level: int  # the tree level its leaf digests are injected at (0 for the tallest group)
+
+
+def commit_plan(widths: Sequence[int], logs: Sequence[int], log_blowup: int, cap_height: int,
+                tile_log: Optional[int] = None) -> List[CommitGroup]:
+    """A commit's groups, tallest first, from the matrices' widths and log
+    heights alone.  tile_log forces every K14 tile (capped at its height);
+    by default each is the largest that fits (commit_tile.tile_log_for).
+    The tallest group's K14 folds min(tile, tree depth) levels; K15 the
+    rest, up to the cap."""
+    by_log: Dict[int, List[int]] = {}
+    for i, ln in enumerate(logs):
+        by_log.setdefault(ln, []).append(i)
+    log_max = max(logs) + log_blowup
+    groups = []
+    for ln in sorted(by_log, reverse=True):
+        members = tuple(by_log[ln])
+        cols = sum(widths[i] for i in members)
+        lde = ln + log_blowup
+        if tile_log is None:
+            idft_tile = tile_log_for(max(widths[i] for i in members), ln, hashed=False)
+            tile = tile_log_for(cols, lde, hashed=True)
+        else:
+            idft_tile, tile = min(tile_log, ln), min(tile_log, lde)
+        levels = min(tile, log_max - cap_height) if lde == log_max else 0
+        groups.append(CommitGroup(members, cols, ln, lde, idft_tile, tile, levels, log_max - lde))
+    return groups
 
 
 class TwoAdicFriPcs:
@@ -141,40 +193,69 @@ class TwoAdicFriPcs:
         return self._x_tables[key]
 
     # -- commit -----------------------------------------------------------
-    def _commit_ldes(self, ldes, logs) -> Tuple[torch.Tensor, PcsProverData]:
-        cap, mdata = self.mmcs.commit_device(ldes)
-        return cap, PcsProverData(mdata, logs, self.log_blowup)
+    def _commit(self, mats, specs, from_coeffs: bool, tile_log: Optional[int]) -> Tuple[torch.Tensor, PcsProverData]:
+        """Every matrix's LDE on GENERATOR·H_{n·B}, stored bit-reversed, and
+        their mixed-height tree, by the plan `commit_plan` makes from the
+        shapes: per height group K2 above the tile, then one K14 launch for
+        the tile's stages, the leaves and the lowest levels; K15 for the
+        levels above.  specs: [(log_n, shift)] per matrix.  No sync."""
+        F, eng, hasher, b = self.F, self.engine, self.mmcs.hasher, self.log_blowup
+        logs = [ln for ln, _ in specs]
+        self.mmcs.check_heights([1 << (ln + b) for ln in logs])
+        plan = commit_plan([int(m.shape[0]) for m in mats], logs, b, self.mmcs.cap_height, tile_log)
+        ldes: List[torch.Tensor] = [None] * len(mats)
+        inject: Dict[int, torch.Tensor] = {}  # tree level -> leaf digests of the shorter rows injected there
+        for g in reversed(plan):  # the shorter groups first: the tallest group's tree injects their leaves
+            parts = []
+            for i in g.members:
+                ln, shift = specs[i]
+                if from_coeffs:  # the shift scale comes before the zero pad
+                    parts.append(eng.zero_extend(F.mul(mats[i], eng.scale_table(ln, shift)), g.log_lde))
+                else:
+                    parts.append(eng.coset_extend(mats[i], ln, b, shift, g.idft_tile))
+            x = parts[0] if len(parts) == 1 else torch.cat(parts)
+            eng.dif_above_(x, g.log_lde, g.tile, inverse=False)
+            below = {lv: d for lv, d in inject.items() if lv <= g.levels} if g is plan[0] else {}
+            layers = lde_tile(F, hasher, x, g.tile, eng.tail_table(g.tile, False), g.levels, below)
+            if g is not plan[0]:
+                inject[g.inject_level] = layers[0]
+            off = 0
+            for i in g.members:
+                ldes[i] = x[off : off + mats[i].shape[0]]
+                off += mats[i].shape[0]
+        top = plan[0]  # the loop's last group: `layers` holds its leaves and in-tile levels
+        above = {lv - top.levels: d for lv, d in inject.items() if lv > top.levels}
+        layers += merkle_levels(hasher, layers[-1], top.log_lde - self.mmcs.cap_height - top.levels, above)
+        mdata = MerkleProverData(mats=ldes, dims=[(int(m.shape[0]), int(m.shape[1])) for m in ldes], layers=layers,
+                                 log_max=top.log_lde)
+        return layers[-1], PcsProverData(mdata, logs, b)
 
-    def commit_device(self, domains_and_mats) -> Tuple[torch.Tensor, PcsProverData]:
+    def commit_device(self, domains_and_mats, tile_log: Optional[int] = None) -> Tuple[torch.Tensor, PcsProverData]:
         """domains_and_mats: [(TwoAdicCoset, natural-order evals (w, n))].
         LDEs land on GENERATOR·H_{n·B}, bit-reversed.  The cap stays a
-        device (2^cap_height, 8) int32 tensor."""
-        ldes, logs = [], []
+        device (2^cap_height, 8) int32 tensor.  tile_log forces K14's tile
+        (tests; default: the largest that fits)."""
+        mats, specs = [], []
         for dom, mat in domains_and_mats:
-            shift = self.hf.mul(self.hf.generator, self.hf.inv(dom.shift))
-            ldes.append(self.engine.coset_lde_bitrev(mat, dom.log_n, self.log_blowup, shift))
-            logs.append(dom.log_n)
-        return self._commit_ldes(ldes, logs)
+            mats.append(mat)
+            specs.append((dom.log_n, self.hf.mul(self.hf.generator, self.hf.inv(dom.shift))))
+        return self._commit(mats, specs, False, tile_log)
 
-    def commit(self, domains_and_mats) -> Tuple[np.ndarray, PcsProverData]:
+    def commit(self, domains_and_mats, tile_log: Optional[int] = None) -> Tuple[np.ndarray, PcsProverData]:
         """`commit_device` with the cap fetched as (2^cap_height, 8) uint32."""
-        cap, data = self.commit_device(domains_and_mats)
+        cap, data = self.commit_device(domains_and_mats, tile_log)
         return digest_layer_to_np(cap), data
 
-    def commit_from_coeffs_device(self, coeff_mats) -> Tuple[torch.Tensor, PcsProverData]:
+    def commit_from_coeffs_device(self, coeff_mats,
+                                  tile_log: Optional[int] = None) -> Tuple[torch.Tensor, PcsProverData]:
         """coeff_mats: [(w, n) natural coefficient matrices].  Commits their
         evaluations on GENERATOR·H_{n·B} directly from the coefficients; the
         cap stays on the device."""
-        ldes, logs = [], []
-        for coeffs in coeff_mats:
-            log_n = coeffs.shape[-1].bit_length() - 1
-            shifted = self.F.mul(coeffs, self.engine.scale_table(log_n, self.hf.generator))
-            ldes.append(self.engine.lde_bitrev_from_coeffs(shifted, log_n + self.log_blowup))
-            logs.append(log_n)
-        return self._commit_ldes(ldes, logs)
+        specs = [(c.shape[-1].bit_length() - 1, self.hf.generator) for c in coeff_mats]
+        return self._commit(list(coeff_mats), specs, True, tile_log)
 
-    def commit_from_coeffs(self, coeff_mats) -> Tuple[np.ndarray, PcsProverData]:
-        cap, data = self.commit_from_coeffs_device(coeff_mats)
+    def commit_from_coeffs(self, coeff_mats, tile_log: Optional[int] = None) -> Tuple[np.ndarray, PcsProverData]:
+        cap, data = self.commit_from_coeffs_device(coeff_mats, tile_log)
         return digest_layer_to_np(cap), data
 
     # -- open -------------------------------------------------------------

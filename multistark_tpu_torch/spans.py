@@ -18,11 +18,13 @@ and prints the last one's spans.  Last, one more warm prove runs under
 device time) is printed beside the median unwrapped warm prove.  Needs a
 CUDA device.
 
-Spans nest: a commit contains its Merkle tree; the FRI commit phase
-contains the level trees and the PoW grinds; "host duplex" is every
-other host challenger call (observe, sample), counted once where they
-nest, "device duplex" every DeviceDuplex call; the device transcript's
-"global fetch + host replay" contains the replay's host duplex calls.
+Spans nest: a stage or quotient commit holds its LDEs and its whole tree
+(K14 hashes and folds inside the LDE's last stages); the FRI commit phase
+contains the level trees ("FRI round trees") and the PoW grinds; "host
+duplex" is every other host challenger call (observe, sample), counted
+once where they nest, "device duplex" every DeviceDuplex call; the
+device transcript's "global fetch + host replay" contains the replay's
+host duplex calls.
 """
 
 from __future__ import annotations
@@ -154,7 +156,7 @@ def instrument(config, spans: Spans):
                        ("_commit_phase", "FRI commit phase"), ("_commit_phase_device_core", "FRI commit phase"),
                        ("_query_phase", "query phase")):
         setattr(pcs, attr, spans.wrap(name, getattr(pcs, attr)))
-    pcs.mmcs.commit_device = spans.wrap("Merkle trees", pcs.mmcs.commit_device)
+    pcs.mmcs.commit_device = spans.wrap("FRI round trees", pcs.mmcs.commit_device)
     for cls, methods, name in ((DuplexChallenger, _CHALLENGER_METHODS, "host duplex"),
                                (SerializingChallenger64, _CHALLENGER_METHODS, "host duplex"),
                                (DeviceDuplex, _DUPLEX_METHODS, "device duplex")):

@@ -1,0 +1,202 @@
+"""K14 (lde_tile) and K15 (merkle_levels): the port's stage and quotient
+commits on CPU tensors against the JAX package's TwoAdicFriPcs.commit /
+commit_from_coeffs, bit for bit (tolerance zero: everything is mod p and
+hashing is exact): every stored LDE, every digest layer and the cap, with
+K14's tile forced to 2^2 or 2^3 so that small heights reach every geometry
+(heights below, at and above the tile; shorter rows injected inside the
+tile, exactly at its top and above it; caps of 1, 2 and 4 digests), plus
+openings, the plan the commits follow at the bench's shapes, and the
+sub-cap rejection.  The JAX side runs eagerly, as its own CPU tests do (its
+fused commit program is not compiled on the CPU: test_fused_smoke.py)."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from multistark_tpu.config import CommitmentParameters as JaxCommit, FriParameters as JaxFri
+from multistark_tpu.configs import BabyBearPoseidon2Config as JaxBB, GoldilocksBlake3Config as JaxGL
+from multistark_tpu.fields.device import BB_OPS, GL_OPS
+from multistark_tpu.merkle import digest_planes_to_np
+from multistark_tpu_torch import commit_tile
+from multistark_tpu_torch.config import CommitmentParameters, FriParameters
+from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
+from multistark_tpu_torch.fields import device as fd
+from multistark_tpu_torch.fields.host import BABYBEAR, GOLDILOCKS
+from multistark_tpu_torch.merkle import digest_layer_to_np
+from multistark_tpu_torch.pcs import commit_plan
+
+LOG_BLOWUP = 2
+FRI = dict(log_final_poly_len=0, max_log_arity=1, num_queries=2, commit_proof_of_work_bits=0,
+           query_proof_of_work_bits=0)
+CONFIGS = {"gl": (JaxGL, GoldilocksBlake3Config, GL_OPS), "bb": (JaxBB, BabyBearPoseidon2Config, BB_OPS)}
+
+# (width, log trace height) per matrix; the LDE is 4x taller.  With a tile of
+# 2^3 (2^2): 2^2 below the tile (and at it), 2^3 at it, 2^6 above it; a
+# shorter group at LDE 16 is injected inside a 2^3 tile, at 8 exactly at its
+# top, at 4 above it (K15)
+GL_CASES = {
+    "below": ([(3, 0)], 0),
+    "at": ([(3, 1)], 1),
+    "above": ([(3, 4)], 1),
+    "inject inside": ([(2, 4), (3, 2)], 0),
+    "inject at the top": ([(2, 4), (1, 1)], 1),
+    "inject above": ([(2, 4), (1, 0)], 0),
+    "two groups, two injections, cap 4": ([(1, 4), (4, 4), (2, 3), (5, 1)], 2),
+    "a row wider than one chunk": ([(130, 3)], 1),
+}
+BB_CASES = {  # LDE heights <= 2^5 (the JAX side's eager Poseidon2 trees are slow); with a tile of 2^2,
+    # LDE 16 is injected inside it, 8 at its top, 4 above it
+    "inject inside, at the top and above": ([(9, 3), (1, 2), (3, 1), (2, 0)], 2),
+}
+
+
+def _pcs_pair(name: str, cap_height: int):
+    jax_cls, cls, _ = CONFIGS[name]
+    jax_pcs = jax_cls(JaxCommit(log_blowup=LOG_BLOWUP, cap_height=cap_height), JaxFri(**FRI)).pcs
+    pcs = cls(CommitmentParameters(log_blowup=LOG_BLOWUP, cap_height=cap_height), FriParameters(**FRI),
+              device="cpu").pcs
+    return jax_pcs, pcs
+
+
+def _mats(name: str, dims, seed: int):
+    p = (BABYBEAR if name == "bb" else GOLDILOCKS).p
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, p, (w, 1 << ln), dtype=np.uint64) for w, ln in dims]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_commit(name: str, case: str, from_coeffs: bool):
+    """The JAX package's commit of a case (whatever the port's tile): its
+    cap, stored LDEs, digest layers and prover data."""
+    dims, cap_height = (GL_CASES if name == "gl" else BB_CASES)[case]
+    mats = _mats(name, dims, len(case))
+    F = CONFIGS[name][2]
+    jax_pcs, _ = _pcs_pair(name, cap_height)
+    if from_coeffs:
+        cap, data = jax_pcs.commit_from_coeffs([F.from_np(m) for m in mats])
+    else:
+        cap, data = jax_pcs.commit([(jax_pcs.natural_domain_for_degree(m.shape[1]), F.from_np(m)) for m in mats])
+    ldes = [F.to_np(m) for m in data.mmcs_data.mats]
+    layers = [digest_planes_to_np(layer) for layer in data.mmcs_data.layers]
+    return mats, cap, ldes, layers, data
+
+
+def _port_commit(name: str, case: str, from_coeffs: bool, tile_log):
+    dims, cap_height = (GL_CASES if name == "gl" else BB_CASES)[case]
+    mats = _mats(name, dims, len(case))
+    _, pcs = _pcs_pair(name, cap_height)
+    t = [pcs.F.from_np(m, "cpu") for m in mats]
+    if from_coeffs:
+        return pcs, pcs.commit_from_coeffs(t, tile_log=tile_log)
+    return pcs, pcs.commit([(pcs.natural_domain_for_degree(m.shape[1]), m) for m in t], tile_log=tile_log)
+
+
+def _assert_same_commit(name, case, from_coeffs, tile_log):
+    _, jax_cap, jax_ldes, jax_layers, _ = _jax_commit(name, case, from_coeffs)
+    _, (cap, data) = _port_commit(name, case, from_coeffs, tile_log)
+    assert len(data.mmcs_data.mats) == len(jax_ldes)
+    for got, want in zip(data.mmcs_data.mats, jax_ldes):
+        np.testing.assert_array_equal(fd.to_np(got), want)
+    assert len(data.mmcs_data.layers) == len(jax_layers)
+    for got, want in zip(data.mmcs_data.layers, jax_layers):
+        np.testing.assert_array_equal(digest_layer_to_np(got), want)
+    np.testing.assert_array_equal(cap, jax_cap)
+    return data
+
+
+@pytest.mark.parametrize("from_coeffs", [False, True], ids=["evals", "coeffs"])
+@pytest.mark.parametrize("tile_log", [2, 3])
+@pytest.mark.parametrize("case", list(GL_CASES))
+def test_goldilocks_commit_matches_jax(case, tile_log, from_coeffs):
+    _assert_same_commit("gl", case, from_coeffs, tile_log)
+
+
+@pytest.mark.parametrize("case", list(BB_CASES))
+def test_babybear_commit_matches_jax(case):
+    """From evaluations only: the coefficient path's BabyBear commit costs
+    the JAX side another ~15 s, and it differs from the Goldilocks one only
+    in the field."""
+    _assert_same_commit("bb", case, False, 2)
+
+
+@pytest.mark.parametrize("name, case", [("gl", "two groups, two injections, cap 4"), ("gl", "above"),
+                                        ("bb", "inject inside, at the top and above")])
+def test_default_tile_matches_jax(name, case):
+    """The tile the commits pick themselves (the whole height, at these
+    sizes) gives the same commitment."""
+    _assert_same_commit(name, case, False, None)
+
+
+@pytest.mark.parametrize("name, case", [("gl", "two groups, two injections, cap 4"),
+                                        ("bb", "inject inside, at the top and above")])
+def test_openings_match_jax(name, case):
+    *_, jax_data = _jax_commit(name, case, False)
+    pcs, (_, data) = _port_commit(name, case, False, 2)
+    jax_pcs, _ = _pcs_pair(name, GL_CASES[case][1] if name == "gl" else BB_CASES[case][1])
+    idx = np.asarray([0, 5, 63, 17, 5] if name == "gl" else [0, 5, 31, 17])
+    want = jax_pcs.mmcs.open_batch(jax_data.mmcs_data, idx)
+    for a, b in zip(pcs.mmcs.open_batch(data.mmcs_data, idx), want):
+        np.testing.assert_array_equal(a.path, b.path)
+        for ra, rb in zip(a.opened_rows, b.opened_rows):
+            np.testing.assert_array_equal(ra, rb)
+
+
+def test_merkle_levels_fold_many_levels_with_injections():
+    """K15's host loop: more levels than one launch folds (FOLD_LOG), with
+    injections below, at and above the launch boundary, against the plain
+    fold of merkle.py's loop."""
+    _, pcs = _pcs_pair("gl", 0)
+    hasher = pcs.mmcs.hasher
+    rng = np.random.default_rng(5)
+
+    def digests(h):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (h, 8)).astype(np.int32))
+
+    leaves = digests(1 << 12)
+    inject = {lv: digests(1 << (12 - lv)) for lv in (3, 10, 11)}
+    got = commit_tile.merkle_levels(hasher, leaves, 12, inject)
+    assert [t.shape[0] for t in got] == [1 << (12 - lv) for lv in range(1, 13)]
+    want = leaves
+    for lv, layer in enumerate(got, start=1):
+        want = hasher.compress_plain(want[0::2], want[1::2])
+        if lv in inject:
+            want = hasher.compress_plain(want, inject[lv])
+        assert torch.equal(layer, want)
+
+
+@pytest.mark.parametrize("cols, log_n, hashed, want", [
+    (14, 20, True, 10),  # the stage-1 LDE at 2^18 rows
+    (14, 18, False, 11),  # its iDFT
+    (1, 10, True, 10),  # ByteTable's LDE: its whole height in one block
+    (26, 20, True, 9),  # a stage-2 width
+    (130, 20, True, 7),  # a row wider than one BLAKE3 chunk
+    (3, 2, True, 2),  # a height below the tile
+])
+def test_tile_log_fits_shared_memory(cols, log_n, hashed, want):
+    k = commit_tile.tile_log_for(cols, log_n, hashed)
+    assert k == want
+    row = 8 * cols + (32 if hashed else 0)
+    room = commit_tile.SMEM_BYTES - (commit_tile.CONST_BYTES if hashed else 0)
+    assert row << k <= room and (k == log_n or row << (k + 1) > room)
+
+
+def test_commit_plan_of_the_bench_stage_1():
+    """U32Add (14, 2^18) and ByteTable (1, 2^8) at blowup 4: one K14 tile of
+    2^10 folds ten levels and takes ByteTable's 1024 leaves exactly at its
+    top; K2 runs ten stages above it; K15 has ten levels left, with no
+    injection."""
+    tall, short = commit_plan([14, 1], [18, 8], LOG_BLOWUP, 0)
+    assert (tall.members, tall.cols, tall.log_lde, tall.tile, tall.levels, tall.inject_level) == ((0,), 14, 20, 10,
+                                                                                                  10, 0)
+    assert tall.idft_tile == 11
+    assert (short.members, short.log_lde, short.tile, short.levels, short.inject_level) == ((1,), 10, 10, 0, 10)
+    assert short.idft_tile == 8
+
+
+def test_sub_cap_matrices_are_rejected():
+    _, pcs = _pcs_pair("gl", 3)
+    mats = [pcs.F.from_np(m, "cpu") for m in _mats("gl", [(2, 4), (1, 0)], 3)]
+    with pytest.raises(ValueError, match="below cap size"):
+        pcs.commit([(pcs.natural_domain_for_degree(m.shape[1]), m) for m in mats])
