@@ -37,6 +37,25 @@ without printing a result:
                 torch.cuda.set_sync_debug_mode("error") (any op there that
                 waits for the device raises), and the path must count no
                 fallback
+  5. sharded -- the row-sharded prove (parallel.py) on torch.distributed,
+                ranks started with the spawn method from the package
+                (spmd_cases.chip_rank): NCCL at world = the largest power of
+                two <= the cards, one rank per card, both configs at 2^14
+                and 2^18; gloo with four ranks on card 0 (its collectives
+                staged through pinned host memory), GoldilocksBlake3 at
+                2^18, plus distributed_dft (3, 2^10, 2^10) on the card
+                against the same call on CPU tensors; gloo with two ranks
+                on card 0, BabyBearPoseidon2 at 2^14; then the entry point
+                parallel.dryrun_multichip(2) on the card (NCCL where two
+                cards exist, else gloo on card 0), GoldilocksBlake3 at
+                2^10.  One line per world:
+                backend, world, ranks per card, cold and warm prove seconds
+                and peak device memory per rank, collective and staged bytes,
+                kernel launches and sharded calls per rank.  Every rank's
+                proof must equal the golden sha256 and length, every sharded
+                function of row 27 must be counted and every kernel of the
+                config's path launched on every rank; the phase's launches
+                join the kernels line
 
 Then a JSON line of per-kernel results (with each kernel's bound: the least
 time the card could take for the same work), the nvidia-smi line, and as
@@ -583,6 +602,98 @@ def prove_sizes(dev, path: str):
     return counts
 
 
+# phase 5: (backend, world, the ranks' device, [(config, sizes)], distributed_dft check or None)
+MESH_PATHS = {"goldilocks_blake3": PATHS["goldilocks_blake3 host transcript"][2],  # a sharded prove takes the host
+              "babybear_poseidon2": PATHS["babybear_poseidon2"][2]}               # transcript
+DFT_CHECK = (10, 10, 3, 7)  # log_n1, log_n2, width, seed
+
+
+def sharded_worlds(cards: int):
+    nccl_world = 1 << (cards.bit_length() - 1)
+    return [
+        ("nccl", nccl_world, "cuda", [("goldilocks_blake3", SIZES), ("babybear_poseidon2", SIZES)], None),
+        ("gloo", 4, "cuda:0", [("goldilocks_blake3", (18,))], DFT_CHECK),
+        ("gloo", 2, "cuda:0", [("babybear_poseidon2", (14,))], None),
+    ]
+
+
+def sharded_phase() -> dict:
+    """Phase 5: every world of `sharded_worlds`; returns the kernel launches
+    of all ranks' proves, summed (each rank sets its counts to 0 before its
+    proves and reads them right after)."""
+    import torch
+
+    from multistark_tpu_torch import parallel, spmd_cases
+    from multistark_tpu_torch.examples.sharded_proof import world_bound_ms
+
+    with open(os.path.join(ROOT, "fixtures", "torch_port_golden.json")) as f:
+        golden = json.load(f)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    for backend, world, device, cases, dft in sharded_worlds(torch.cuda.device_count()):
+        t0 = time.perf_counter()
+        reports = parallel.Ranks(spmd_cases.chip_rank, world, (cases, device, dft), backend=backend).results(600)
+        label = f"{backend} world={world} ranks_per_card={1 if device == 'cuda' else world}"
+        for config_name, sizes in cases:
+            for log_n in sizes:
+                key = f"{config_name}/{log_n}"
+                per_rank = [(rep["proofs"][key]["cold_s"], rep["proofs"][key]["warm_s"],
+                             rep["proofs"][key]["peak_bytes"] / 2**20) for rep in reports]
+                say("sharded", f"{label} {key}: cold/warm prove s and peak MiB per rank "
+                    + " ".join(f"[{c:.3f} {w:.4f} {m:.1f}]" for c, w, m in per_rank))
+                for rep in reports:
+                    lp = rep["proofs"][key]["last_prove"]
+                    say("sharded", f"{label} {key} rank {rep['rank']} warm prove: collective bytes received "
+                        f"{sum(lp['collective_bytes'].values())} {lp['collective_bytes']}, staged bytes "
+                        f"{lp['staged_bytes']}, {sum(lp['launches'].values())} launches {lp['launches']}")
+                ms, by, link, link_bytes = world_bound_ms(reports, config_name, log_n)
+                say("sharded", f"{label} {key}: bound of one rank's warm prove {ms:.4f} ms by {by} "
+                    f"({link or 'no'} link, {link_bytes} bytes on it)")
+                for rep in reports:
+                    got, want = rep["proofs"][key]["digest"], golden[config_name][str(log_n)]
+                    if got != want:
+                        raise AssertionError(f"{label} rank {rep['rank']} {key}: proof {got} != JAX golden {want}")
+            for rep in reports:
+                c = rep["counts"][config_name]
+                say("sharded", f"{label} {config_name} rank {rep['rank']}: collective bytes {c['collective_bytes']} "
+                    f"staged bytes {c['staged_bytes']} launches {c['launches']} sharded calls {c['sharded_calls']}")
+                missing = [f for f in parallel.ROW27 if c["sharded_calls"].get(f, 0) <= 0]
+                idle = [k for k in MESH_PATHS[config_name] if c["launches"].get(k, 0) <= 0]
+                if missing or idle:
+                    raise AssertionError(f"{label} rank {rep['rank']} {config_name}: sharded functions never "
+                                         f"called {missing}, kernels never launched {idle}")
+                for k, v in c["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        if dft is not None:
+            for rep in reports:
+                d = rep["dft"]
+                say("sharded", f"{label} rank {rep['rank']}: distributed_dft (3, 2^{dft[0]}, 2^{dft[1]}) block "
+                    f"{d['shape']} equal to the plain version: {d['equal']}, {d['ms']:.3f} ms on the card, "
+                    f"{d['plain_ms']:.1f} ms plain on the CPU")
+                if not d["equal"]:
+                    raise AssertionError(f"{label} rank {rep['rank']}: distributed_dft disagrees with its plain "
+                                         "version")
+        say("sharded", f"{label}: {len(reports)} ranks, every proof equals the golden digest "
+            f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    reports = parallel.dryrun_multichip(2)  # the entry point, on the card
+    for rep in reports:
+        c = rep["counts"]["goldilocks_blake3"]
+        got, want = rep["proofs"]["goldilocks_blake3/10"]["digest"], golden["goldilocks_blake3"]["10"]
+        idle = [k for k in MESH_PATHS["goldilocks_blake3"] if c["launches"].get(k, 0) <= 0]
+        if got != want or idle:
+            raise AssertionError(f"dryrun_multichip(2) rank {rep['rank']}: proof {got} (JAX golden {want}), "
+                                 f"kernels never launched {idle}")
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    say("sharded", f"dryrun_multichip(2): {reports[0]['backend']} on {reports[0]['device']}, every rank's "
+        f"GoldilocksBlake3 2^10 proof equals the golden digest, staged bytes per rank "
+        f"{[sum(r['counts']['goldilocks_blake3']['staged_bytes'].values()) for r in reports]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    say("sharded", f"phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -610,6 +721,8 @@ def main() -> int:
     for path in PATHS:
         for name, count in prove_sizes(dev, path).items():
             launches[name] += count
+    for name, count in sharded_phase().items():
+        launches[name] += count
 
     rows = []
     for k in kernels.KERNELS:

@@ -51,9 +51,14 @@ from .utils import fetch
 
 def eligible(config) -> bool:
     """The device transcript replicates a Goldilocks SerializingChallenger64
-    over BLAKE3 trees with the degree-2 extension."""
+    over BLAKE3 trees with the degree-2 extension; a sharded prove (an
+    active parallel mesh) takes the host transcript, as in the JAX
+    package."""
+    from . import parallel
+
     return (
-        isinstance(config.initialise_challenger(), SerializingChallenger64)
+        parallel.current_mesh() is None
+        and isinstance(config.initialise_challenger(), SerializingChallenger64)
         and isinstance(config.pcs.mmcs.hasher, Blake3FieldHasher)
         and config.host_field.p == dt.GOLDILOCKS_P
         and config.ext.D == 2

@@ -4,7 +4,9 @@ Each source under csrc/ compiles with its own nvcc process (all started
 together) into an object, and the objects link into one shared library with
 a plain C interface, loaded with ctypes.  The build runs at first use into
 build/torch_kernels/ (listed in .gitignore) and again whenever a source or
-header is newer than the library.  Nothing here runs at import: the CPU
+header is newer than the library, under an exclusive flock on that
+directory, so that ranks started together build once and never load a
+half-written library.  Nothing here runs at import: the CPU
 tests import every module on a machine without nvcc.
 
 Each kernel is a `CudaKernel` whose `launches` counter rises by one each
@@ -21,6 +23,8 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from .native import build_lock
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -77,12 +81,17 @@ def nvcc_path() -> str:
 
 def build(force: bool = False) -> float:
     """Compile csrc/*.cu into the shared library if it is missing or stale:
-    one nvcc per source, all at once, then one link.  Returns the seconds
+    one nvcc per source, all at once, then one link, under an exclusive
+    flock on build/torch_kernels/ (native.build_lock).  Returns the seconds
     spent (0 if nothing was built).  Raises CalledProcessError with nvcc's
     output if a step fails."""
+    with build_lock(BUILD_DIR):
+        return _build(force)
+
+
+def _build(force: bool) -> float:
     if not (force or _stale()):
         return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
@@ -115,8 +124,9 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _LIB
     if _LIB is None:
-        build()
-        lib = ctypes.CDLL(LIB_PATH)
+        with build_lock(BUILD_DIR):
+            _build(False)
+            lib = ctypes.CDLL(LIB_PATH)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -313,7 +313,14 @@ def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta
     and multiplicities in chain order (K11), the messages' inverses (K4),
     the terms mult/message (K1 or K5) and the chain (K4).
 
+    Under a mesh, a circuit with n % D == 0 rows takes
+    parallel.sharded_stage2 (JAX lookup.py:350-361) and its blocks are
+    gathered for the commit, whose iDFT runs replicated.
+
     Returns (stage2_mats: [(max(L,1)·D, n) tensors], accs: [(D,) tensors])."""
+    from . import parallel
+
+    pm = parallel.current_mesh()
     mats, accs = [], []
     acc = acc0.reshape(E.D)
     pubs = None
@@ -322,6 +329,12 @@ def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta
         if L == 0:
             # pass-through: a (D, n) matrix of the constant accumulator
             mats.append(acc[:, None].expand(E.D, n).contiguous())
+            accs.append(acc)
+            continue
+        if pm is not None and n >= pm.n and n % pm.n == 0:
+            blk, total = parallel.sharded_stage2(E, pm, lv, beta, gamma, acc)
+            acc = E.add(acc, total)
+            mats.append(parallel.gather_blocks(pm, blk, "stage2"))
             accs.append(acc)
             continue
         if pubs is None:

@@ -20,7 +20,7 @@ openings are plain tensor indexing.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,17 @@ def digest_layer_to_np(layer: torch.Tensor) -> np.ndarray:
     return layer.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
+@dataclass(frozen=True)
+class RowShard:
+    """How a tree is split across the ranks of a mesh (parallel.py): the
+    matrices of height >= D and the layers below `local_levels` hold this
+    rank's contiguous block; the shorter matrices and the layers from
+    `local_levels` up are whole, the same on every rank."""
+
+    mesh: Any  # parallel.ProverMesh
+    local_levels: int
+
+
 @dataclass
 class MerkleProverData:
     """Device-resident tree: committed matrices + all digest layers."""
@@ -76,6 +87,11 @@ class MerkleProverData:
     dims: List[Tuple[int, int]]  # (width, height) per matrix
     layers: List[torch.Tensor]  # layers[0] = leaves; each (h, 8) int32
     log_max: int
+    shard: Optional[RowShard] = None  # None: one device holds the whole tree
+
+    def is_block(self, i: int) -> bool:
+        """Whether mats[i] is this rank's block (w, h/D) of a sharded tree."""
+        return self.shard is not None and self.dims[i][1] >= self.shard.mesh.n
 
 
 @dataclass
@@ -131,26 +147,38 @@ class MerkleMmcs:
         return heights
 
     # -- open (device gathers, one host transfer, host assembly) -----------
+    def gather_device(self, data: MerkleProverData, ix) -> tuple:
+        """One tree's sibling paths (path_len, Q, 8) int32 and opened rows
+        [(w, Q) int64 per matrix] at leaf indices ix, on the device (a tree
+        sharded over a mesh opens through parallel.gather_openings)."""
+        assert data.shard is None, "a sharded tree's lower layers are rank-local"
+        dev = data.layers[0].device
+        idx = torch.as_tensor(np.asarray(ix, np.int64), device=dev)
+        path_len = data.log_max - self.cap_height
+        sibs = [data.layers[lv].index_select(0, (idx >> lv) ^ 1) for lv in range(path_len)]
+        sib = torch.stack(sibs) if sibs else torch.zeros((0, len(ix), 8), dtype=torch.int32, device=dev)
+        rows = [m.index_select(1, idx >> (data.log_max - (h.bit_length() - 1)))
+                for m, (_, h) in zip(data.mats, data.dims)]
+        return sib, rows
+
     def gather_many(self, datas: Sequence[MerkleProverData], indices_list) -> list:
         """Sibling paths and opened rows of many trees at their query
         indices, gathered on the device and fetched to the host in ONE
-        transfer.  Returns per tree (sibs (path_len, Q, 8) uint32,
-        rows: per matrix (w, Q) uint64)."""
+        transfer.  Returns per tree (sibs (path_len, Q, 8) uint32, rows: per
+        matrix (w, Q) uint64)."""
+        return self.fetch([self.gather_device(d, ix) for d, ix in zip(datas, indices_list)])
+
+    def fetch(self, gathered) -> list:
+        """Device gathers [(sibs, rows)] (gather_device, or
+        parallel.gather_openings for sharded trees) to the host in one
+        transfer, as gather_many returns them."""
         parts: List[torch.Tensor] = []
         shapes = []
-        for data, ix in zip(datas, indices_list):
-            dev = data.layers[0].device
-            idx = torch.as_tensor(np.asarray(ix, np.int64), device=dev)
-            path_len = data.log_max - self.cap_height
-            sibs = [data.layers[lv].index_select(0, (idx >> lv) ^ 1) for lv in range(path_len)]
-            sib = torch.stack(sibs) if sibs else torch.zeros((0, len(ix), 8), dtype=torch.int32, device=dev)
+        for sib, rows in gathered:
             parts.append(sib.reshape(-1))
-            rows = []
-            for m, (_, h) in zip(data.mats, data.dims):
-                r = m.index_select(1, idx >> (data.log_max - (h.bit_length() - 1)))
+            for r in rows:
                 parts.append(r.reshape(-1).view(torch.int32))
-                rows.append(tuple(r.shape))
-            shapes.append((tuple(sib.shape), rows))
+            shapes.append((tuple(sib.shape), [tuple(r.shape) for r in rows]))
         flat = torch.cat(parts).cpu().numpy().view(np.uint32) if parts else np.zeros(0, np.uint32)
         out, off = [], 0
         for sib_shape, row_shapes in shapes:

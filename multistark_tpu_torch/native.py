@@ -2,7 +2,8 @@
 chunk chaining values of a device-duplex flush; the Poseidon2 permutation
 with the duplex absorb and grind), built with `cc` into
 build/torch_kernels/libmshost.so at first use and again whenever a source
-is newer than the library.
+is newer than the library, under an exclusive flock on that directory
+(`build_lock`, which kernels.py takes too).
 
 The Fiat-Shamir transcripts of both configs run on the host; at 2^18
 claims they are not worth running in pure Python, so a failed build
@@ -12,9 +13,11 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import os
 import subprocess
+from contextlib import contextmanager
 from typing import Optional
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -44,22 +47,48 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(HOST_SRC_DIR, "*.c")))
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded host helper, built first if missing or stale."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    srcs = sources()
-    if not os.path.exists(LIB_PATH) or any(os.path.getmtime(s) > os.path.getmtime(LIB_PATH) for s in srcs):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"  # concurrent processes each rename atomically
-        subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", tmp, *srcs], check=True, capture_output=True,
-                       timeout=120)
-        os.replace(tmp, LIB_PATH)
-    handle = ctypes.CDLL(LIB_PATH)
+@contextmanager
+def build_lock(build_dir: str):
+    """An exclusive flock on the build directory itself: processes started
+    together (the ranks of a mesh) build and load one at a time, so none
+    loads a library another is still writing."""
+    os.makedirs(build_dir, exist_ok=True)
+    fd = os.open(build_dir, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # releases the lock
+
+
+def build(build_dir: str = BUILD_DIR, force: bool = False) -> str:
+    """Compile csrc/host/*.c into build_dir/libmshost.so if it is missing or
+    stale (or force), under `build_lock`; returns the library's path."""
+    path = os.path.join(build_dir, os.path.basename(LIB_PATH))
+    with build_lock(build_dir):
+        srcs = sources()
+        if force or not os.path.exists(path) or any(os.path.getmtime(s) > os.path.getmtime(path) for s in srcs):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", tmp, *srcs], check=True, capture_output=True,
+                           timeout=120)
+            os.replace(tmp, path)
+    return path
+
+
+def load(path: str) -> ctypes.CDLL:
+    handle = ctypes.CDLL(path)
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = restype
-    _LIB = handle
     return handle
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded host helper, built first if missing or stale."""
+    global _LIB
+    if _LIB is None:
+        path = build()
+        with build_lock(BUILD_DIR):
+            _LIB = load(path)
+    return _LIB

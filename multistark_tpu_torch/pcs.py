@@ -41,6 +41,16 @@ folds with it, K3 commits the next level) and syncs once at the end; the
 host challenger then replays the rounds from the fetched caps, witnesses and
 βs and stays the authority (`replay_commit_phase_host`).  Other challengers
 take the host loop, one β per round.
+
+Under an active mesh (parallel.use_mesh) with D ranks, at the JAX package's
+thresholds: a matrix whose LDE has >= D² rows takes the sharded LDE and
+every tree with a matrix of >= D rows the sharded commit (`_commit_sharded`);
+the claimed evaluations gather each stored prefix and run K12 replicated;
+the reduced opening of an LDE of >= D rows runs K13 on the rank's block
+(`_ro_sharded`, no collective); a FRI round keeps its vector sharded while
+it has >= D² positions and its fold >= D (`_fri_layout`), its tree then
+sharded too; the query openings come from the ranks that own the leaves
+(merkle.py).  Caps, grinds and the final polynomial are replicated.
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ import numpy as np
 import torch
 
 from . import device_transcript as dt
-from . import kernels
+from . import kernels, parallel
 from .challenger import SerializingChallenger64
 from .commit_tile import lde_tile, merkle_levels, tile_log_for
 from .config import CommitmentParameters, FriParameters
@@ -198,9 +208,13 @@ class TwoAdicFriPcs:
         their mixed-height tree, by the plan `commit_plan` makes from the
         shapes: per height group K2 above the tile, then one K14 launch for
         the tile's stages, the leaves and the lowest levels; K15 for the
-        levels above.  specs: [(log_n, shift)] per matrix.  No sync."""
+        levels above.  specs: [(log_n, shift)] per matrix.  No sync.  Under
+        a mesh whose size the tallest LDE reaches: `_commit_sharded`."""
         F, eng, hasher, b = self.F, self.engine, self.mmcs.hasher, self.log_blowup
         logs = [ln for ln, _ in specs]
+        pm = parallel.current_mesh()
+        if pm is not None and (1 << (max(logs) + b)) >= pm.n:
+            return self._commit_sharded(pm, mats, specs, from_coeffs)
         self.mmcs.check_heights([1 << (ln + b) for ln in logs])
         plan = commit_plan([int(m.shape[0]) for m in mats], logs, b, self.mmcs.cap_height, tile_log)
         ldes: List[torch.Tensor] = [None] * len(mats)
@@ -229,6 +243,32 @@ class TwoAdicFriPcs:
         mdata = MerkleProverData(mats=ldes, dims=[(int(m.shape[0]), int(m.shape[1])) for m in ldes], layers=layers,
                                  log_max=top.log_lde)
         return layers[-1], PcsProverData(mdata, logs, b)
+
+    def _commit_sharded(self, pm, mats, specs, from_coeffs: bool) -> Tuple[torch.Tensor, PcsProverData]:
+        """The commit under a mesh (JAX pcs.py:225-262, 328-332), per matrix:
+        an LDE of >= D² rows through the sharded LDE (this rank's block);
+        a shorter one through the single-device transforms (K2 + K14), then
+        its block taken if it has >= D rows; then the sharded tree."""
+        F, eng, b = self.F, self.engine, self.log_blowup
+        self.mmcs.check_heights([1 << (ln + b) for ln, _ in specs])
+        ldes, heights = [], []
+        for m, (ln, shift) in zip(mats, specs):
+            big = ln + b
+            if from_coeffs:
+                m = F.mul(m, eng.scale_table(ln, shift))
+            if (1 << big) >= pm.n * pm.n:
+                if from_coeffs:
+                    lde = parallel.sharded_lde_bitrev_from_coeffs(eng, pm, m, big)
+                else:
+                    lde = parallel.sharded_coset_lde_bitrev(eng, pm, m, ln, b, shift)
+            else:
+                lde = eng.lde_bitrev_from_coeffs(m, big) if from_coeffs else eng.coset_lde_bitrev(m, ln, b, shift)
+                if (1 << big) >= pm.n:
+                    lde = parallel.shard_rows(pm, lde)
+            ldes.append(lde)
+            heights.append(1 << big)
+        cap, mdata = parallel.sharded_mmcs_commit(self.mmcs, pm, ldes, heights)
+        return cap, PcsProverData(mdata, [ln for ln, _ in specs], b)
 
     def commit_device(self, domains_and_mats, tile_log: Optional[int] = None) -> Tuple[torch.Tensor, PcsProverData]:
         """domains_and_mats: [(TwoAdicCoset, natural-order evals (w, n))].
@@ -306,6 +346,8 @@ class TwoAdicFriPcs:
                     round_vals.append([])
                     continue
                 mat = data.mmcs_data.mats[m_idx]
+                if data.mmcs_data.is_block(m_idx):  # the stored prefix, gathered (JAX pcs.py:521-560)
+                    mat = parallel.whole_prefix(data.mmcs_data, m_idx, 1 << data.log_trace_heights[m_idx], "evals")
                 round_vals.append(self._eval_matrix(mat, data.log_trace_heights[m_idx], points, weights))
             out.append(round_vals)
         return out
@@ -350,26 +392,48 @@ class TwoAdicFriPcs:
         apows = ext_powers_device(E, alpha, count).contiguous()  # (D, count)
         ro: Dict[int, torch.Tensor] = {}
         inv_diffs: Dict[tuple, torch.Tensor] = {}
+        pm = parallel.current_mesh()
         for r_idx, m_idx, w, log_lde, off in plan:
             data, points_list = rounds[r_idx]
             points = points_list[m_idx]
+            offs = [off + p_idx * w for p_idx in range(len(points))]
+            if pm is not None and (1 << log_lde) >= pm.n:
+                ro[log_lde] = self._ro_sharded(pm, data.mmcs_data.mats[m_idx], log_lde, apows, vals[r_idx][m_idx],
+                                               points, offs, inv_diffs, ro.get(log_lde))
+                continue
             self._inverse_diffs(log_lde, points, inv_diffs)
             invs = [inv_diffs[log_lde, key] for key, _ in points]
-            offs = [off + p_idx * w for p_idx in range(len(invs))]
             ro[log_lde] = reduced_open(E, data.mmcs_data.mats[m_idx], apows, vals[r_idx][m_idx], invs, offs,
                                        ro.get(log_lde))
         return ro
 
-    def _inverse_diffs(self, log_n: int, points, cache: dict, times_x: bool = False) -> None:
+    def _ro_sharded(self, pm, mat, log_lde: int, apows, vals, points, offs, inv_diffs: dict, ro):
+        """One matrix's reduced-opening contribution on this rank's block of
+        its LDE (JAX pcs.py:696): K13 over the block, 1/(z - x) over the
+        block's x (a block-local K4 batch inverse; inverses are elementwise,
+        so the values are the single-device ones), no collective.  A
+        replicated matrix (the preprocessed one, committed at setup)
+        contributes the block it slices.  The result stays block-sharded."""
+        parallel.SHARDED_CALLS["ro_sharded"] += 1
+        if mat.shape[1] == 1 << log_lde:
+            mat = parallel.shard_rows(pm, mat)
+        x = parallel.shard_rows(pm, self.x_table_storage(log_lde, self.hf.generator))
+        self._inverse_diffs(log_lde, points, inv_diffs, x=x)
+        invs = [inv_diffs[log_lde, key] for key, _ in points]
+        return reduced_open(self.E, mat, apows, vals, invs, offs, ro)
+
+    def _inverse_diffs(self, log_n: int, points, cache: dict, times_x: bool = False,
+                       x: Optional[torch.Tensor] = None) -> None:
         """Cache under (log_n, key) 1/(z - x) (times x if times_x) over the
-        2^log_n-point coset GENERATOR·H in storage order, as a contiguous
-        (D, 2^log_n) tensor, for each (key, z) of points not cached yet: all
-        of them in one batch inverse."""
+        2^log_n-point coset GENERATOR·H in storage order (or over the given
+        part x of it), as a contiguous (D, len(x)) tensor, for each (key, z)
+        of points not cached yet: all of them in one batch inverse."""
         F, E = self.F, self.E
         todo = [(key, z) for key, z in points if (log_n, key) not in cache]
         if not todo:
             return
-        x = self.x_table_storage(log_n, self.hf.generator)
+        if x is None:
+            x = self.x_table_storage(log_n, self.hf.generator)
         inv = batch_inv(torch.stack([_ext_minus_base(F, E, z, x) for _, z in todo], dim=1), E)  # (D, P, n)
         if times_x:
             inv = E.scale(inv, x)
@@ -406,6 +470,8 @@ class TwoAdicFriPcs:
         if result is None:
             result = self._commit_phase_host(ro, schedule, log_max_ro, challenger)
         caps, commit_datas, commit_pows, current, log_size = result
+        if current.shape[-1] != 1 << log_size:  # a block: the final polynomial is replicated
+            current = parallel.gather_blocks(parallel.current_mesh(), current, "fri")
         final_poly, query_pow, indices = self._commit_tail(
             self.E.to_host(current), log_size, log_max_ro, log_max, challenger
         )
@@ -420,7 +486,9 @@ class TwoAdicFriPcs:
         current = ro[log_max_ro]
         log_size = log_max_ro
         for a_bits in schedule:
-            cap, mdata = self.mmcs.commit([_fold_rows(current, a_bits)])
+            current = self._fri_layout(current, log_size, a_bits)
+            cap_d, mdata = self._fri_tree(current, a_bits, log_size)
+            cap = digest_layer_to_np(cap_d)
             caps.append(cap)
             commit_datas.append(mdata)
             challenger.observe_commitment(cap)
@@ -470,8 +538,8 @@ class TwoAdicFriPcs:
         as int32 words.  Returns (caps, witnesses, βs, ok flags, commit
         datas, the last fold, its log size)."""
         bits = self.fri.commit_proof_of_work_bits
-        current, log_size = ro[log_max_ro], log_max_ro
-        cap, mdata = self.mmcs.commit_device([_fold_rows(current, schedule[0])])
+        current, log_size = self._fri_layout(ro[log_max_ro], log_max_ro, schedule[0]), log_max_ro
+        cap, mdata = self._fri_tree(current, schedule[0], log_size)
         caps, commit_datas = [cap], [mdata]
         ws, betas, oks = [], [], []
         for r, a_bits in enumerate(schedule):
@@ -482,7 +550,8 @@ class TwoAdicFriPcs:
             current = self._fold_multi(current, beta, log_size, a_bits, log_max_ro, ro.get(log_size - a_bits))
             log_size -= a_bits
             if r + 1 < len(schedule):
-                cap, mdata = self.mmcs.commit_device([_fold_rows(current, schedule[r + 1])])
+                current = self._fri_layout(current, log_size, schedule[r + 1])
+                cap, mdata = self._fri_tree(current, schedule[r + 1], log_size)
                 caps.append(cap)
                 commit_datas.append(mdata)
         return caps, ws, betas, oks, commit_datas, current, log_size
@@ -526,12 +595,40 @@ class TwoAdicFriPcs:
         indices = [challenger.sample_bits(log_max) for _ in range(self.fri.num_queries)]
         return final_poly, query_pow, indices
 
+    def _fri_layout(self, current, log_size: int, a_bits: int):
+        """Under a mesh, a block-sharded fold vector of 2^log_size positions
+        stays sharded for a round of arity 2^a_bits while it has >= D²
+        positions and its fold >= D (each block then folds and commits
+        locally: fold partners are adjacent in storage); otherwise one
+        all_gather makes it whole.  A whole vector stays whole."""
+        pm = parallel.current_mesh()
+        if current.shape[-1] == 1 << log_size:
+            return current
+        if (1 << log_size) >= pm.n * pm.n and (1 << (log_size - a_bits)) >= pm.n:
+            return current
+        return parallel.gather_blocks(pm, current, "fri")
+
+    def _fri_tree(self, current, a_bits: int, log_size: int):
+        """The tree of a FRI round's level (device cap, data): sharded when
+        the vector is a block."""
+        mat = _fold_rows(current, a_bits)
+        if current.shape[-1] != 1 << log_size:
+            return parallel.sharded_mmcs_commit(self.mmcs, parallel.current_mesh(), [mat], [1 << (log_size - a_bits)])
+        return self.mmcs.commit_device([mat])
+
     def _fold_multi(self, current, beta: torch.Tensor, log_size: int, a_bits: int, log_max_ro: int, absorb=None):
         """One arity-2^a fold round with the device β (K10), plus `absorb`
-        (the next height's reduced opening) when given."""
+        (the next height's reduced opening) when given.  A block-sharded
+        vector folds with the blocks of its inverse-x tables, and a sharded
+        absorb into a whole vector is gathered first."""
         shift = self._shift_at(log_max_ro, log_size)
         tables = [self.x_table_storage(log_size - s, self.hf.exp_power_of_2(shift, s), inverse=True)
                   for s in range(a_bits)]
+        pm = parallel.current_mesh()
+        if current.shape[-1] != 1 << log_size:
+            tables = [parallel.shard_rows(pm, t) for t in tables]
+        elif absorb is not None and absorb.shape[-1] != 1 << (log_size - a_bits):
+            absorb = parallel.gather_blocks(pm, absorb, "fri")
         return fri_fold(self.E, current, beta, tables, self.hf.inv(2), absorb)
 
     def _final_poly_host(self, evals, log_size: int, log_max_ro: int) -> List[ExtVal]:
@@ -572,7 +669,11 @@ class TwoAdicFriPcs:
             level_idxs.append([(i >> (drop + bits_before)) >> arities[level] for i in indices])
             bits_before += arities[level]
         datas = [data.mmcs_data for data, _ in rounds] + list(commit_datas)
-        fetched = self.mmcs.gather_many(datas, round_idxs + level_idxs)
+        idxs = round_idxs + level_idxs
+        if any(d.shard is not None for d in datas):
+            fetched = self.mmcs.fetch(parallel.gather_openings(self.mmcs, datas, idxs))
+        else:
+            fetched = self.mmcs.gather_many(datas, idxs)
         openings = [self.mmcs.assemble(d, nq, f) for d, f in zip(datas, fetched)]
         per_round, per_level = openings[: len(rounds)], openings[len(rounds):]
         return [

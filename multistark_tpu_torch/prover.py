@@ -2,9 +2,11 @@
 
 `prove_multiple_claims` takes the whole-prove device transcript
 (dt_prover.py) whenever `dt_prover.eligible(config)` holds (the
-GoldilocksBlake3 config, on any device) and the host transcript otherwise
-(the BabyBearPoseidon2 config), or when the device transcript's host replay
-cannot adopt its result.  `prove_host_transcript` is the host-transcript
+GoldilocksBlake3 config, on any device, with no active mesh) and the host
+transcript otherwise (the BabyBearPoseidon2 config, or a sharded prove under
+parallel.use_mesh), or when the device transcript's host replay cannot
+adopt its result.  Under a mesh the quotient of a circuit with m = n·q >= D²
+quotient rows and q <= m/D runs `_quotient_chunk_sharded`.  `prove_host_transcript` is the host-transcript
 prove: device work happens in the big stages (stage-1 commit, stage-2 lookup
 traces + commit, quotient evaluation + commit, FRI open) and the Fiat-Shamir
 challenger runs on the host between them.  Both give the JAX package's proof
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from . import lookup as lk
+from . import parallel
 from .challenger import observe_claims as _observe_claims
 from .domains import TwoAdicCoset
 from .evaluator import constraint_values, lookup_values as graph_lookup_values, sweep
@@ -220,9 +223,53 @@ def _quotient_chunk_coeffs(
         mats[Source.PREPROCESSED.value] = key.preprocessed_data.mmcs_data.mats[p_idx]
     selectors = _selectors_device(system, log_n, q)
     pubs = ext_pack_device((beta, gamma, acc_prev, acc_final))  # (4, D): the publics' layout
+    pm = parallel.current_mesh()
+    if pm is not None:
+        m = n * q
+        datas = {Source.MAIN.value: (s1_data, active_ord), Source.STAGE2.value: (s2_data, active_ord)}
+        if p_idx is not None:
+            datas[Source.PREPROCESSED.value] = (key.preprocessed_data, p_idx)
+        # the stored quotient-domain prefixes (m rows), whole on every rank (JAX prover.py:267)
+        mats = {src: parallel.whole_prefix(d.mmcs_data, i, m, "quotient") for src, (d, i) in datas.items()}
+        if m >= pm.n * pm.n and q <= m // pm.n:
+            return _quotient_chunk_sharded(system, c_idx, log_n, q, mats, selectors, pubs, alpha, pm)
     qmat = _quotient_sweep_only(system, c_idx, log_n, q, mats, selectors, pubs, alpha)
     coeffs = pcs.engine.icoset_from_bitrev(qmat, log_m, hf.generator)  # (D, m)
     # chunk i·D + d = coordinate d of coefficients [i·n, (i+1)·n)
+    return coeffs.reshape(D, q, n).permute(1, 0, 2).reshape(q * D, n).contiguous()
+
+
+def _quotient_chunk_sharded(system, c_idx, log_n, q, prefixes, selectors, pubs, alpha, pm) -> torch.Tensor:
+    """The quotient under a mesh (JAX prover.py:394-545): K11 in its natural
+    mode on this rank's block of m/D quotient rows plus the q rows after it
+    (the next-row window's halo, read from the gathered prefixes; the last
+    q outputs, which would wrap, are dropped), the block-to-cyclic
+    all_to_all, the inverse sharded DIF, one all_gather of the (D, m)
+    bit-reversed result, then un-reversal, 1/m, the shift and the chunking
+    replicated.  prefixes: source id -> the stored quotient-domain prefix
+    (w, m), whole."""
+    parallel.SHARDED_CALLS["quotient_chunk_sharded"] += 1
+    config = system.config
+    hf, F, eng = config.host_field, config.field, config.pcs.engine
+    D = config.extension_params.degree
+    n = 1 << log_n
+    log_m = log_n + (q.bit_length() - 1)
+    m, b = n * q, (n * q) // pm.n
+    # natural quotient row j sits at storage position bitrev(j) of the prefix
+    natural = (pm.rank * b + torch.arange(b + q, device=eng.device)) % m
+    take = eng.brev(log_m).index_select(0, natural)
+    prog = system.cached_program(("quotient", c_idx, log_n), lambda: _quotient_program(system, c_idx, log_n))
+    ops = Operands(
+        sources=[None if prefixes.get(s) is None else prefixes[s].index_select(1, take) for s in range(3)],
+        rows=b + q, step=q, selectors=[selectors[name].index_select(0, take) for name in SELECTORS],
+        pubs=pubs.reshape(-1),
+        apows=ext_powers_device(config.ext, alpha, system.circuits[c_idx].constraint_count).contiguous(),
+    )
+    qblk = expr_sweep(F, prog, ops, (D, b + q), b + q, 1)[:, :b]
+    cb = parallel.sharded_dif(eng, pm, parallel.cyclic_from_blocks(pm, qblk, "quotient"), log_m, inverse=True)
+    full = parallel.gather_blocks(pm, cb, "quotient")  # (D, m) bit-reversed
+    tab = eng.scale_table(log_m, hf.inv(hf.generator), hf.inv(m % hf.p))
+    coeffs = F.mul(eng._unbrev(full, log_m), tab)
     return coeffs.reshape(D, q, n).permute(1, 0, 2).reshape(q * D, n).contiguous()
 
 
