@@ -12,10 +12,14 @@ without printing a result:
                 nvcc per source, all at once, then one link; sm_90a)
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
-                (K11 on U32Add's three recorded programs at 2^18 rows, K12
-                and K13 on a (14, 2^20) stored LDE at two points, K14 on the
-                stage-1 commit's tile with ByteTable injected at its top, the
-                stage-2 width and the iDFT tail, K15 on a FRI round's
+                (K2 one stage per launch and as multi-stage passes at every
+                pass size, with the whole DIF and DIT through NttEngine; K11
+                on U32Add's three recorded programs at 2^18 rows, K12 and
+                K13 on a (14, 2^20) stored LDE at two points, K14 at the
+                tiles the commits pick: the stage-1 commit's tile, with and
+                without an injection inside its levels, the stage-2 width,
+                an iDFT's tail and its DIT head, the quotient iDFT's DIT
+                head; K15 above the stage-1 tile and on a FRI round's
                 2^19-leaf tree); outputs must be bit-equal (all arithmetic
                 is exact mod p, all hashing exact); warm CUDA-event times of
                 both
@@ -160,7 +164,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import device_transcript as dt, lookup as lk, pcs, utils
+    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, lookup as lk, pcs, utils
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
     from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
@@ -173,12 +177,15 @@ def check_kernels(dev):
 
     rows = {}
 
-    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None):
-        """cost: (bytes the function must move, 32-bit integer operations)."""
+    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None, time_fn=None):
+        """cost: (bytes the function must move, 32-bit integer operations).
+        time_fn, where given, is what the kernel's time is taken on: the
+        kernel alone, in place on a scratch copy, without the copy and
+        concatenation that kernel_fn adds for the comparison."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
-        ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
+        ms, plain_ms = cuda_ms(time_fn or kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
         bound_ms, bound_by = bound(*cost)
         say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4g} ({bound_by})")
@@ -216,24 +223,38 @@ def check_kernels(dev):
                     raise AssertionError(f"{arith}: an ext scalar of shape {shape} broadcasts wrongly")
         say("kernels", f"{arith}: ext scalars of shape ({D},) and ({D}, 1) broadcast against ({D}, 2^20)")
 
-        # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages
+        # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages one
+        # launch each (the r = 1 pass, as the sharded DIF's coarse stages run)
         lde = rnd(F, lde_w, 1 << lde_log)
-        tables = [nt.NttEngine(F, F.host, dev).stage_table(s, False) for s in range(1, lde_log + 1)]
+        eng = nt.NttEngine(F, F.host, dev)
+        tables = [eng.stage_table(s, False) for s in range(1, lde_log + 1)]
 
-        def dif(stage):
+        def dif(stage, x=None):
             def run():
-                x = lde.clone()
+                y = lde.clone() if x is None else x
                 for tw in reversed(tables):
-                    stage(F, x, tw, True)
-                return x
+                    stage(F, y, tw, True)
+                return y
             return run
 
         n_lde, n18 = lde_w << lde_log, lde_w << 18
-        compare(f"ntt_stage {F.name} DIF (14, 2^20)", dif(nt.ntt_stage_), dif(nt._stage_plain_),
-                (16 * n_lde + 8 * (1 << lde_log), mul_ops * lde_log * n_lde // 2),
-                name="ntt_stage" if F is GL_OPS else None)
-        compare(f"ntt_stage {F.name} DIT (14, 2^18)",
+        dif_cost = (16 * n_lde + 8 * (1 << lde_log), mul_ops * lde_log * n_lde // 2)
+        scratch = lde.clone()  # the in-place kernels' timing runs: the work does not depend on the values
+        compare(f"ntt_stage {F.name} DIF (14, 2^20), one launch per stage", dif(nt.ntt_stage_), dif(nt._stage_plain_),
+                dif_cost, time_fn=dif(nt.ntt_stage_, scratch))
+        compare(f"ntt_stage {F.name} DIT (14, 2^18), one launch per stage",
                 lambda: _dit(F, nt.ntt_stage_, lde[:, : 1 << 18].contiguous(), tables[:18]),
+                lambda: _dit(F, nt._stage_plain_, lde[:, : 1 << 18].contiguous(), tables[:18]),
+                (16 * n18 + 8 * (1 << 18), mul_ops * 18 * n18 // 2))
+        check_passes(F, D, eng, lde, compare, mul_ops, first=F is GL_OPS)
+        compare(f"ntt_stage + lde_tile {F.name} whole DIF (14, 2^20) through NttEngine._dif: K2 passes "
+                f"{nt.pass_plan(lde_log, ct.tile_log_for(lde_w, lde_log, False), nt.PASS_STAGES)}, K14 tail",
+                lambda: eng._dif(lde, lde_log, False), dif(nt._stage_plain_), dif_cost,
+                time_fn=lambda: eng._dif_(scratch, lde_log, False))
+        k_dit = ct.tile_log_for(lde_w, 18, False)
+        compare(f"lde_tile + ntt_stage {F.name} whole DIT (14, 2^18) through NttEngine._dit: K14 head 2^{k_dit}, "
+                f"K2 passes {nt.pass_plan(18, k_dit, nt.PASS_STAGES)[::-1]}",
+                lambda: eng._dit(lde[:, : 1 << 18], 18, False),
                 lambda: _dit(F, nt._stage_plain_, lde[:, : 1 << 18].contiguous(), tables[:18]),
                 (16 * n18 + 8 * (1 << 18), mul_ops * 18 * n18 // 2))
 
@@ -364,17 +385,64 @@ def check_kernels(dev):
     return rows
 
 
+def check_passes(F, D, eng, lde, compare, mul_ops, first: bool) -> None:
+    """K2's multi-stage pass against its plain version at every r it takes
+    (1..PASS_MAX), at the top of the stage-1 LDE's (14, 2^20) DIF and just
+    above the quotient iDFT's DIT head, and over the passes the stage-1
+    commit runs above its K14 tile.  Each compared call clones its input;
+    the times are taken on the kernel alone, in place on a scratch copy."""
+    from multistark_tpu_torch import commit_tile as ct
+    from multistark_tpu_torch.ntt import ntt as nt
+
+    w, log_n = lde.shape[0], lde.shape[1].bit_length() - 1
+
+    def passes(fn, x, plan, dif, inverse=False, in_place=False):
+        def run():
+            y = x if in_place else x.clone()
+            tab = eng.tail_table(log_n, inverse)
+            for s_lo, r in plan:
+                fn(F, y, tab[(1 << (s_lo - 1)) - 1:], s_lo, r, dif)
+            return y
+        return run
+
+    def cost(x, stages):  # x read and written once, at most a twiddle per position
+        return 16 * x.numel() + 8 * x.shape[1], mul_ops * stages * x.numel() // 2
+
+    scratch = lde.clone()
+    for r in range(1, nt.PASS_MAX + 1):
+        plan = [(log_n - r + 1, r)]
+        compare(f"ntt_stage {F.name} pass r={r} DIF (14, 2^20) stages {log_n}..{log_n - r + 1}",
+                passes(nt.ntt_pass_, lde, plan, True), passes(nt._pass_plain_, lde, plan, True), cost(lde, r),
+                time_fn=passes(nt.ntt_pass_, scratch, plan, True, in_place=True))
+    q = lde[:D, : 1 << 18].contiguous()  # the quotient iDFT's shape at 2^18 rows (quotient degree 1): (D, 2^18)
+    q_scratch = q.clone()
+    k = ct.tile_log_for(D, 18, False)
+    for r in range(1, min(nt.PASS_MAX, 18 - k) + 1):
+        plan = [(k + 1, r)]
+        compare(f"ntt_stage {F.name} pass r={r} DIT ({D}, 2^18) stages {k + 1}..{k + r}",
+                passes(nt.ntt_pass_, q, plan, False, True), passes(nt._pass_plain_, q, plan, False, True),
+                cost(q, r), time_fn=passes(nt.ntt_pass_, q_scratch, plan, False, True, in_place=True))
+    tile = ct.tile_log_for(w, log_n, True)
+    plan = nt.pass_plan(log_n, tile, nt.PASS_STAGES)
+    compare(f"ntt_stage {F.name} the stage-1 commit's passes {plan} above its tile 2^{tile} (14, 2^20)",
+            passes(nt.ntt_pass_, lde, plan, True), passes(nt._pass_plain_, lde, plan, True), cost(lde, log_n - tile),
+            name="ntt_stage" if first else None, time_fn=passes(nt.ntt_pass_, scratch, plan, True, in_place=True))
+
+
 def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: bool) -> None:
-    """K14 and K15 against their plain versions at the bench's shapes: the
-    stage-1 commit at 2^18 rows (U32Add (14, 2^20) after the K2 stages above
-    its tile, ten levels folded in the tile, ByteTable's (1, 1024) leaves
-    injected exactly at its top), the stage-2 commit's width, the iDFT tail
-    (no hashing) and a FRI round's tree (K15 over 2^19 leaves, two
-    launches).  K14 works in place: each call clones its input, and the
-    times include that copy."""
+    """K14 and K15 against their plain versions at the bench's shapes, with
+    the tiles and in-tile levels the commits pick (commit_tile.tile_log_for,
+    pcs.commit_plan): the stage-1 commit at 2^18 rows (U32Add (14, 2^20)
+    after the K2 passes above its tile), the same with a shorter group
+    injected inside the tile's levels, the stage-2 commit's width, an iDFT's
+    tail (no hashing) and its head in DIT mode, the quotient iDFT's DIT
+    head; then K15 above the stage-1 tile (ByteTable's (1, 1024) leaves
+    injected) and a FRI round's tree (2^19 leaves, two launches).  K14 works
+    in place: each compared call clones its input; the times are taken on
+    the kernels alone (K14 in place on a scratch copy)."""
     import torch
 
-    from multistark_tpu_torch import commit_tile as ct, system as sm
+    from multistark_tpu_torch import commit_tile as ct, pcs, system as sm
     from multistark_tpu_torch.ntt import ntt as nt
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs
 
@@ -382,14 +450,15 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
     system, _ = sm.System.new(bench_config(dev, "goldilocks_blake3" if first else "babybear_poseidon2"),
                               u32_add_system_inputs())
     s2_cols = system.circuits[0].stage2_width
+    D = system.config.ext.D
     leaf_hashes = (lambda c: -(-(8 * c) // 64)) if first else (lambda c: -(-c // 8))
 
-    def tile_case(label, cols, log_n, hashed, fold=True, inject_rows=None, inverse=False, name=None):
+    def tile_case(label, cols, log_n, hashed, fold=True, inject_rows=None, inverse=False, dif=True, name=None):
         """K14 on a random (cols, 2^log_n) batch with the tile the commits
-        pick, folding the tile's levels if `fold` (the tallest group of a
-        commit); returns its digest layers."""
+        pick, folding the tile's levels the commit plan folds if `fold` (the
+        tallest group of a commit); returns its digest layers."""
         k = ct.tile_log_for(cols, log_n, hashed)
-        levels = k if hashed and fold else 0
+        levels = pcs.commit_plan([cols], [log_n], 0, 0)[0].levels if hashed and fold else 0
         x, tw = rnd(F, cols, 1 << log_n), eng.tail_table(k, inverse)
         inject = {} if inject_rows is None else {log_n - inject_rows.shape[0].bit_length() + 1: inject_rows}
         n = 1 << log_n
@@ -397,7 +466,7 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
         def run(fn):
             def go():
                 y = x.clone()
-                layers = fn(F, hasher, y, k, tw, levels, inject, hashed)
+                layers = fn(F, hasher, y, k, tw, levels, inject, hashed, dif)
                 return torch.cat([y.reshape(-1)] + [t.reshape(-1).to(torch.int64) for t in layers])
             return go
 
@@ -406,22 +475,37 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
         # x read and written once; leaves and levels written, injected digests read
         n_bytes = 16 * cols * n + (32 * (n + n - (n >> levels) + injected) if hashed else 0)
         ops = mul_ops * k * cols * n // 2 + (per_hash * (n * leaf_hashes(cols) + nodes) if hashed else 0)
-        compare(f"lde_tile {F.name} {label} ({cols}, 2^{log_n}), tile 2^{k}, {levels} levels", run(ct.lde_tile),
-                run(ct.lde_tile_plain), (n_bytes, ops), iters=3, name=name)
-        return ct.lde_tile(F, hasher, x.clone(), k, tw, levels, inject, hashed)
+        mode = "hashed" if hashed else "DIF" if dif else "DIT"
+        scratch = x.clone()
+        compare(f"lde_tile {F.name} {label} ({cols}, 2^{log_n}), {mode}, tile 2^{k}, {levels} levels",
+                run(ct.lde_tile), run(ct.lde_tile_plain), (n_bytes, ops), iters=3, name=name,
+                time_fn=lambda: ct.lde_tile(F, hasher, scratch, k, tw, levels, inject, hashed, dif))
+        return ct.lde_tile(F, hasher, x.clone(), k, tw, levels, inject, hashed, dif)
 
     byte_table = tile_case("ByteTable LDE", 1, 10, True, fold=False)[0]
-    tile_case("U32Add LDE, ByteTable injected at the tile's top", 14, 20, True, inject_rows=byte_table,
-              name="lde_tile" if first else None)
+    stage1 = tile_case("U32Add LDE", 14, 20, True, name="lde_tile" if first else None)
+    short = tile_case("a (2, 2^18) group's LDE", 2, 18, True, fold=False)[0]
+    tile_case("U32Add LDE, the (2, 2^18) group injected inside the tile's levels", 14, 20, True, inject_rows=short)
     tile_case("stage-2 LDE", s2_cols, 20, True)
-    tile_case("iDFT tail, no hashing", 14, 18, False, inverse=True)
+    tile_case("iDFT tail", 14, 18, False, inverse=True)
+    tile_case("iDFT head", 14, 18, False, inverse=True, dif=False)
+    tile_case("quotient iDFT head", D, 18, False, inverse=True, dif=False)
 
+    top, L = stage1[-1], 20 - (len(stage1) - 1)  # K15 above the stage-1 tile, up to the cap
+    inject = {10 - (len(stage1) - 1): byte_table}
+    S = top.shape[0]
+    compare(f"merkle_levels {F.name} stage-1 tree above the tile, 2^{L} nodes, {L} levels, ByteTable injected",
+            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels(hasher, top, L, inject)]),
+            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels_plain(hasher, top, L, inject)]),
+            (32 * S + 32 * (S - 1) + 32 * 1024, per_hash * (S - 1 + 1024)),
+            time_fn=lambda: ct.merkle_levels(hasher, top, L, inject))
     leaves = hasher.hash_matrices([rnd(F, 2 * (2 if first else 4), 1 << 19)])  # an arity-2 fold of (D, 2^20)
     S, L = leaves.shape[0], 19
     compare(f"merkle_levels {F.name} FRI round tree, 2^19 leaves, {L} levels",
             lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels(hasher, leaves, L)]),
             lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels_plain(hasher, leaves, L)]),
-            (32 * S + 32 * (S - 1), per_hash * (S - 1)), name="merkle_levels" if first else None)
+            (32 * S + 32 * (S - 1), per_hash * (S - 1)), name="merkle_levels" if first else None,
+            time_fn=lambda: ct.merkle_levels(hasher, leaves, L))
 
 
 def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:

@@ -1,15 +1,17 @@
 """The stage and quotient commit's kernels: K14 (lde_tile) and K15
 (merkle_levels), both in csrc/commit_tile.cu.
 
-`lde_tile` runs the last `tile_log` stages of a DIF over a contiguous
-(cols, n) batch in place, in tiles of 2^tile_log storage positions of every
-column; with hashing on it also hashes each stored row (the Merkle leaf of
-the batch's columns, in order) and folds the tile's digests `levels` levels
-up the tree, injecting shorter rows' leaf digests where asked.
-`merkle_levels` folds a digest layer up `levels` levels with the same
-injections, at most 2^10 nodes and 10 levels per block.  `tile_log_for`
-picks the tile from the shapes: the largest that fits a block's opt-in
-shared memory on an H100.
+`lde_tile` runs the last `tile_log` stages of a DIF (or the first
+`tile_log` stages of a DIT) over a contiguous (cols, n) batch in place, in
+tiles of 2^tile_log storage positions of every column; with hashing on (DIF
+only) it also hashes each stored row (the Merkle leaf of the batch's
+columns, in order) and folds the tile's digests `levels` levels up the
+tree, injecting shorter rows' leaf digests where asked.  `merkle_levels`
+folds a digest layer up `levels` levels with the same injections, at most
+2^10 nodes and 10 levels per block.  `tile_log_for` picks the tile from the
+shapes: the largest that lets BLOCKS_PER_SM blocks share an H100 SM (a
+hashed tile at most a row per thread), and at least a warp of rows where
+one block's opt-in shared memory allows it.
 
 A CUDA tensor launches the kernel (a build or launch error raises); a CPU
 tensor takes the plain PyTorch version beside it: the tile's stages on a
@@ -29,33 +31,52 @@ import torch
 from . import kernels
 
 SMEM_BYTES = 232448  # an H100's opt-in shared memory per block (227 KB)
+SM_SMEM_BYTES = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it reserved per resident block
+BLOCKS_PER_SM = 3  # K14 blocks a tile should leave room for on one SM
+TILE_BUDGET = SM_SMEM_BYTES // BLOCKS_PER_SM - 1024
+WARP_LOG = 5  # a warp: 2^5 rows hash, or nodes fold, in parallel
+HASHED_ROWS_LOG = 8  # TILE_THREADS in csrc/commit_tile.cu: a hashed tile has at most a row per thread
 CONST_BYTES = 4 * 157  # Poseidon2's round constants, staged beside a hashed tile
 MAX_TILE_LOG = 16  # MAX_TILE_LOG in csrc/commit_tile.cu
 FOLD_LOG = 10  # MAX_FOLD_LOG in csrc/commit_tile.cu: levels per K15 launch
+
+MODE_DIF, MODE_HASHED, MODE_DIT = 0, 1, 2  # K14's modes in csrc/commit_tile.cu
 
 Injections = Dict[int, torch.Tensor]
 
 
 def tile_log_for(cols: int, log_n: int, hashed: bool) -> int:
-    """The largest k <= log_n whose tile (2^k positions of `cols` u64
+    """K14's tile for a (cols, 2^log_n) batch: the largest k <= log_n (and,
+    when hashed, <= HASHED_ROWS_LOG) whose tile (2^k positions of `cols` u64
     columns, plus 32-byte digests and the round constants when hashed) fits
-    SMEM_BYTES.  Raises if not even one row fits."""
-    row = 8 * cols + (32 if hashed else 0)
-    room = SMEM_BYTES - (CONST_BYTES if hashed else 0)
-    if row > room:
+    TILE_BUDGET, so that BLOCKS_PER_SM blocks share an SM; raised towards
+    2^WARP_LOG rows while it fits SMEM_BYTES, so that wide rows still hash a
+    warp at a time.  Raises if not even one row fits."""
+    if tile_bytes(cols, 0, hashed) > SMEM_BYTES:
         raise ValueError(f"a row of {cols} columns does not fit a tile's shared memory")
+    top = min(log_n, MAX_TILE_LOG, HASHED_ROWS_LOG if hashed else MAX_TILE_LOG)
     k = 0
-    while k < min(log_n, MAX_TILE_LOG) and (row << (k + 1)) <= room:
+    while k < top and tile_bytes(cols, k + 1, hashed) <= TILE_BUDGET:
+        k += 1
+    while k < min(top, WARP_LOG) and tile_bytes(cols, k + 1, hashed) <= SMEM_BYTES:
         k += 1
     return k
 
 
-def _tail_stages_plain_(F, x: torch.Tensor, tile_log: int, tw: torch.Tensor) -> None:
+def tile_bytes(cols: int, k: int, hashed: bool) -> int:
+    """K14's shared memory for a tile of 2^k rows of `cols` u64 columns (its
+    elements in whole runs of 16), plus 32-byte digests and the round
+    constants when hashed: the launch's size in csrc/commit_tile.cu."""
+    slots = -(-(cols << k) // 16) * 16
+    return 8 * slots + ((32 << k) + CONST_BYTES if hashed else 0)
+
+
+def _tail_stages_plain_(F, x: torch.Tensor, tile_log: int, tw: torch.Tensor, dif: bool = True) -> None:
     from .ntt.ntt import _stage_plain_
 
     view = x.view(-1, 1 << tile_log)  # (cols · n / 2^k, 2^k): the tiles of every column
-    for s in range(tile_log, 0, -1):
-        _stage_plain_(F, view, tw[(1 << (s - 1)) - 1 : (1 << s) - 1], dif=True)
+    for s in range(tile_log, 0, -1) if dif else range(1, tile_log + 1):
+        _stage_plain_(F, view, tw[(1 << (s - 1)) - 1 : (1 << s) - 1], dif)
 
 
 def merkle_levels_plain(hasher, layer: torch.Tensor, levels: int,
@@ -70,8 +91,8 @@ def merkle_levels_plain(hasher, layer: torch.Tensor, levels: int,
 
 
 def lde_tile_plain(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels: int = 0,
-                   inject: Optional[Injections] = None, hashed: bool = True) -> List[torch.Tensor]:
-    _tail_stages_plain_(F, x, tile_log, tw)
+                   inject: Optional[Injections] = None, hashed: bool = True, dif: bool = True) -> List[torch.Tensor]:
+    _tail_stages_plain_(F, x, tile_log, tw, dif)
     if not hashed:
         return []
     leaves = hasher.hash_plain([x])
@@ -109,10 +130,11 @@ def _check_inject(inject: Injections, size: int, levels: int) -> None:
 
 
 def lde_tile(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels: int = 0,
-             inject: Optional[Injections] = None, hashed: bool = True) -> List[torch.Tensor]:
+             inject: Optional[Injections] = None, hashed: bool = True, dif: bool = True) -> List[torch.Tensor]:
     """K14 on x, a contiguous (cols, n) int64 batch, IN PLACE: DIF stages
-    tile_log..1 with `tw` the stages' twiddles concatenated (stage s at
-    2^(s-1) - 1, `NttEngine.tail_table`).  When hashed, returns the digest
+    tile_log..1 (or, with dif=False, DIT stages 1..tile_log) with `tw` the
+    stages' twiddles concatenated (stage s at 2^(s-1) - 1,
+    `NttEngine.tail_table`).  When hashed (DIF only), returns the digest
     layers [leaves (n, 8), level 1, ..., level `levels`] with `inject`'s
     digests injected at their levels (levels <= tile_log); else []."""
     inject = inject or {}
@@ -125,11 +147,13 @@ def lde_tile(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels
     if tw.shape[0] < (1 << tile_log) - 1:
         raise ValueError("twiddle table shorter than the tile's stages")
     if hashed:
+        if not dif:
+            raise ValueError("lde_tile hashes the rows of a DIF only")
         if not 0 <= levels <= tile_log:
             raise ValueError(f"{levels} levels do not fit a tile of 2^{tile_log}")
         _check_inject(inject, n, levels)
     if not kernels.use_kernel(x):
-        return lde_tile_plain(F, hasher, x, tile_log, tw, levels, inject, hashed)
+        return lde_tile_plain(F, hasher, x, tile_log, tw, levels, inject, hashed, dif)
     kernels.check_cuda(x, tw, *inject.values())
     if hashed:
         _check_digests(*inject.values())
@@ -139,7 +163,8 @@ def lde_tile(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels
     else:
         outs, out_p, inj_p, hasher_id, consts = [], None, None, F.field_id, None
     kernels.LDE_TILE.launch(
-        "lde_tile", F.field_id, hasher_id, kernels.ptr(x), cols, log_n, tile_log, kernels.ptr(tw), int(hashed),
+        "lde_tile", F.field_id, hasher_id, kernels.ptr(x), cols, log_n, tile_log, kernels.ptr(tw),
+        MODE_HASHED if hashed else MODE_DIF if dif else MODE_DIT,
         out_p, inj_p, levels, None if consts is None else kernels.ptr(consts),
     )
     return outs

@@ -60,7 +60,7 @@ struct RowWords {
   }
 };
 
-__global__ void hash_rows_kernel(MatList mats, int64_t n, int64_t total_words, uint32_t* __restrict__ out) {
+__global__ void b3_hash_rows_kernel(MatList mats, int64_t n, int64_t total_words, uint32_t* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < n; row += stride) {
     RowWords words{&mats, n, row, 0, 0, 0, 0};
@@ -94,6 +94,6 @@ extern "C" int b3_hash_rows(const uint64_t* const* ptrs, const int64_t* widths, 
   if (total_words <= 0 || (total_words + CHUNK_WORDS - 1) / CHUNK_WORDS > ((int64_t)1 << (MAX_STACK - 1)))
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  hash_rows_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(mats, n, total_words, out);
+  b3_hash_rows_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(mats, n, total_words, out);
   return (int)cudaGetLastError();
 }

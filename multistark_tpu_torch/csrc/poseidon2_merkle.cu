@@ -36,7 +36,7 @@ struct MatList {
   int count;
 };
 
-__global__ void hash_rows_kernel(MatList mats, int64_t n, const int64_t* __restrict__ consts,
+__global__ void p2_hash_rows_kernel(MatList mats, int64_t n, const int64_t* __restrict__ consts,
                                  uint32_t* __restrict__ out) {
   __shared__ uint32_t sc[N_CONST];
   stage_constants(sc, consts);
@@ -82,6 +82,6 @@ extern "C" int p2_hash_rows(const uint64_t* const* ptrs, const int64_t* widths, 
   }
   mats.count = count;
   const int threads = 128;
-  hash_rows_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(mats, n, consts, out);
+  p2_hash_rows_kernel<<<(unsigned)grid_for(n, threads), threads, 0, stream>>>(mats, n, consts, out);
   return (int)cudaGetLastError();
 }

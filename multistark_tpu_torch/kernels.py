@@ -10,7 +10,9 @@ half-written library.  Nothing here runs at import: the CPU
 tests import every module on a machine without nvcc.
 
 Each kernel is a `CudaKernel` whose `launches` counter rises by one each
-time one of its C entry points is launched, and only there.
+time one of its C entry points is launched, and only there; its
+`functions` name the CUDA functions it runs, as a profiler reports them
+(spans.py groups device time by them).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import glob
 import os
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,7 +40,7 @@ _vp, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_
 _SIGNATURES = {
     "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
     "bb_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
-    "ntt_stage": [_i32, _vp, _i64, _i32, _i32, _vp, _i32, _vp],
+    "ntt_pass": [_i32, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
     "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
     "gls_scan_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
@@ -151,13 +153,15 @@ def current_stream() -> int:
 
 
 class CudaKernel:
-    """One hand-written kernel: its source, the TPU program it replaces, and
-    a count of its launches."""
+    """One hand-written kernel: its source, the TPU program it replaces, the
+    CUDA functions it runs (name fragments of the profiler's kernel names),
+    and a count of its launches."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str, functions: Tuple[str, ...]):
         self.name = name
         self.source = source
         self.replaces = replaces
+        self.functions = functions
         self.launches = 0
 
     def launch(self, entry: str, *args) -> None:
@@ -172,62 +176,77 @@ class CudaKernel:
 GL_ARITH = CudaKernel(
     "gl_arith", "multistark_tpu_torch/csrc/gl_arith.cu",
     "multistark_tpu/fields/device.py:129",
+    ("arith_kernel<Goldilocks>",),
 )
 NTT_STAGE = CudaKernel(
     "ntt_stage", "multistark_tpu_torch/csrc/ntt_stage.cu",
     "multistark_tpu/ntt/ntt.py:405",
+    ("ntt_pass_kernel",),
 )
 BLAKE3_MERKLE = CudaKernel(
     "blake3_merkle", "multistark_tpu_torch/csrc/blake3_merkle.cu",
     "multistark_tpu/hash/blake3.py:222",
+    ("b3_hash_rows_kernel",),
 )
 GL_SCAN = CudaKernel(
     "gl_scan", "multistark_tpu_torch/csrc/gl_scan.cu",
     "multistark_tpu/utils.py:219",
+    ("scan_tile_kernel", "scan_addback_kernel", "sum_tile_kernel", "binv_finish_kernel", "row_inv_kernel"),
 )
 BB_ARITH = CudaKernel(
     "bb_arith", "multistark_tpu_torch/csrc/bb_arith.cu",
     "multistark_tpu/fields/device.py:208",
+    ("arith_kernel<BabyBear>",),
 )
 POSEIDON2_MERKLE = CudaKernel(
     "poseidon2_merkle", "multistark_tpu_torch/csrc/poseidon2_merkle.cu",
     "multistark_tpu/hash/poseidon2.py:295",
+    ("p2_hash_rows_kernel",),
 )
 DT_FLUSH = CudaKernel(
     "dt_flush", "multistark_tpu_torch/csrc/dt_blake3.cu",
     "multistark_tpu/device_transcript.py:358",
+    ("flush_chunks_kernel", "flush_root_kernel"),
 )
 FRI_GRIND = CudaKernel(
     "fri_grind", "multistark_tpu_torch/csrc/dt_blake3.cu",
     "multistark_tpu/device_transcript.py:74",
+    ("grind_search_kernel", "grind_finish_kernel"),
 )
 CLAIMS_FP = CudaKernel(
     "claims_fp", "multistark_tpu_torch/csrc/claims_fp.cu",
     "multistark_tpu/lookup.py:507",
+    ("claims_fp_kernel",),
 )
 FRI_FOLD = CudaKernel(
     "fri_fold", "multistark_tpu_torch/csrc/fri_fold.cu",
     "multistark_tpu/pcs.py:1393",
+    ("fri_fold_kernel",),
 )
 EXPR_SWEEP = CudaKernel(
     "expr_sweep", "multistark_tpu_torch/csrc/expr_sweep.cu",
     "multistark_tpu/prover.py:640",
+    ("expr_sweep_kernel",),
 )
 BARY_EVAL = CudaKernel(
     "bary_eval", "multistark_tpu_torch/csrc/open_reduce.cu",
     "multistark_tpu/pcs.py:1256",
+    ("bary_partial_kernel", "bary_finish_kernel"),
 )
 REDUCED_OPEN = CudaKernel(
     "reduced_open", "multistark_tpu_torch/csrc/open_reduce.cu",
     "multistark_tpu/pcs.py:1284",
+    ("reduced_open_kernel",),
 )
 LDE_TILE = CudaKernel(
     "lde_tile", "multistark_tpu_torch/csrc/commit_tile.cu",
     "multistark_tpu/pcs.py:189",
+    ("lde_tile_kernel",),
 )
 MERKLE_LEVELS = CudaKernel(
     "merkle_levels", "multistark_tpu_torch/csrc/commit_tile.cu",
     "multistark_tpu/merkle.py:275",
+    ("merkle_levels_kernel",),
 )
 KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE, DT_FLUSH, FRI_GRIND, CLAIMS_FP,
            FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN, LDE_TILE, MERKLE_LEVELS)

@@ -11,21 +11,23 @@ multistark_tpu/ntt/ntt.py):
   - DIF maps natural input to bit-reversed output; DIT on bit-reversed
     input gives natural output
 
-A DIF runs one `ntt_stage_` launch per butterfly stage above its tile on a
-copy of its input, then K14 (commit_tile.lde_tile, hashing off) for the
-last `tile_log` stages in shared memory; a DIT runs one launch per stage.
-The PCS's commits run the forward DIF's tail and the Merkle leaves in one
-K14 launch of their own (pcs.py).  The coset scale and n^-1 go through the
-field's elementwise kernel (K1 or K5: one mul by a host-built table); bit
-reversal and zero padding are plain tensor indexing.  Twiddles, shifts and
-the generator come from the host field (two-adicity 32 for Goldilocks, 27
-for BabyBear).
+A DIF runs its stages above the tile in K2 passes (`ntt_pass_`: up to
+PASS_STAGES consecutive stages per launch, `pass_plan` splits them evenly) on
+a copy of its input, then K14 (commit_tile.lde_tile, hashing off) for the
+last `tile_log` stages in shared memory; a DIT runs K14's DIT mode for its
+first `tile_log` stages, then K2 passes above them.  The PCS's commits run
+the forward DIF's tail and the Merkle leaves in one K14 launch of their own
+(pcs.py).  The coset scale and n^-1 go through the field's elementwise
+kernel (K1 or K5: one mul by a host-built table); bit reversal and zero
+padding are plain tensor indexing.  Twiddles, shifts and the generator come
+from the host field (two-adicity 32 for Goldilocks, 27 for BabyBear).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import commit_tile, kernels
@@ -33,6 +35,9 @@ from ..fields.device import FieldOps
 from ..fields.host import HostField
 from ..fields.npref import np_mul, np_powers
 from ..utils import bit_reverse_indices
+
+PASS_MAX = 6  # MAX_PASS in csrc/ntt_stage.cu: the most stages one K2 launch runs
+PASS_STAGES = 5  # the engines' passes: at six, a Goldilocks thread's 64 elements spill registers
 
 
 def _stage_plain_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
@@ -49,25 +54,55 @@ def _stage_plain_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> 
     xr[:, :, 1, :] = hi
 
 
-def ntt_stage_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
-    """One butterfly stage over a contiguous (rows, n) tensor of F's
-    elements, IN PLACE (each butterfly reads and writes only its own pair,
-    so no second buffer is needed).  `tw` holds the stage's 2^k twiddles
-    [w^0 .. w^(half-1)]."""
+def _pass_plain_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, s_lo: int, r: int, dif: bool) -> None:
+    base = 1 << (s_lo - 1)
+    for s in (range(s_lo + r - 1, s_lo - 1, -1) if dif else range(s_lo, s_lo + r)):
+        half = 1 << (s - 1)
+        _stage_plain_(F, x, tw[half - base : 2 * half - base], dif)
+
+
+def ntt_pass_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, s_lo: int, r: int, dif: bool) -> None:
+    """Butterfly stages s_lo .. s_lo + r - 1 (DIF top down, DIT bottom up)
+    over a contiguous (rows, n) tensor of F's elements, IN PLACE, in one K2
+    launch.  `tw` holds the stages' tables concatenated from stage s_lo's
+    (stage s at 2^(s-1) - 2^(s_lo-1), as in `NttEngine.tail_table`)."""
     if x.dim() != 2 or not x.is_contiguous() or x.dtype != torch.int64:
-        raise ValueError("ntt_stage_ takes a contiguous (rows, n) int64 tensor")
+        raise ValueError("ntt_pass_ takes a contiguous (rows, n) int64 tensor")
     rows, n = x.shape
-    half = tw.shape[0]
-    if n & (n - 1) or half & (half - 1) or 2 * half > n:
-        raise ValueError(f"bad stage geometry n={n} half={half}")
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n or not 1 <= r <= PASS_MAX or s_lo < 1 or s_lo + r - 1 > log_n:
+        raise ValueError(f"bad pass geometry n={n} s_lo={s_lo} r={r}")
+    if tw.dim() != 1 or tw.shape[0] < (1 << (s_lo + r - 1)) - (1 << (s_lo - 1)):
+        raise ValueError("twiddle table shorter than the pass's stages")
     if not kernels.use_kernel(x):
-        _stage_plain_(F, x, tw, dif)
+        _pass_plain_(F, x, tw, s_lo, r, dif)
         return
     kernels.check_cuda(x, tw)
-    kernels.NTT_STAGE.launch(
-        "ntt_stage", F.field_id, kernels.ptr(x), rows, n.bit_length() - 1, half.bit_length() - 1,
-        kernels.ptr(tw), int(dif),
-    )
+    kernels.NTT_STAGE.launch("ntt_pass", F.field_id, kernels.ptr(x), rows, log_n, s_lo, r, kernels.ptr(tw), int(dif))
+
+
+def ntt_stage_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:
+    """One butterfly stage (the r = 1 pass) with `tw` any table of 2^(s-1)
+    twiddles for stage s, such as a rank's cyclic slice (parallel.py)."""
+    half = tw.shape[0]
+    if half & (half - 1):
+        raise ValueError(f"bad stage table of {half} twiddles")
+    ntt_pass_(F, x, tw, half.bit_length(), 1, dif)
+
+
+def pass_plan(top: int, bottom: int, pass_max: int) -> List[Tuple[int, int]]:
+    """Stages bottom+1 .. top as K2 passes (s_lo, r), top pass first: the
+    fewest passes of at most pass_max stages, as even as they come."""
+    stages = top - bottom
+    if stages <= 0:
+        return []
+    count = -(-stages // pass_max)
+    plan, s = [], top
+    for i in range(count):
+        r = stages // count + (i < stages % count)
+        plan.append((s - r + 1, r))
+        s -= r
+    return plan
 
 
 class NttEngine:
@@ -78,32 +113,29 @@ class NttEngine:
         self.F = F
         self.device = torch.device(device)
         self.host = host_field
-        self._stages: Dict[Tuple[int, bool], torch.Tensor] = {}
-        self._tails: Dict[Tuple[int, bool], torch.Tensor] = {}
+        self._tails: Dict[bool, torch.Tensor] = {}
         self._brev: Dict[int, torch.Tensor] = {}
         self._scales: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
     # -- caches -----------------------------------------------------------
-    def stage_table(self, s: int, inverse: bool) -> torch.Tensor:
-        """Twiddles of butterfly stage s (blocks of 2^s): [w^0 .. w^(2^(s-1)-1)]
-        with w the canonical generator of order 2^s (inverted for inverse
-        transforms) -- the same table for every transform size."""
-        key = (s, inverse)
-        if key not in self._stages:
-            w = self.host.two_adic_generator(s)
-            if inverse:
-                w = self.host.inv(w)
-            self._stages[key] = self.F.from_np(np_powers(self.host, w, 1 << (s - 1)), self.device)
-        return self._stages[key]
-
     def tail_table(self, k: int, inverse: bool) -> torch.Tensor:
-        """The twiddles of stages 1..k concatenated (stage s at 2^(s-1) - 1),
-        as K14 takes them."""
-        key = (k, inverse)
-        if key not in self._tails:
-            parts = [self.stage_table(s, inverse) for s in range(1, k + 1)]
-            self._tails[key] = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64, device=self.device)
-        return self._tails[key]
+        """The twiddles of stages 1..k concatenated, stage s at 2^(s-1) - 1
+        ([w_s^0 .. w_s^(2^(s-1)-1)], w_s the canonical generator of order
+        2^s, inverted for inverse transforms): a prefix of one table per
+        direction, grown on demand.  K14 and the K2 passes take it."""
+        tab = self._tails.get(inverse)
+        if tab is None or tab.shape[0] < (1 << k) - 1:
+            parts = []
+            for s in range(1, max(k, 1) + 1):
+                w = self.host.two_adic_generator(s)
+                parts.append(np_powers(self.host, self.host.inv(w) if inverse else w, 1 << (s - 1)))
+            tab = self._tails[inverse] = self.F.from_np(np.concatenate(parts), self.device)
+        return tab[: (1 << k) - 1]
+
+    def stage_table(self, s: int, inverse: bool) -> torch.Tensor:
+        """Twiddles of butterfly stage s (blocks of 2^s): the same table for
+        every transform size."""
+        return self.tail_table(s, inverse)[(1 << (s - 1)) - 1 :]
 
     def brev(self, log_n: int) -> torch.Tensor:
         if log_n not in self._brev:
@@ -119,16 +151,23 @@ class NttEngine:
         return self._scales[key]
 
     # -- butterfly passes -------------------------------------------------
+    def passes_(self, x: torch.Tensor, top: int, bottom: int, inverse: bool, dif: bool) -> None:
+        """Stages bottom+1 .. top of contiguous (rows, n) x in place, in K2
+        passes of at most PASS_STAGES stages (DIF top down, DIT bottom up)."""
+        plan = pass_plan(top, bottom, PASS_STAGES)
+        tab = self.tail_table(top, inverse)
+        for s_lo, r in plan if dif else reversed(plan):
+            ntt_pass_(self.F, x, tab[(1 << (s_lo - 1)) - 1 :], s_lo, r, dif)
+
     def dif_above_(self, x: torch.Tensor, log_n: int, tile_log: int, inverse: bool) -> None:
         """DIF stages log_n..tile_log+1 of contiguous (rows, 2^log_n) x in
-        place, one K2 launch each."""
-        for s in range(log_n, tile_log, -1):
-            ntt_stage_(self.F, x, self.stage_table(s, inverse), dif=True)
+        place (K2 passes)."""
+        self.passes_(x, log_n, tile_log, inverse, dif=True)
 
     def _dif_(self, x: torch.Tensor, log_n: int, inverse: bool, tile_log: Optional[int] = None) -> torch.Tensor:
-        """DIF of contiguous (rows, 2^log_n) x in place: K2 above the tile,
-        K14 (no hashing) for the last tile_log stages (default: the largest
-        tile that fits)."""
+        """DIF of contiguous (rows, 2^log_n) x in place: K2 passes above the
+        tile, K14 (no hashing) for the last tile_log stages (default: the
+        tile commit_tile.tile_log_for picks)."""
         k = commit_tile.tile_log_for(x.shape[0], log_n, hashed=False) if tile_log is None else min(tile_log, log_n)
         self.dif_above_(x, log_n, k, inverse)
         commit_tile.lde_tile(self.F, None, x, k, self.tail_table(k, inverse), hashed=False)
@@ -137,10 +176,14 @@ class NttEngine:
     def _dif(self, x: torch.Tensor, log_n: int, inverse: bool, tile_log: Optional[int] = None) -> torch.Tensor:
         return self._dif_(x.reshape(-1, 1 << log_n).clone(), log_n, inverse, tile_log)
 
-    def _dit(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+    def _dit(self, x: torch.Tensor, log_n: int, inverse: bool, tile_log: Optional[int] = None) -> torch.Tensor:
+        """DIT of (rows, 2^log_n) x on a copy: K14's DIT mode for the first
+        tile_log stages (default: commit_tile.tile_log_for's tile), then K2
+        passes above them."""
         x = x.reshape(-1, 1 << log_n).clone()
-        for s in range(1, log_n + 1):
-            ntt_stage_(self.F, x, self.stage_table(s, inverse), dif=False)
+        k = commit_tile.tile_log_for(x.shape[0], log_n, hashed=False) if tile_log is None else min(tile_log, log_n)
+        commit_tile.lde_tile(self.F, None, x, k, self.tail_table(k, inverse), hashed=False, dif=False)
+        self.passes_(x, log_n, k, inverse, dif=False)
         return x
 
     def _unbrev(self, x: torch.Tensor, log_n: int) -> torch.Tensor:

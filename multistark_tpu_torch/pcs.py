@@ -16,13 +16,14 @@ values -> sample α -> per fold round (observe cap, grind commit PoW, sample
 β) -> observe final poly -> grind query PoW -> sample query indices.
 
 A commit follows a plan made on the host from the shapes alone
-(`commit_plan`): per LDE height, each matrix's iDFT runs K2 stages above a
-tile and K14 (commit_tile.lde_tile, no hashing) for the tile's stages; the
-height's matrices are stacked, K2 runs the forward DIF's stages above the
-tile, and one K14 launch runs the tile's stages, hashes the leaves and folds
-the lowest tree levels in shared memory, injecting the shorter heights'
-leaf digests (from their own K14 launches); K15 (commit_tile.merkle_levels)
-folds the levels above, up to the cap.
+(`commit_plan`): per LDE height, each matrix's iDFT runs K2 passes (several
+stages per launch) above a tile and K14 (commit_tile.lde_tile, no hashing)
+for the tile's stages; the height's matrices are stacked, K2 passes run the
+forward DIF's stages above the tile, and one K14 launch runs the tile's
+stages, hashes the leaves and folds the lowest tree levels in shared
+memory, injecting the shorter heights' leaf digests (from their own K14
+launches); K15 (commit_tile.merkle_levels) folds the levels above, up to
+the cap.
 
 The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
@@ -65,7 +66,7 @@ import torch
 from . import device_transcript as dt
 from . import kernels, parallel
 from .challenger import SerializingChallenger64
-from .commit_tile import lde_tile, merkle_levels, tile_log_for
+from .commit_tile import WARP_LOG, lde_tile, merkle_levels, tile_log_for
 from .config import CommitmentParameters, FriParameters
 from .domains import TwoAdicCoset
 from .fields.device import ExtOps, FieldOps
@@ -113,8 +114,8 @@ class CommitGroup:
     cols: int  # their widths summed: the columns of one K14 row
     log_n: int  # the trace height: each member's iDFT (or coefficient count)
     log_lde: int
-    idft_tile: int  # K14's tile (no hashing) of each member's iDFT: K2 runs the log_n - idft_tile stages above
-    tile: int  # K14's tile of the forward DIF, hashed: K2 runs the log_lde - tile stages above
+    idft_tile: int  # K14's tile (no hashing) of each member's iDFT: K2 passes run the log_n - idft_tile stages above
+    tile: int  # K14's tile of the forward DIF, hashed: K2 passes run the log_lde - tile stages above
     levels: int  # tree levels K14 folds inside its tiles (the tallest group; 0 for the others)
     inject_level: int  # the tree level its leaf digests are injected at (0 for the tallest group)
 
@@ -122,10 +123,11 @@ class CommitGroup:
 def commit_plan(widths: Sequence[int], logs: Sequence[int], log_blowup: int, cap_height: int,
                 tile_log: Optional[int] = None) -> List[CommitGroup]:
     """A commit's groups, tallest first, from the matrices' widths and log
-    heights alone.  tile_log forces every K14 tile (capped at its height);
-    by default each is the largest that fits (commit_tile.tile_log_for).
-    The tallest group's K14 folds min(tile, tree depth) levels; K15 the
-    rest, up to the cap."""
+    heights alone.  By default each K14 tile is commit_tile.tile_log_for's
+    and the tallest group's K14 folds the levels that keep a warp busy
+    (tile - WARP_LOG, at most the tree's depth); tile_log forces every tile
+    (capped at its height) and folds the whole tile, so that small heights
+    reach every injection geometry.  K15 folds the rest, up to the cap."""
     by_log: Dict[int, List[int]] = {}
     for i, ln in enumerate(logs):
         by_log.setdefault(ln, []).append(i)
@@ -138,9 +140,11 @@ def commit_plan(widths: Sequence[int], logs: Sequence[int], log_blowup: int, cap
         if tile_log is None:
             idft_tile = tile_log_for(max(widths[i] for i in members), ln, hashed=False)
             tile = tile_log_for(cols, lde, hashed=True)
+            in_tile = max(tile - WARP_LOG, 0)
         else:
             idft_tile, tile = min(tile_log, ln), min(tile_log, lde)
-        levels = min(tile, log_max - cap_height) if lde == log_max else 0
+            in_tile = tile
+        levels = min(in_tile, log_max - cap_height) if lde == log_max else 0
         groups.append(CommitGroup(members, cols, ln, lde, idft_tile, tile, levels, log_max - lde))
     return groups
 
@@ -206,9 +210,9 @@ class TwoAdicFriPcs:
     def _commit(self, mats, specs, from_coeffs: bool, tile_log: Optional[int]) -> Tuple[torch.Tensor, PcsProverData]:
         """Every matrix's LDE on GENERATOR·H_{n·B}, stored bit-reversed, and
         their mixed-height tree, by the plan `commit_plan` makes from the
-        shapes: per height group K2 above the tile, then one K14 launch for
-        the tile's stages, the leaves and the lowest levels; K15 for the
-        levels above.  specs: [(log_n, shift)] per matrix.  No sync.  Under
+        shapes: per height group K2 passes above the tile, then one K14
+        launch for the tile's stages, the leaves and the lowest levels; K15
+        for the levels above.  specs: [(log_n, shift)] per matrix.  No sync.  Under
         a mesh whose size the tallest LDE reaches: `_commit_sharded`."""
         F, eng, hasher, b = self.F, self.engine, self.mmcs.hasher, self.log_blowup
         logs = [ln for ln, _ in specs]

@@ -9,14 +9,16 @@ transcript, "dt") and through `prove_host_transcript` ("host");
 BabyBearPoseidon2 through `prove_multiple_claims` (its host transcript).
 First, for each path and size, it builds the system and witness, runs one
 cold prove, then K warm proves with nothing wrapped, and prints their wall
-times (host clock ending in a synchronise).  Then it wraps every stage
+times (host clock ending in a synchronise).  Then one more warm prove
+runs under `torch.profiler`: the device's busy time (the events that ran
+on the card, kernels and copies) is printed beside the median unwrapped
+warm prove, and each kernel's device time and launches in that prove
+(K1-K15 by their CUDA functions, `kernels.CudaKernel.functions`;
+PyTorch's own kernels and copies together).  Last, it wraps every stage
 below in a host-clock span that synchronises the device on both sides (so
 device work lands in the stage that queued it; the spans therefore add
 syncs the device transcript otherwise avoids), runs K warm proves again
-and prints the last one's spans.  Last, one more warm prove runs under
-`torch.profiler`, and the device's busy time (the sum of the kernels' own
-device time) is printed beside the median unwrapped warm prove.  Needs a
-CUDA device.
+and prints the last one's spans.  Needs a CUDA device.
 
 Spans nest: a stage or quotient commit holds its LDEs and its whole tree
 (K14 hashes and folds inside the LDE's last stages); the FRI commit phase
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import re
 import sys
 import time
 from collections import defaultdict
@@ -176,17 +179,41 @@ def bench_inputs(log_n: int, device):
     return witness_from_numpy(*u32_add_witness(list(zip(xs.tolist(), ys.tolist())), n), device)
 
 
-def device_busy_seconds(run) -> float:
-    """Sum of the kernels' own device time over `run()`, by torch.profiler."""
+def kernel_of(function: str) -> str:
+    """The label a CUDA function the profiler names is counted under: "K<i>
+    <name>" for the port's kernel i (kernels.KERNELS, by its `functions`),
+    "PyTorch ops" for PyTorch's own kernels and copies, else the function's
+    own name."""
+    for i, k in enumerate(kernels.KERNELS, 1):
+        # a tree from before CudaKernel.functions existed reports every function by its own name
+        if any(f in function for f in getattr(k, "functions", ())):
+            return f"K{i} {k.name}"
+    if "at::native::" in function or function.lower().startswith(("memcpy", "memset")):
+        return "PyTorch ops"
+    m = re.search(r"([A-Za-z_]\w*)\s*(<.*>)?\s*\(", function.replace("(anonymous namespace)", ""))
+    return m.group(1) if m else function
+
+
+def device_profile(run):
+    """Profile one run() with torch.profiler: (the device's busy seconds, the
+    sum over the events that ran on it, kernels and copies; the old measure,
+    the sum of every event's self device time, which also counts each
+    PyTorch op's kernels once more under the op; {label: [seconds,
+    launches]} by `kernel_of`)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        total_us += getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0))
-    return total_us / 1e6
+    by_label = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            cell = by_label[kernel_of(evt.name)]
+            cell[0] += evt.time_range.elapsed_us() / 1e6
+            cell[1] += 1
+    all_events = sum(evt.self_device_time_total for evt in prof.key_averages()) / 1e6
+    return sum(sec for sec, _ in by_label.values()), all_events, dict(by_label)
 
 
 def main(argv) -> int:
@@ -235,10 +262,14 @@ def main(argv) -> int:
         print(f"[spans] {path} log_n={log_n} warm prove, {args.proves} runs: "
               + ", ".join(f"{w:.4f}" for w in plain[path, log_n]) + " s", flush=True)
     for path, log_n, run, _ in cases:
-        busy = device_busy_seconds(run)
+        busy, all_events, by_label = device_profile(run)
         median = float(np.median(plain[path, log_n]))  # the profiler's own overhead would swamp its prove's wall time
         print(f"[spans] {path} log_n={log_n} profiled prove: device busy {busy:.4f} s against the "
-              f"median warm prove of {median:.4f} s ({100 * (1 - busy / median):.1f}% idle)", flush=True)
+              f"median warm prove of {median:.4f} s ({100 * (1 - busy / median):.1f}% idle); every profiler "
+              f"event's self device time summed: {all_events:.4f} s", flush=True)
+        for label, (sec, count) in sorted(by_label.items(), key=lambda kv: -kv[1][0]):
+            print(f"[spans] {path} log_n={log_n} device time of the profiled prove, {label}: "
+                  f"{1e3 * sec:.4f} ms in {count} launches", flush=True)
     spans = Spans()  # one for every path: the challenger and duplex classes are wrapped once
     for config in {id(c): c for *_, c in cases}.values():
         instrument(config, spans)

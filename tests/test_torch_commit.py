@@ -5,8 +5,9 @@ hashing is exact): every stored LDE, every digest layer and the cap, with
 K14's tile forced to 2^2 or 2^3 so that small heights reach every geometry
 (heights below, at and above the tile; shorter rows injected inside the
 tile, exactly at its top and above it; caps of 1, 2 and 4 digests), plus
-openings, the plan the commits follow at the bench's shapes, and the
-sub-cap rejection.  The JAX side runs eagerly, as its own CPU tests do (its
+openings, the tile policy and the plan the commits follow at the bench's
+shapes, K14's no-hash DIF tail and DIT head against the JAX transforms of
+its tiles, and the sub-cap rejection.  The JAX side runs eagerly, as its own CPU tests do (its
 fused commit program is not compiled on the CPU: test_fused_smoke.py)."""
 
 import functools
@@ -19,12 +20,14 @@ from multistark_tpu.config import CommitmentParameters as JaxCommit, FriParamete
 from multistark_tpu.configs import BabyBearPoseidon2Config as JaxBB, GoldilocksBlake3Config as JaxGL
 from multistark_tpu.fields.device import BB_OPS, GL_OPS
 from multistark_tpu.merkle import digest_planes_to_np
+from multistark_tpu.ntt import get_engine
 from multistark_tpu_torch import commit_tile
 from multistark_tpu_torch.config import CommitmentParameters, FriParameters
 from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
 from multistark_tpu_torch.fields import device as fd
 from multistark_tpu_torch.fields.host import BABYBEAR, GOLDILOCKS
 from multistark_tpu_torch.merkle import digest_layer_to_np
+from multistark_tpu_torch.ntt import NttEngine
 from multistark_tpu_torch.pcs import commit_plan
 
 LOG_BLOWUP = 2
@@ -45,6 +48,7 @@ GL_CASES = {
     "inject above": ([(2, 4), (1, 0)], 0),
     "two groups, two injections, cap 4": ([(1, 4), (4, 4), (2, 3), (5, 1)], 2),
     "a row wider than one chunk": ([(130, 3)], 1),
+    "a row too wide for three tiles per SM": ([(600, 4)], 1),  # default tile 2^5 under an LDE of 2^6
 }
 BB_CASES = {  # LDE heights <= 2^5 (the JAX side's eager Poseidon2 trees are slow); with a tile of 2^2,
     # LDE 16 is injected inside it, 8 at its top, 4 above it
@@ -115,17 +119,24 @@ def test_goldilocks_commit_matches_jax(case, tile_log, from_coeffs):
 
 @pytest.mark.parametrize("case", list(BB_CASES))
 def test_babybear_commit_matches_jax(case):
-    """From evaluations only: the coefficient path's BabyBear commit costs
-    the JAX side another ~15 s, and it differs from the Goldilocks one only
-    in the field."""
+    """From evaluations (the coefficient path: the test below)."""
     _assert_same_commit("bb", case, False, 2)
 
 
+@pytest.mark.parametrize("case", list(BB_CASES))
+def test_babybear_commit_from_coeffs_matches_jax(case):
+    """The quotient commit's path for BabyBear (about 11 s of the JAX
+    side's eager Poseidon2 trees)."""
+    _assert_same_commit("bb", case, True, 2)
+
+
 @pytest.mark.parametrize("name, case", [("gl", "two groups, two injections, cap 4"), ("gl", "above"),
-                                        ("bb", "inject inside, at the top and above")])
+                                        ("bb", "inject inside, at the top and above"),
+                                        ("gl", "a row too wide for three tiles per SM")])
 def test_default_tile_matches_jax(name, case):
-    """The tile the commits pick themselves (the whole height, at these
-    sizes) gives the same commitment."""
+    """The tile and in-tile levels the commits pick themselves (the whole
+    height at most of these sizes; a K2 pass above a tile of 2^5 for the
+    wide row) give the same commitment."""
     _assert_same_commit(name, case, False, None)
 
 
@@ -167,32 +178,83 @@ def test_merkle_levels_fold_many_levels_with_injections():
 
 
 @pytest.mark.parametrize("cols, log_n, hashed, want", [
-    (14, 20, True, 10),  # the stage-1 LDE at 2^18 rows
-    (14, 18, False, 11),  # its iDFT
-    (1, 10, True, 10),  # ByteTable's LDE: its whole height in one block
-    (26, 20, True, 9),  # a stage-2 width
-    (130, 20, True, 7),  # a row wider than one BLAKE3 chunk
+    (14, 20, True, 8),  # the stage-1 LDE at 2^18 rows
+    (14, 18, False, 9),  # its iDFT
+    (1, 10, True, 8),  # ByteTable's LDE: a row per thread
+    (26, 20, True, 8),  # a stage-2 width
+    (130, 20, True, 6),  # a row wider than one BLAKE3 chunk
+    (600, 20, True, 5),  # a row too wide for three tiles per SM: raised to a warp of rows
     (3, 2, True, 2),  # a height below the tile
 ])
 def test_tile_log_fits_shared_memory(cols, log_n, hashed, want):
+    """The largest tile that leaves room for BLOCKS_PER_SM blocks on an SM
+    (a hashed tile at most a row per thread), raised towards a warp of rows
+    while one block's opt-in allows it."""
     k = commit_tile.tile_log_for(cols, log_n, hashed)
     assert k == want
-    row = 8 * cols + (32 if hashed else 0)
-    room = commit_tile.SMEM_BYTES - (commit_tile.CONST_BYTES if hashed else 0)
-    assert row << k <= room and (k == log_n or row << (k + 1) > room)
+
+    def fits(k, room):
+        return commit_tile.tile_bytes(cols, k, hashed) <= room
+
+    top = min(log_n, commit_tile.MAX_TILE_LOG, commit_tile.HASHED_ROWS_LOG if hashed else commit_tile.MAX_TILE_LOG)
+    assert fits(k, commit_tile.TILE_BUDGET) or (k <= commit_tile.WARP_LOG and fits(k, commit_tile.SMEM_BYTES))
+    assert k == top or not fits(k + 1, commit_tile.TILE_BUDGET)
+    assert k == top or k >= commit_tile.WARP_LOG or not fits(k + 1, commit_tile.SMEM_BYTES)
+    assert commit_tile.BLOCKS_PER_SM * (commit_tile.TILE_BUDGET + 1024) <= commit_tile.SM_SMEM_BYTES
 
 
 def test_commit_plan_of_the_bench_stage_1():
-    """U32Add (14, 2^18) and ByteTable (1, 2^8) at blowup 4: one K14 tile of
-    2^10 folds ten levels and takes ByteTable's 1024 leaves exactly at its
-    top; K2 runs ten stages above it; K15 has ten levels left, with no
-    injection."""
+    """U32Add (14, 2^18) and ByteTable (1, 2^8) at blowup 4: K14 tiles of
+    2^8 rows (a row per thread); the tall one folds the three levels that
+    keep a warp busy, with twelve K2 stages above it; K15 has seventeen
+    levels left and takes ByteTable's 1024 leaves at its level 7 (tree
+    level 10)."""
     tall, short = commit_plan([14, 1], [18, 8], LOG_BLOWUP, 0)
-    assert (tall.members, tall.cols, tall.log_lde, tall.tile, tall.levels, tall.inject_level) == ((0,), 14, 20, 10,
-                                                                                                  10, 0)
-    assert tall.idft_tile == 11
-    assert (short.members, short.log_lde, short.tile, short.levels, short.inject_level) == ((1,), 10, 10, 0, 10)
+    assert (tall.members, tall.cols, tall.log_lde, tall.tile, tall.levels, tall.inject_level) == ((0,), 14, 20, 8,
+                                                                                                  3, 0)
+    assert tall.idft_tile == 9
+    assert (short.members, short.log_lde, short.tile, short.levels, short.inject_level) == ((1,), 10, 8, 0, 10)
     assert short.idft_tile == 8
+
+
+@pytest.mark.parametrize("widths, logs, want", [
+    ([26, 2], [18, 8], [(8, 8, 3, 0), (8, 8, 0, 10)]),  # the stage-2 commit at 2^18 rows
+    ([2, 2], [18, 8], [(8, 12, 3, 0), (8, 8, 0, 10)]),  # the quotient commit's chunks
+    ([14, 1], [14, 8], [(8, 9, 3, 0), (8, 8, 0, 6)]),  # the stage-1 commit at 2^14 rows
+])
+def test_commit_plan_tile_policy(widths, logs, want):
+    """The bench's other commits: (tile, iDFT tile, in-tile levels, injection
+    level) per group; every hashed tile leaves room for BLOCKS_PER_SM blocks
+    on an SM."""
+    plan = commit_plan(widths, logs, LOG_BLOWUP, 0)
+    assert [(g.tile, g.idft_tile, g.levels, g.inject_level) for g in plan] == want
+    for g in plan:
+        assert commit_tile.tile_bytes(g.cols, g.tile, True) <= commit_tile.TILE_BUDGET
+
+
+@pytest.mark.parametrize("k", [0, 3, 6])
+@pytest.mark.parametrize("dif", [True, False], ids=["dif tail", "dit head"])
+@pytest.mark.parametrize("name", ["gl", "bb"])
+def test_lde_tile_without_hashing_matches_jax(name, dif, k):
+    """K14 with hashing off: a DIF's last k stages (or a DIT's first k) on
+    each tile of 2^k positions are the JAX package's DIF (DIT) of that tile
+    as a transform of its own size, forward or inverse; DIT mode hashes
+    nothing."""
+    F = CONFIGS[name][2]
+    host = BABYBEAR if name == "bb" else GOLDILOCKS
+    tf = GoldilocksBlake3Config if name == "gl" else BabyBearPoseidon2Config
+    pcs = tf(CommitmentParameters(log_blowup=LOG_BLOWUP, cap_height=0), FriParameters(**FRI), device="cpu").pcs
+    eng = NttEngine(pcs.F, host, "cpu")
+    m = np.random.default_rng(40 + k).integers(0, host.p, (3, 1 << 6), dtype=np.uint64)
+    inverse = k % 2 == 1
+    blocks = m.reshape(-1, 1 << k)
+    jax_eng = get_engine(F)
+    want = F.to_np((jax_eng._dif if dif else jax_eng._dit)(F.from_np(blocks), k, inverse)).reshape(m.shape)
+    x = pcs.F.from_np(m, "cpu")
+    assert commit_tile.lde_tile(pcs.F, None, x, k, eng.tail_table(k, inverse), hashed=False, dif=dif) == []
+    np.testing.assert_array_equal(fd.to_np(x), want)
+    with pytest.raises(ValueError, match="DIF only"):
+        commit_tile.lde_tile(pcs.F, pcs.mmcs.hasher, x, k, eng.tail_table(k, inverse), hashed=True, dif=False)
 
 
 def test_sub_cap_matrices_are_rejected():
