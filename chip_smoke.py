@@ -8,13 +8,21 @@ without printing a result:
 
   1. device  -- torch.cuda must be available; prints the card's name and
                 its `nvidia-smi` name and power limit
-  2. build   -- compiles the fifteen CUDA kernels K1-K15 from csrc/ (one
-                nvcc per source, all at once, then one link; sm_90a)
+  2. build   -- compiles the CUDA kernels from csrc/ (one nvcc per
+                source, all at once, then one link; sm_90a): K1-K10 and
+                K12-K15 into the library; then K11's kernels, one per
+                recorded program of the bench proves (both configs, 2^14
+                and 2^18), generated from the template csrc/expr_sweep.cu,
+                one nvcc per program, all at once; prints each program's
+                build seconds and gl_scan.cu's registers and spills
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K2 one stage per launch and as multi-stage passes at every
-                pass size, with the whole DIF and DIT through NttEngine; K11
-                on U32Add's three recorded programs at 2^18 rows, K12 and
+                pass size, with the whole DIF and DIT through NttEngine; K4's
+                entries (batch inverse, cumsum, sum, sum of inverses, the
+                stage-2 chain) at the stage-2 shape and at edge cases around
+                their tiles; K11 on U32Add's three recorded programs at 2^18
+                rows and the quotient in the sharded natural mode, K12 and
                 K13 on a (14, 2^20) stored LDE at two points, K14 at the
                 tiles the commits pick: the stage-1 commit's tile, with and
                 without an injection inside its levels, the stage-2 width,
@@ -22,7 +30,7 @@ without printing a result:
                 head; K15 above the stage-1 tile and on a FRI round's
                 2^19-leaf tree); outputs must be bit-equal (all arithmetic
                 is exact mod p, all hashing exact); warm CUDA-event times of
-                both
+                both, and for K4 and K11 the profiler's device time
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
                 witness) at 2^14 and 2^18 rows on `cuda` along three paths:
@@ -61,7 +69,9 @@ without printing a result:
                 config's path launched on every rank; the phase's launches
                 join the kernels line
 
-Then a JSON line of per-kernel results (with each kernel's bound: the least
+Then a check that no process the script started is still running (the
+ranks, nvcc, and the resource tracker the spawn method starts beside the
+ranks), a JSON line of per-kernel results (with each kernel's bound: the least
 time the card could take for the same work), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -134,6 +144,25 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel, iters: int = 5) -> float:
+    """Mean device milliseconds per fn() of the CUDA functions of `kernel`
+    (a kernels.CudaKernel), from torch.profiler's events: the kernel's own
+    time on the card, without the host's launch path."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+             if evt.device_type == DeviceType.CUDA and any(f in evt.name for f in kernel.functions))
+    return us / 1e3 / iters
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over u64 values held in int64 tensors (0 when the
     bit patterns agree everywhere)."""
@@ -164,7 +193,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, lookup as lk, pcs, utils
+    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, kernels, lookup as lk, pcs, utils
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
     from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
@@ -177,17 +206,20 @@ def check_kernels(dev):
 
     rows = {}
 
-    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None, time_fn=None):
+    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None, time_fn=None, kernel=None):
         """cost: (bytes the function must move, 32-bit integer operations).
         time_fn, where given, is what the kernel's time is taken on: the
         kernel alone, in place on a scratch copy, without the copy and
-        concatenation that kernel_fn adds for the comparison."""
+        concatenation that kernel_fn adds for the comparison.  kernel, where
+        given (a kernels.CudaKernel), adds its device time per call from the
+        profiler."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         ms, plain_ms = cuda_ms(time_fn or kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
         bound_ms, bound_by = bound(*cost)
-        say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        dev = "" if kernel is None else f" device_ms={device_ms(time_fn or kernel_fn, kernel, iters):.4f}"
+        say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f}{dev} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4g} ({bound_by})")
         if err != 0:
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
@@ -197,6 +229,7 @@ def check_kernels(dev):
 
     m = 1 << 20
     lde_w, lde_log = 14, 20  # the stage-1 LDE of 2^18 rows at blowup 4
+    K4 = kernels.GL_SCAN
     for F, E, arith in ((GL_OPS, GL2_OPS, "gl_arith"), (BB_OPS, BB4_OPS, "bb_arith")):
         D, mul_ops = E.D, OPS_PER_MUL[F.name]
         inv_muls = (F.p - 2).bit_length() + bin(F.p - 2).count("1")  # Fermat square-and-multiply
@@ -261,14 +294,31 @@ def check_kernels(dev):
         # K4: the stage-2 chain over 13 slots of 2^18 rows
         chain = rnd(F, D, 13 << 18)
         chain[:, 5] = 0  # zero maps to zero
+        N = chain.shape[1]
+        binv_ops = 3 * ext_muls * mul_ops * N
         compare(f"gl_scan {E.name} cumsum ({D}, 13·2^18)", lambda: utils.cumsum(chain, E),
-                lambda: utils.cumsum_plain(chain, E), (16 * chain.numel(), 2 * chain.numel()))
+                lambda: utils.cumsum_plain(chain, E), (16 * chain.numel(), 2 * chain.numel()), kernel=K4)
         compare(f"gl_scan {F.name} field_sum (14, 2^18)", lambda: utils.field_sum(lde[:, : 1 << 18], F),
-                lambda: utils.field_sum_plain(lde[:, : 1 << 18], F), (8 * n18 + 8 * lde_w, 2 * n18))
+                lambda: utils.field_sum_plain(lde[:, : 1 << 18], F), (8 * n18 + 8 * lde_w, 2 * n18), kernel=K4)
         compare(f"gl_scan {E.name} batch_inv ({D}, 13·2^18)", lambda: utils.batch_inv(chain, E),
-                lambda: utils.batch_inv_plain(chain, E),
-                (16 * chain.numel(), 3 * ext_muls * mul_ops * (13 << 18)), iters=3,
-                name="gl_scan" if F is GL_OPS else None)
+                lambda: utils.batch_inv_plain(chain, E), (16 * chain.numel(), binv_ops), iters=3,
+                name="gl_scan" if F is GL_OPS else None, kernel=K4)
+        # the two fused entries: the sum of inverses (the claims accumulator's)
+        # and the stage-2 chain from K11's messages
+        compare(f"gl_scan {E.name} inv_sum ({D}, 13·2^18)", lambda: utils.inv_sum(chain, E),
+                lambda: utils.inv_sum_plain(chain, E), (8 * chain.numel() + 8 * D, binv_ops + 2 * D * N), kernel=K4)
+        msgs = torch.cat([chain, rnd(F, 1, N)])  # (D + 1, 13·2^18): messages, multiplicities
+        acc = rnd(F, D)
+        chain_ops = binv_ops + (D * mul_ops + 2 * 2 * D) * N  # inverses, terms, prefix sum, accumulator
+        compare(f"gl_scan {E.name} stage2_chain (D + 1, 13·2^18), 13 slots",
+                lambda: torch.cat([t.reshape(-1) for t in utils.stage2_chain(E, 13, msgs, acc)]),
+                lambda: torch.cat([t.reshape(-1) for t in utils.stage2_chain_plain(E, 13, msgs, acc)]),
+                (8 * msgs.numel() + 8 * D * N + 16 * D, chain_ops), iters=3,
+                time_fn=lambda: utils.stage2_chain(E, 13, msgs, acc), kernel=K4)
+        unfused = cuda_ms(lambda: unfused_stage2_chain(E, 13, msgs, acc), 3)
+        say("kernels", f"gl_scan {E.name} stage-2 chain as the parent composed it (K4 batch_inv, K1 scale, K4 "
+            f"cumsum, cat, K1 add, permute): {unfused:.4f} ms")
+        check_scan_edges(F, E, rnd)
 
         # K3 / K6: leaf hashing of the stage-1 LDE, a 2^20-leaf tree
         if F is GL_OPS:
@@ -383,6 +433,76 @@ def check_kernels(dev):
     compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
             (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
     return rows
+
+
+def unfused_stage2_chain(E, L, msgs, acc):
+    """The stage-2 chain as the parent ran it on the card: K4's batch
+    inverse and cumsum, K1/K5's scale and add, and PyTorch's concatenation
+    and permute (timed beside the fused entry)."""
+    import torch
+
+    from multistark_tpu_torch import utils
+
+    D = E.D
+    incl = utils.cumsum(E.scale(utils.batch_inv(msgs[:D], E), msgs[D]), E)
+    excl = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    acc_flat = E.add(excl, acc.reshape(D, 1))
+    n = acc_flat.shape[1] // L
+    return acc_flat.reshape(D, n, L).permute(2, 0, 1).reshape(L * D, n).contiguous(), incl[:, -1]
+
+
+def check_scan_edges(F, E, rnd) -> None:
+    """K4's entries against their plain versions around their tile sizes: n =
+    1, tile - 1, tile, tile + 1 and 300 tiles + 7, one and three rows, base
+    and extension values, with a whole tile of zeros and zeros on every tile
+    boundary; the stage-2 chain at chain lengths around its tile for 1 and
+    13 slots, with a tile of zero messages."""
+    import torch
+
+    from multistark_tpu_torch import kernels, utils
+
+    lib = kernels.library()
+
+    def tile(ext, kind):  # elements per tile of an entry
+        return (1 << 20) // lib.gls_tiles(F.field_id, int(ext), kind, 1 << 20)
+
+    def zeros(v, T):  # v: (..., n) view; zero a whole tile and every tile's first and last element
+        v[..., T:2 * T] = 0
+        v[..., ::T] = 0
+        v[..., T - 1::T] = 0
+
+    cases = 0
+    for ext, ops in ((False, F), (True, E)):
+        D = E.D if ext else 0
+        for kind, pairs in ((utils._BATCH, ((utils.batch_inv, utils.batch_inv_plain),
+                                            (utils.inv_sum, utils.inv_sum_plain))),
+                            (utils._SUM, ((utils.field_sum, utils.field_sum_plain),)),
+                            (utils._SCAN, ((utils.cumsum, utils.cumsum_plain),))):
+            T = tile(ext and kind == utils._BATCH, kind)
+            for n in (1, T - 1, T, T + 1, 300 * T + 7):
+                for rows in (1, 3):
+                    x = rnd(F, *(((D,) if D else ()) + (rows, n)))
+                    zeros(x.reshape(-1, rows, n)[:, 0], T)
+                    for fn, plain in pairs:
+                        if max_abs_err(fn(x, ops), plain(x, ops)) != 0:
+                            raise AssertionError(f"gl_scan {fn.__name__} {ops.name} ({rows}, {n}): kernel disagrees "
+                                                 "with its plain version")
+                        cases += 1
+    T = tile(True, utils._CHAIN)
+    for L in (1, 13):
+        for N in (1, T - 1, T, T + 1, 300 * T + 7):
+            n = max(1, N // L)
+            msgs, acc = rnd(F, E.D + 1, n * L), rnd(F, E.D)
+            zeros(msgs[: E.D], T)
+            got, want = utils.stage2_chain(E, L, msgs, acc), utils.stage2_chain_plain(E, L, msgs, acc)
+            if max_abs_err(got[0], want[0]) != 0 or max_abs_err(got[1], want[1]) != 0:
+                raise AssertionError(f"gl_scan stage2_chain {E.name} n={n} L={L}: kernel disagrees with its plain "
+                                     "version")
+            cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"gl_scan {F.name}: {cases} edge cases (sizes around the tiles, rows 1 and 3, base and "
+        f"{E.name}, zero tiles and tile boundaries, the stage-2 chain at 1 and 13 slots) bit-equal to the plain "
+        "versions")
 
 
 def check_passes(F, D, eng, lde, compare, mul_ops, first: bool) -> None:
@@ -513,7 +633,7 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     (blowup 4): the quotient composition over the stored stage-1 and stage-2
     LDEs (bit-reversed, next row q = 1 ahead), the lookup values over the
     trace, and the stage-2 messages over those values."""
-    from multistark_tpu_torch import lookup as lk, program, prover, system as sm
+    from multistark_tpu_torch import kernels, program, prover, system as sm
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs
 
     name = "goldilocks_blake3" if first else "babybear_poseidon2"
@@ -536,7 +656,7 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
         return 8 * rows * (len(cols) + len(sels) + n_out), rows * (muls * mul_ops + adds * 2)
 
     # (a) the quotient
-    qprog = system.cached_program(("quotient", c_idx, log_n), lambda: prover._quotient_program(system, c_idx, log_n))
+    qprog = system.quotient_program(c_idx, log_n)
     sels = prover._selectors_device(system, log_n, q)
     qops = program.Operands(
         sources=[None, rnd(F, circuit.main_width, lde), rnd(F, circuit.stage2_width, lde)], rows=m, step=q,
@@ -547,22 +667,80 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     compare(f"expr_sweep {F.name} quotient of U32Add (2^18 rows)",
             lambda: program.expr_sweep(F, qprog, qops, (D, m), m, 1),
             lambda: program.expr_sweep_plain(F, qprog, qops, (D, m), m, 1), cost(qprog, m, D),
-            name="expr_sweep" if first else None)
+            name="expr_sweep" if first else None, kernel=kernels.EXPR_SWEEP)
+    # (a') the same program in natural mode on a rank's block of a four-rank
+    # mesh plus the q rows after it, as the sharded quotient runs it
+    b = m // 4
+    nops = program.Operands(
+        sources=[None, rnd(F, circuit.main_width, b + q), rnd(F, circuit.stage2_width, b + q)], rows=b + q, step=q,
+        selectors=[rnd(F, b + q) for _ in program.SELECTORS], pubs=qops.pubs, apows=qops.apows,
+    )
+    compare(f"expr_sweep {F.name} quotient of U32Add, natural mode, a block of {b} rows + {q} halo",
+            lambda: program.expr_sweep(F, qprog, nops, (D, b + q), b + q, 1),
+            lambda: program.expr_sweep_plain(F, qprog, nops, (D, b + q), b + q, 1), cost(qprog, b + q, D), kernel=kernels.EXPR_SWEEP)
     # (b) the lookup values
-    lprog = sm._lookup_values_program(system, c_idx)
+    lprog = system.lookup_values_program(c_idx)
     arities = tuple(len(a) for _, a in circuit.graph.lookups)
     n_out = sum(1 + a for a in arities)
     lops = program.Operands(sources=[None, rnd(F, circuit.main_width, n)], rows=n)
     compare(f"expr_sweep {F.name} lookup values of U32Add (2^18 rows)",
             lambda: program.expr_sweep(F, lprog, lops, (n_out, n), n, 1),
-            lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out))
+            lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out), kernel=kernels.EXPR_SWEEP)
     # (c) the stage-2 messages
     L = len(arities)
-    sprog = lk.stage2_program(F.p, system.config.extension_params, arities, "stage-2 messages of U32Add")
+    sprog = system.stage2_program(c_idx)
     sops = program.Operands(sources=[rnd(F, n_out, n)], rows=n, pubs=rnd(F, 2 * D))
     compare(f"expr_sweep {F.name} stage-2 messages of U32Add (2^18 rows, {L} slots)",
             lambda: program.expr_sweep(F, sprog, sops, (D + 1, n * L), n * L, L),
-            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)))
+            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)), kernel=kernels.EXPR_SWEEP)
+    for prog in (qprog, lprog, sprog):
+        report = [ln.split(":", 1)[-1].strip() for ln in program.ptxas_report(F, prog).splitlines()
+                  if "registers" in ln or "spill" in ln]
+        say("kernels", f"expr_sweep {F.name} {prog.name}: {len(prog.code)} instructions, staging "
+            f"{program.staging(prog)}; ptxas: {'; '.join(report) or 'no report'}")
+
+
+def ptxas_summary(path: str) -> str:
+    """Registers and spills of each kernel in an `nvcc -Xptxas -v` report."""
+    import re
+
+    out, name = [], None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?\d+(\w+?)I.*$", r"\1", m.group(1))
+                name = next((k for k in ("batch_inv_kernel", "sum_kernel", "cumsum_kernel", "stage2_chain_kernel")
+                             if k in m.group(1) and not (k == "sum_kernel" and "cumsum" in m.group(1))), name)
+                fld = "BabyBear" if "BabyBear" in m.group(1) else "Goldilocks"
+                ext = re.search(r"Li(\d)E", m.group(1))
+                name = f"{name}<{fld}{',' + ext.group(1) if ext else ''}>"
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if name and spill:
+                out.append(f"{name} spills {spill.group(1)}/{spill.group(2)} B")
+            if name and regs:
+                out[-1:] = [f"{out[-1]} {regs.group(1)} registers"] if out else [f"{name} {regs.group(1)} registers"]
+    return "; ".join(out) or "no report"
+
+
+def build_programs(dev) -> None:
+    """Phase 2, K11: every program of the bench proves (both configs, 2^14
+    and 2^18 rows), built from the template anew, one nvcc per program, all
+    started together per config; prints each one's seconds."""
+    from multistark_tpu_torch import program, system as sm
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    for name in ("goldilocks_blake3", "babybear_poseidon2"):
+        system, _ = sm.System.new(bench_config(dev, name), u32_add_system_inputs())
+        table = next(c.preprocessed_dims[0] for c in system.circuits if c.preprocessed_dims)
+        progs = [p for log_n in SIZES for p in system.programs([1 << log_n, table])]
+        t0 = time.perf_counter()
+        secs = program.build(system.config.field, progs, force=True)
+        sizes = {p.name: len(p.code) for p in progs}
+        say("build", f"nvcc built {len(secs)} K11 programs of {name} in {time.perf_counter() - t0:.1f} s "
+            "(all at once; each program's seconds from the start): "
+            + ", ".join(f"{p} ({sizes[p]} instructions) {s:.1f} s" for p, s in secs.items()))
 
 
 def bench_config(dev, config_name: str):
@@ -778,6 +956,23 @@ def sharded_phase() -> dict:
     return launches
 
 
+def running_children() -> list:
+    """Command lines of the processes still running whose parent is this one
+    (/proc), so the script can show that it stopped every process it started."""
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if int(ppid) == os.getpid() and state != "Z":
+            left.append(f"{pid}: {cmd}")
+    return left
+
+
 def main() -> int:
     import torch
 
@@ -799,6 +994,8 @@ def main() -> int:
     secs = kernels.build(force=True)
     kernels.library()
     say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
+    say("build", f"gl_scan.cu ptxas: {ptxas_summary(kernels.ptxas_log(kernels.GL_SCAN.source))}")
+    build_programs(dev)
 
     checked = check_kernels(dev)
     launches = {k.name: 0 for k in kernels.KERNELS}
@@ -812,7 +1009,10 @@ def main() -> int:
     for k in kernels.KERNELS:
         rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                      "launches": launches[k.name], **checked[k.name]})
-    say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    left = running_children()
+    if left:
+        raise AssertionError(f"processes started by chip_smoke still running: {left}")
+    say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s; no process it started is running")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

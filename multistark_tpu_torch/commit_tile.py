@@ -162,10 +162,16 @@ def lde_tile(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels
         hasher_id, consts = hasher.kernel_id, hasher.consts(x.device)
     else:
         outs, out_p, inj_p, hasher_id, consts = [], None, None, F.field_id, None
+    n_bytes, ops = 16 * x.numel() + 8 * ((1 << tile_log) - 1), 0
+    if hashed:  # the digest layers written, the injected ones read; the leaves' and the levels' hashes
+        n_bytes += 32 * sum(t.shape[0] for t in outs) + 32 * sum(t.shape[0] for t in inject.values())
+        leaf_hashes = -(-(8 * cols) // 64) if hasher_id == 0 else -(-cols // 8)
+        nodes = sum(t.shape[0] for t in outs[1:]) + sum(t.shape[0] for t in inject.values())
+        ops = (n * leaf_hashes + nodes) * kernels.OPS_PER_HASH[hasher_id]
     kernels.LDE_TILE.launch(
         "lde_tile", F.field_id, hasher_id, kernels.ptr(x), cols, log_n, tile_log, kernels.ptr(tw),
         MODE_HASHED if hashed else MODE_DIF if dif else MODE_DIT,
-        out_p, inj_p, levels, None if consts is None else kernels.ptr(consts),
+        out_p, inj_p, levels, None if consts is None else kernels.ptr(consts), cost=(n_bytes, ops),
     )
     return outs
 
@@ -190,9 +196,12 @@ def merkle_levels(hasher, layer: torch.Tensor, levels: int, inject: Optional[Inj
         fold = min(FOLD_LOG, levels - done)
         outs = _layers(size >> (done + 1), fold, layer.device)
         out_p, inj_p = _pointers(outs, inject, done + 1)
+        injected = sum(inject[lv].shape[0] for lv in range(done + 1, done + fold + 1) if lv in inject)
+        nodes = sum(t.shape[0] for t in outs) + injected
         kernels.MERKLE_LEVELS.launch(
             "merkle_levels", hasher.kernel_id, kernels.ptr(layer), log_size - done, fold, out_p, inj_p,
             None if consts is None else kernels.ptr(consts),
+            cost=(32 * (layer.shape[0] + nodes), nodes * kernels.OPS_PER_HASH[hasher.kernel_id]),
         )
         out += outs
         layer = outs[-1]

@@ -157,8 +157,10 @@ def fri_grind(inp: torch.Tensor, bits: int, degree: int):
     kernels.check_cuda(inp)
     out = torch.empty(8, dtype=torch.int64, device=inp.device)
     digest = torch.empty(8, dtype=torch.int32, device=inp.device)
+    blocks = max(1, -(-(4 * inp.shape[0] + 8) // 64))  # the duplex input and the witness
     kernels.FRI_GRIND.launch("fri_grind", kernels.ptr(inp), inp.shape[0], bits, degree, kernels.ptr(out),
-                             kernels.ptr(digest))
+                             kernels.ptr(digest),
+                             cost=(4 * inp.shape[0] + 8 * 8 + 32, (64 << bits) * blocks * kernels.OPS_PER_BLAKE3))
     return out[0], out[1], out[2 : 2 + degree], digest
 
 
@@ -236,7 +238,9 @@ def dt_flush(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor, n_ops
     digest = torch.empty(8, dtype=torch.int32, device=dev)
     draws = torch.empty(8, dtype=torch.int64, device=dev)
     p = kernels.ptr
-    kernels.DT_FLUSH.launch("dt_flush", p(chunks), p(plan), p(sibs), p(scratch), T, p(digest), p(draws))
+    kernels.DT_FLUSH.launch("dt_flush", p(chunks), p(plan), p(sibs), p(scratch), T, p(digest), p(draws),
+                            cost=(4 * (chunks.numel() + plan.numel() + sibs.numel()) + 32 + 64,
+                                  (16 * T + n_ops) * kernels.OPS_PER_BLAKE3))
     return digest, draws
 
 

@@ -183,8 +183,18 @@ class FieldOps:
         else:
             nb = b.numel() // (D if b_ext else 1)
             bp, cb = kernels.ptr(b), nb
+        coords = max(D, 1)
+        n_bytes = 8 * (a.numel() + (0 if b is None else b.numel()) + out.numel())
+        mul_ops = kernels.OPS_PER_MUL[self.field_id]
+        if code in (_POW, _INV, _EXT_INV):  # square-and-multiply, then for an extension the norm map
+            exp = (e if code == _POW else self.p - 2) % (1 << 64)
+            muls = exp.bit_length() + bin(exp).count("1") + (4 * D * D if code == _EXT_INV else 0)
+            ops = muls * mul_ops * n
+        else:
+            ops = 0
         self.kernel.launch(
             self.kernel.name, code, kernels.ptr(a), na, na, bp, nb, cb, kernels.ptr(out), n, e % (1 << 64),
+            cost=(n_bytes, ops),
         )
         return out
 

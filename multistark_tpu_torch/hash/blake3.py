@@ -135,8 +135,10 @@ def hash_rows(mats: Sequence[torch.Tensor]) -> torch.Tensor:
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     widths = (ctypes.c_int64 * len(mats))(*[m.shape[0] for m in mats])
+    row_bytes = 8 * sum(m.shape[0] for m in mats)
     kernels.BLAKE3_MERKLE.launch(
         "b3_hash_rows", ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
         len(mats), n, kernels.ptr(out),
+        cost=((row_bytes + 32) * n, n * max(1, -(-row_bytes // 64)) * kernels.OPS_PER_BLAKE3),
     )
     return out

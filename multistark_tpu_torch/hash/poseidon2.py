@@ -102,8 +102,10 @@ def hash_rows(mats: Sequence[torch.Tensor]) -> torch.Tensor:
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     widths = (ctypes.c_int64 * len(mats))(*[m.shape[0] for m in mats])
+    width = sum(m.shape[0] for m in mats)
     kernels.POSEIDON2_MERKLE.launch(
         "p2_hash_rows", ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
         len(mats), n, kernels.ptr(device_constants(dev)), kernels.ptr(out),
+        cost=((8 * width + 32) * n, n * max(1, -(-width // 8)) * kernels.OPS_PER_POSEIDON2),
     )
     return out

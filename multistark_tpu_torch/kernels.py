@@ -12,7 +12,15 @@ tests import every module on a machine without nvcc.
 Each kernel is a `CudaKernel` whose `launches` counter rises by one each
 time one of its C entry points is launched, and only there; its
 `functions` name the CUDA functions it runs, as a profiler reports them
-(spans.py groups device time by them).
+(spans.py groups device time by them).  Each launch site states the bytes
+its launch must move (each operand read once, each output written once)
+and, where hashing, grinding or an inversion dominates, its 32-bit integer
+operations; `bound_ms` sums the least time those take on one H100 over
+the kernel's launches (spans.py prints it per warm prove).  Launch sites
+that count bytes only give a bound that is still a least time.
+
+K11's kernels are not in the library: program.py builds one per recorded
+program from the template csrc/expr_sweep.cu.
 """
 
 from __future__ import annotations
@@ -36,6 +44,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _vp, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 
+# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s,
+# and 32-bit operations/s on the CUDA cores (the float32 non-tensor rate;
+# integer instructions run no faster, so this gives the least time).  32-bit
+# operations per modular product by field id (the 32x32 partial products
+# and the reduction's multiplies), per BLAKE3 compression (7 rounds x 8 G
+# functions x 14 add/xor/rotate) and per Poseidon2 permutation (772
+# BabyBear products).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
+OPS_PER_MUL = (12, 6)
+OPS_PER_BLAKE3 = 7 * 8 * 14
+OPS_PER_POSEIDON2 = 772 * OPS_PER_MUL[1]
+OPS_PER_HASH = (OPS_PER_BLAKE3, OPS_PER_POSEIDON2)  # by hasher kernel_id
+
+
+def least_ms(n_bytes: float, ops: float = 0) -> float:
+    """The least milliseconds one H100 takes to move n_bytes and do ops."""
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S)
+
 # C entry point -> argument types (the stream is always the last c_void_p)
 _SIGNATURES = {
     "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
@@ -43,16 +70,15 @@ _SIGNATURES = {
     "ntt_pass": [_i32, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
     "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
-    "gls_scan_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
-    "gls_scan_addback": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
-    "gls_sum_tile": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
-    "gls_row_inv": [_i32, _i32, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
-    "gls_binv_finish": [_i32, _i32, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _i64, _i64, _i64, _vp],
+    "gls_batch_inv": [_i32, _i32, _vp, _vp, _i64, _i64, _vp],
+    "gls_inv_sum": [_i32, _i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp],
+    "gls_sum": [_i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp],
+    "gls_cumsum": [_i32, _vp, _vp, _i64, _i64, _vp, _u64, _u64, _vp],
+    "gls_stage2_chain": [_i32, _vp, _i64, _i32, _vp, _vp, _vp, _vp, _u64, _u64, _vp],
     "dt_flush": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp],
     "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp],
     "claims_fp": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp],
     "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
-    "expr_sweep": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _i64, _i64, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
     "bary_partial": [_i32, _vp, _i64, _i64, _i64, _vp, _i32, _vp, _i64, _vp],
     "bary_finish": [_i32, _vp, _i64, _i32, _i64, _vp, _i32, _u64, _u64, _vp, _vp],
     "reduced_open": [_i32, _vp, _i64, _i64, _vp, _i64, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
@@ -60,11 +86,16 @@ _SIGNATURES = {
     "merkle_levels": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
 }
 
+# host helpers of the library that launch nothing: (argument types, return type)
+_HELPERS = {"gls_tiles": ([_i32, _i32, _i32, _i64], _i64)}
+# K11's template: every recorded program builds its own kernel from it (program.py), not the library
+PROGRAM_TEMPLATE = os.path.join(CSRC_DIR, "expr_sweep.cu")
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def sources() -> list:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    return sorted(p for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")) if p != PROGRAM_TEMPLATE)
 
 
 def _stale() -> bool:
@@ -79,6 +110,12 @@ def nvcc_path() -> str:
     """CUDA_HOME's nvcc (default /usr/local/cuda), else the one on PATH."""
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     return cand if os.path.exists(cand) else "nvcc"
+
+
+def ptxas_log(source: str) -> str:
+    """Where the build keeps a source's `-Xptxas -v` report (registers and
+    spills of each kernel)."""
+    return os.path.join(BUILD_DIR, f"{os.path.basename(source)}.ptxas.log")
 
 
 def build(force: bool = False) -> float:
@@ -98,15 +135,17 @@ def _build(force: bool) -> float:
     t0 = time.perf_counter()
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
     procs = [
-        subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", o, s],
+        subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for s, o in zip(sources(), objs)
     ]
     try:
-        for proc in procs:
+        for src, proc in zip(sources(), procs):
             out, err = proc.communicate(timeout=900)
             if proc.returncode != 0:
                 raise subprocess.CalledProcessError(proc.returncode, proc.args, output=out, stderr=err)
+            with open(ptxas_log(src), "w") as f:
+                f.write(out + err)
         tmp = f"{LIB_PATH}.{tag}"
         subprocess.run([nvcc_path(), "-shared", "-o", tmp, *objs], check=True, capture_output=True, text=True,
                        timeout=900)
@@ -133,6 +172,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _HELPERS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _LIB = lib
     return _LIB
 
@@ -163,14 +206,17 @@ class CudaKernel:
         self.replaces = replaces
         self.functions = functions
         self.launches = 0
+        self.bound_ms = 0.0
 
-    def launch(self, entry: str, *args) -> None:
-        """Call C entry point `entry` on the current stream; raise on a CUDA
-        error code."""
-        rc = getattr(library(), entry)(*args, current_stream())
+    def launch(self, entry: str, *args, cost: Tuple[float, float], lib: Optional[ctypes.CDLL] = None) -> None:
+        """Call C entry point `entry` of the kernel library (or of `lib`) on
+        the current stream; raise on a CUDA error code.  cost: (bytes the
+        launch must move, its 32-bit operations or 0), added to bound_ms."""
+        rc = getattr(lib or library(), entry)(*args, current_stream())
         if rc != 0:
             raise RuntimeError(f"{self.name}: {entry} failed with cudaError_t {rc}")
         self.launches += 1
+        self.bound_ms += least_ms(*cost)
 
 
 GL_ARITH = CudaKernel(
@@ -191,7 +237,7 @@ BLAKE3_MERKLE = CudaKernel(
 GL_SCAN = CudaKernel(
     "gl_scan", "multistark_tpu_torch/csrc/gl_scan.cu",
     "multistark_tpu/utils.py:219",
-    ("scan_tile_kernel", "scan_addback_kernel", "sum_tile_kernel", "binv_finish_kernel", "row_inv_kernel"),
+    ("batch_inv_kernel<", "::sum_kernel<", "cumsum_kernel<", "stage2_chain_kernel<"),
 )
 BB_ARITH = CudaKernel(
     "bb_arith", "multistark_tpu_torch/csrc/bb_arith.cu",
@@ -254,6 +300,10 @@ KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERK
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def bounds_ms() -> Dict[str, float]:
+    return {k.name: k.bound_ms for k in KERNELS}
 
 
 def reset_launch_counts() -> None:

@@ -15,11 +15,12 @@ Chained accumulators: with m_{r,j} = beta + fingerprint(gamma, args_{r,j}),
                       - mult_{r,L-1} = 0
 
 The stage-2 traces are built on the device: the slot messages by each
-circuit's stage-2 program on kernel K11 (program.py), their inverses through
-the K4 batch inverse, the chain through the K4 prefix sum.  The claims
-accumulator of both transcripts and both fields runs on the device with β
-and γ device scalars: the messages in kernel K9 (csrc/claims_fp.cu,
-`claims_fp` below), their inverses and sum in K4.
+circuit's stage-2 program on kernel K11 (program.py), then the whole chain
+(inverses, terms, prefix sum, accumulator, column layout) in one launch of
+K4's stage-2 chain (`utils.stage2_chain`).  The claims accumulator of both
+transcripts and both fields runs on the device with β and γ device
+scalars: the messages in kernel K9 (csrc/claims_fp.cu, `claims_fp` below),
+the sum of their inverses in one K4 launch (`utils.inv_sum`).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .fields.device import ExtOps, FieldOps
 from .fields.host import ExtensionParams, HostExtField, HostField
 from .graph import ConstraintGraph
 from .program import Operands, Program, Recorder, expr_sweep
-from .utils import batch_inv, cumsum, ext_pack_device, field_sum
+from .utils import ext_pack_device, inv_sum, stage2_chain
 
 ExtVal = Tuple[int, ...]
 
@@ -131,7 +132,7 @@ def claims_fp(E: ExtOps, cols: torch.Tensor, beta: torch.Tensor, gamma: torch.Te
     out = torch.empty((E.D, n), dtype=torch.int64, device=cols.device)
     kernels.CLAIMS_FP.launch(
         "claims_fp", E.base.field_id, kernels.ptr(cols), L, n, kernels.ptr(beta), kernels.ptr(gamma),
-        kernels.ptr(out),
+        kernels.ptr(out), cost=(8 * cols.numel() + 8 * out.numel() + 16 * E.D, 0),
     )
     return out
 
@@ -140,12 +141,12 @@ def claims_accumulator_device(F: FieldOps, E: ExtOps, claims_arr: np.ndarray, be
                               gamma: torch.Tensor) -> torch.Tensor:
     """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 over an (n, L)
     canonical-uint64 claims array, with β and γ device scalars: one upload
-    (not waited for), the messages (K9), their batch inverse and sum (K4).
+    (not waited for), the messages (K9), the sum of their inverses (K4).
     Returns a (D,) device scalar.  A zero message maps to zero (the scalar
     `claims_accumulator` raises instead; either is a ~2^-128 event for
     Goldilocks^2, ~2^-124 for BabyBear^4)."""
     cols = F.from_np(np.ascontiguousarray(claims_arr.T), beta.device)  # (L, n)
-    return field_sum(batch_inv(claims_fp(E, cols, beta, gamma), E), E)
+    return inv_sum(claims_fp(E, cols, beta, gamma), E)
 
 
 # --- generic ext-coordinate arithmetic over a working algebra ----------------
@@ -310,8 +311,8 @@ def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta
     accumulators, threading one global accumulator from acc₀; each circuit's
     serial row chain is a parallel prefix sum.  β, γ, acc₀ are (D,) device
     scalars and no value leaves the device.  Per circuit: the slot messages
-    and multiplicities in chain order (K11), the messages' inverses (K4),
-    the terms mult/message (K1 or K5) and the chain (K4).
+    and multiplicities in chain order (K11), then the chain (K4's
+    stage-2 chain: inverses, terms mult/message, prefix sum, accumulator).
 
     Under a mesh, a circuit with n % D == 0 rows takes
     parallel.sharded_stage2 (JAX lookup.py:350-361) and its blocks are
@@ -341,23 +342,8 @@ def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta
             pubs = ext_pack_device((beta, gamma)).reshape(-1)
         ops = Operands(sources=[lv.matrix], rows=n, pubs=pubs)
         msgs = expr_sweep(E.base, lv.stage2_program, ops, (E.D + 1, n * L), n * L, L)
-        inv_msgs = batch_inv(msgs[: E.D], E)
-        mat, total = _stage2_scan(E, L, inv_msgs, msgs[E.D], acc)
-        acc = E.add(acc, total.reshape(E.D))
+        mat, total = stage2_chain(E, L, msgs, acc)
+        acc = E.add(acc, total)
         mats.append(mat)
         accs.append(acc)
     return mats, accs
-
-
-def _stage2_scan(E: ExtOps, L: int, inv_msgs, flat_mults, acc_t):
-    """Terms mult/m, inclusive prefix sum, exclusive accumulator injection,
-    and the stage-2 column layout: row (j·D + d) = coordinate d of slot j.
-    Returns (matrix (L·D, n), chain total (D, 1))."""
-    D = E.D
-    terms = E.scale(inv_msgs, flat_mults)
-    incl = cumsum(terms, E)
-    excl = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
-    acc_flat = E.add(excl, acc_t)
-    n = acc_flat.shape[1] // L
-    mat = acc_flat.reshape(D, n, L).permute(2, 0, 1).reshape(L * D, n).contiguous()
-    return mat, incl[:, -1:]

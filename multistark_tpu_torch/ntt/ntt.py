@@ -78,7 +78,9 @@ def ntt_pass_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, s_lo: int, r: int,
         _pass_plain_(F, x, tw, s_lo, r, dif)
         return
     kernels.check_cuda(x, tw)
-    kernels.NTT_STAGE.launch("ntt_pass", F.field_id, kernels.ptr(x), rows, log_n, s_lo, r, kernels.ptr(tw), int(dif))
+    twiddles = (1 << (s_lo + r - 1)) - (1 << (s_lo - 1))
+    kernels.NTT_STAGE.launch("ntt_pass", F.field_id, kernels.ptr(x), rows, log_n, s_lo, r, kernels.ptr(tw), int(dif),
+                             cost=(16 * x.numel() + 8 * twiddles, 0))
 
 
 def ntt_stage_(F: FieldOps, x: torch.Tensor, tw: torch.Tensor, dif: bool) -> None:

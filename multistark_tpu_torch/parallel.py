@@ -67,6 +67,7 @@ There is no other route and no fallback between backends.
 
 from __future__ import annotations
 
+import gc
 import os
 import tempfile
 import weakref
@@ -494,6 +495,23 @@ class Ranks:
                     for r in range(self.world)]
         finally:
             self._tmp.cleanup()
+            self._ctx = None  # its error queues' semaphores unregister from the tracker here
+            gc.collect()
+            _stop_resource_tracker()
+
+
+def _stop_resource_tracker() -> None:
+    """Stop the helper process that the spawn method starts beside the ranks
+    (multiprocessing's resource tracker).  Left alone it outlives the
+    process that started it; the next spawn starts it again."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._fd is not None and tracker._pid is not None:
+            os.close(tracker._fd)  # the tracker exits when this pipe closes
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
 
 
 def dryrun_multichip(n: int, device: str = "cuda") -> list:

@@ -757,9 +757,11 @@ def bary_eval(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, i
     zp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in zs])
     fid = E.base.field_id
     kernels.BARY_EVAL.launch("bary_partial", fid, kernels.ptr(mat), mat.shape[1], w, n,
-                             ctypes.cast(wp, ctypes.c_void_p), P, kernels.ptr(partials), tiles)
+                             ctypes.cast(wp, ctypes.c_void_p), P, kernels.ptr(partials), tiles,
+                             cost=(8 * w * n + 8 * P * E.D * n + 8 * partials.numel(), 0))
     kernels.BARY_EVAL.launch("bary_finish", fid, kernels.ptr(partials), tiles, P, w, ctypes.cast(zp, ctypes.c_void_p),
-                             log_n, s_n, inv_ns, kernels.ptr(out))
+                             log_n, s_n, inv_ns, kernels.ptr(out),
+                             cost=(8 * partials.numel() + 8 * P * E.D + 8 * out.numel(), 0))
     return out
 
 
@@ -810,6 +812,7 @@ def reduced_open(E: ExtOps, mat: torch.Tensor, apows: torch.Tensor, vals, invs, 
         "reduced_open", E.base.field_id, kernels.ptr(mat), w, N, kernels.ptr(apows), count,
         ctypes.cast(vp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(op, ctypes.c_void_p), P,
         int(init), kernels.ptr(ro),
+        cost=(8 * mat.numel() + 8 * P * E.D * N + 8 * E.D * N * (1 if init else 2) + 8 * (w + P * E.D * w), 0),
     )
     return ro
 
@@ -858,6 +861,7 @@ def fri_fold(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables,
     kernels.FRI_FOLD.launch(
         "fri_fold", E.base.field_id, kernels.ptr(current), n_in, a, ctypes.cast(ptrs, ctypes.c_void_p),
         kernels.ptr(beta), half_inv, kernels.ptr(extra[0]) if extra else None, kernels.ptr(out),
+        cost=(8 * current.numel() + 8 * sum(t.numel() for t in tables) + 8 * out.numel() * (2 if extra else 1), 0),
     )
     return out
 

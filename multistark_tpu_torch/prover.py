@@ -258,7 +258,7 @@ def _quotient_chunk_sharded(system, c_idx, log_n, q, prefixes, selectors, pubs, 
     # natural quotient row j sits at storage position bitrev(j) of the prefix
     natural = (pm.rank * b + torch.arange(b + q, device=eng.device)) % m
     take = eng.brev(log_m).index_select(0, natural)
-    prog = system.cached_program(("quotient", c_idx, log_n), lambda: _quotient_program(system, c_idx, log_n))
+    prog = system.quotient_program(c_idx, log_n)
     ops = Operands(
         sources=[None if prefixes.get(s) is None else prefixes[s].index_select(1, take) for s in range(3)],
         rows=b + q, step=q, selectors=[selectors[name].index_select(0, take) for name in SELECTORS],
@@ -350,7 +350,7 @@ def _quotient_sweep_only(system, c_idx, log_n, q, mats, selectors, pubs, alpha) 
     D = config.extension_params.degree
     log_m = log_n + (q.bit_length() - 1)
     m = 1 << log_m
-    prog = system.cached_program(("quotient", c_idx, log_n), lambda: _quotient_program(system, c_idx, log_n))
+    prog = system.quotient_program(c_idx, log_n)
     K = system.circuits[c_idx].constraint_count
     ops = Operands(
         sources=[mats.get(s) for s in range(3)], rows=m, step=q, brev_log=log_m,

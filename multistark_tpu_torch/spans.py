@@ -14,7 +14,10 @@ runs under `torch.profiler`: the device's busy time (the events that ran
 on the card, kernels and copies) is printed beside the median unwrapped
 warm prove, and each kernel's device time and launches in that prove
 (K1-K15 by their CUDA functions, `kernels.CudaKernel.functions`;
-PyTorch's own kernels and copies together).  Last, it wraps every stage
+PyTorch's own kernels and copies together), each kernel's beside the least
+time the card could take for its launches in that prove (the bytes and
+operations each launch site states, `kernels.CudaKernel.bound_ms`).  Last,
+it wraps every stage
 below in a host-clock span that synchronises the device on both sides (so
 device work lands in the stage that queued it; the spans therefore add
 syncs the device transcript otherwise avoids), runs K warm proves again
@@ -51,7 +54,9 @@ from .test_circuits import u32_add_system_inputs, u32_add_witness
 
 CONFIGS = {"goldilocks_blake3": GoldilocksBlake3Config, "babybear_poseidon2": BabyBearPoseidon2Config}
 WITNESS_SEED = 0xDEADBEEF  # bench.py u32_add_case
-HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's HBM rate (NVIDIA's data sheet)
+# one H100 SXM's HBM rate (NVIDIA's data sheet); spans.py keeps its own copy
+# because compare_trees.sh runs it in older trees too
+HBM_BYTES_PER_S = 3.35e12
 _CHALLENGER_METHODS = ("observe_field", "observe_u64", "observe_ext", "observe_bytes", "observe_commitment",
                        "observe_claims", "sample_field", "sample_ext", "sample_bits", "grind")
 _DUPLEX_METHODS = ("observe_bytes", "observe_u64", "observe_words_device", "observe_cap_device",
@@ -194,18 +199,28 @@ def kernel_of(function: str) -> str:
     return m.group(1) if m else function
 
 
+def _bounds() -> dict:
+    """Each kernel's summed least time so far (kernels.CudaKernel.bound_ms;
+    a tree from before it existed reports none)."""
+    return {f"K{i} {k.name}": getattr(k, "bound_ms", None) for i, k in enumerate(kernels.KERNELS, 1)}
+
+
 def device_profile(run):
     """Profile one run() with torch.profiler: (the device's busy seconds, the
     sum over the events that ran on it, kernels and copies; the old measure,
     the sum of every event's self device time, which also counts each
     PyTorch op's kernels once more under the op; {label: [seconds,
-    launches]} by `kernel_of`)."""
+    launches]} by `kernel_of`; {label: the least ms the card could take for
+    the kernel's launches in the run}, from the bytes and operations each
+    launch site states)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = _bounds()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    bounds = {label: ms - before[label] for label, ms in _bounds().items() if ms is not None}
     by_label = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -213,7 +228,7 @@ def device_profile(run):
             cell[0] += evt.time_range.elapsed_us() / 1e6
             cell[1] += 1
     all_events = sum(evt.self_device_time_total for evt in prof.key_averages()) / 1e6
-    return sum(sec for sec, _ in by_label.values()), all_events, dict(by_label)
+    return sum(sec for sec, _ in by_label.values()), all_events, dict(by_label), bounds
 
 
 def main(argv) -> int:
@@ -262,14 +277,15 @@ def main(argv) -> int:
         print(f"[spans] {path} log_n={log_n} warm prove, {args.proves} runs: "
               + ", ".join(f"{w:.4f}" for w in plain[path, log_n]) + " s", flush=True)
     for path, log_n, run, _ in cases:
-        busy, all_events, by_label = device_profile(run)
+        busy, all_events, by_label, bounds = device_profile(run)
         median = float(np.median(plain[path, log_n]))  # the profiler's own overhead would swamp its prove's wall time
         print(f"[spans] {path} log_n={log_n} profiled prove: device busy {busy:.4f} s against the "
               f"median warm prove of {median:.4f} s ({100 * (1 - busy / median):.1f}% idle); every profiler "
               f"event's self device time summed: {all_events:.4f} s", flush=True)
         for label, (sec, count) in sorted(by_label.items(), key=lambda kv: -kv[1][0]):
+            least = f"; bound {bounds[label]:.4f} ms" if label in bounds else ""
             print(f"[spans] {path} log_n={log_n} device time of the profiled prove, {label}: "
-                  f"{1e3 * sec:.4f} ms in {count} launches", flush=True)
+                  f"{1e3 * sec:.4f} ms in {count} launches{least}", flush=True)
     spans = Spans()  # one for every path: the challenger and duplex classes are wrapped once
     for config in {id(c): c for *_, c in cases}.values():
         instrument(config, spans)

@@ -18,6 +18,7 @@ from .evaluator import sweep_lookup_prefix
 from .expr import Expr, ExtExpr, Lookup, Source
 from .fields.npref import NpField, np_powers
 from .graph import ConstraintGraph, compile_graph
+from . import program
 from .program import SELECTORS, Operands, Program, Recorder, expr_sweep
 
 
@@ -77,6 +78,37 @@ class System:
         if key not in self.program_cache:
             self.program_cache[key] = record()
         return self.program_cache[key]
+
+    def lookup_values_program(self, c_idx: int) -> Program:
+        return self.cached_program(("lookup values", c_idx), lambda: _lookup_values_program(self, c_idx))
+
+    def stage2_program(self, c_idx: int) -> Optional[Program]:
+        """The stage-2 slot messages of circuit c_idx (None without lookups)."""
+        arities = tuple(len(args) for _, args in self.circuits[c_idx].graph.lookups)
+        if not arities:
+            return None
+        return self.cached_program(
+            ("stage-2 messages", c_idx),
+            lambda: lk.stage2_program(self.config.host_field.p, self.config.extension_params, arities,
+                                      f"stage-2 messages of circuit {c_idx}"),
+        )
+
+    def quotient_program(self, c_idx: int, log_n: int) -> Program:
+        from .prover import _quotient_program
+
+        return self.cached_program(("quotient", c_idx, log_n), lambda: _quotient_program(self, c_idx, log_n))
+
+    def programs(self, heights: Sequence[int]) -> List[Program]:
+        """Every K11 program a prove of a witness with these trace heights
+        runs: per active circuit its lookup values and stage-2 messages (if
+        it has lookups) and its quotient."""
+        out = []
+        for c_idx, h in enumerate(heights):
+            if h:
+                if self.circuits[c_idx].graph.lookups:
+                    out += [self.lookup_values_program(c_idx), self.stage2_program(c_idx)]
+                out.append(self.quotient_program(c_idx, h.bit_length() - 1))
+        return out
 
     @staticmethod
     def new(config, inputs: Sequence[CircuitInputs]) -> Tuple["System", ProverKey]:
@@ -167,6 +199,8 @@ class SystemWitness:
         (as `witness_from_numpy` returns them); values become field elements
         as the config's `from_np` makes them (BabyBear reduces mod p)."""
         F, device = system.config.field, system.config.device
+        if torch.device(device).type == "cuda":  # the compiled K11 programs of this prove, built together
+            program.build(F, system.programs([t.shape[0] for t in traces]))
         dev_traces: List[Optional[torch.Tensor]] = []
         heights: List[int] = []
         lvs: List[Optional[lk.LookupValues]] = []
@@ -210,7 +244,7 @@ def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat,
         }
     sels = system.selector_cache[sel_key]
     arities = tuple(len(args) for _, args in circuit.graph.lookups)
-    prog = system.cached_program(("lookup values", c_idx), lambda: _lookup_values_program(system, c_idx))
+    prog = system.lookup_values_program(c_idx)
     sources = [None, None, None]
     sources[Source.MAIN.value] = main_mat
     sources[Source.PREPROCESSED.value] = pre_mat
@@ -219,11 +253,7 @@ def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat,
     n_out = sum(1 + a for a in arities)
     ops = Operands(sources=sources, rows=height, selectors=[sels.get(name) for name in SELECTORS[:3]])
     matrix = expr_sweep(config.field, prog, ops, (n_out, height), height, 1) if n_out else None
-    stage2 = system.cached_program(
-        ("stage-2 messages", c_idx), lambda: lk.stage2_program(config.host_field.p, config.extension_params, arities,
-                                                               f"stage-2 messages of circuit {c_idx}"),
-    ) if arities else None
-    return lk.LookupValues(height=height, matrix=matrix, arities=arities, stage2_program=stage2)
+    return lk.LookupValues(height=height, matrix=matrix, arities=arities, stage2_program=system.stage2_program(c_idx))
 
 
 def _lookup_values_program(system: System, c_idx: int) -> Program:

@@ -1,28 +1,30 @@
 """Scans and reductions over field tensors: kernel K4 (gl_scan), plus index
 helpers and the host boundary (uploads, the one fetch, device ext scalars).
 
-`batch_inv`, `cumsum` and `field_sum` work along the LAST axis of a base
-tensor (..., n) or a coordinate-major extension tensor (D, ..., n), and take
-the ops of its field (fields/device.py: GL_OPS, BB_OPS, or an extension's
-GL2_OPS, BB4_OPS).  A CUDA tensor launches the hand-written kernel
-(csrc/gl_scan.cu, which serves both fields): a tile-local scan or sum, the
-same kernels over the (rows, tiles) array of tile totals, and an add-back.
-A CPU tensor takes the plain PyTorch version beside it (log-depth
-Hillis-Steele scans over the plain field ops).
+`batch_inv`, `cumsum`, `field_sum` and `inv_sum` work along the LAST axis of
+a base tensor (..., n) or a coordinate-major extension tensor (D, ..., n),
+and take the ops of its field (fields/device.py: GL_OPS, BB_OPS, or an
+extension's GL2_OPS, BB4_OPS); `stage2_chain` is the logUp stage-2 chain of
+one circuit.  A CUDA tensor launches the hand-written kernel
+(csrc/gl_scan.cu, which serves both fields): one launch per call, at any
+size (per-tile batch inverses, single-pass scans with decoupled look-back,
+last-block-done sums).  A CPU tensor takes the plain PyTorch version beside
+each (log-depth Hillis-Steele scans over the plain field ops).
+
+The single-pass entries keep status words between calls in scratch buffers
+per device and stream (`_Scratch`): each scan takes a new epoch and each
+sum's last block resets its counter, so no launch ever resets them.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from . import kernels
 from .fields.device import ExtOps
-
-_TILE = 2048  # THREADS * ITEMS in csrc/gl_scan.cu
-_MAX_ROWS = 65535  # gridDim.y
-_ADD, _MUL_NONZERO = 0, 2
-
 
 def bit_reverse_indices(log_n: int) -> np.ndarray:
     """Permutation i -> reverse_bits(i, log_n) as an int64 numpy array."""
@@ -146,67 +148,89 @@ def batch_inv_plain(x: torch.Tensor, ops) -> torch.Tensor:
     return torch.where(zero, 0, out)
 
 
+def inv_sum_plain(x: torch.Tensor, ops) -> torch.Tensor:
+    """Plain version of `inv_sum`: the batch inverse, then the sum."""
+    return field_sum_plain(batch_inv_plain(x, ops), ops)
+
+
+def stage2_chain_plain(E: ExtOps, L: int, msgs: torch.Tensor, acc: torch.Tensor):
+    """Plain version of `stage2_chain`, the composition the JAX package runs
+    (utils.py batch_inv, then lookup.py _stage2_scan): the inverses of the
+    messages, terms mult/message, their inclusive prefix sum, the exclusive
+    shift plus acc, and the stage-2 column layout, row (j·D + d) =
+    coordinate d of slot j."""
+    D = E.D
+    terms = E.scale_plain(batch_inv_plain(msgs[:D], E), msgs[D])
+    incl = cumsum_plain(terms, E)
+    excl = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    acc_flat = E.add_plain(excl, acc.reshape(D, 1))
+    n = acc_flat.shape[1] // L
+    mat = acc_flat.reshape(D, n, L).permute(2, 0, 1).reshape(L * D, n).contiguous()
+    return mat, incl[:, -1]
+
+
 # --- CUDA launches --------------------------------------------------------------
 
-def _rows(x: torch.Tensor, D: int):
-    """(coordinate stride, rows, n) of a contiguous base or ext tensor."""
+_BATCH, _SUM, _SCAN, _CHAIN = range(4)  # the tile kinds of csrc/gl_scan.cu gls_tiles
+
+
+class _Scratch:
+    """K4's scratch words on one device and stream, in int64 buffers that
+    only grow (zeroed when they do): the single-pass scans' status words
+    (word 0 the ticket counter, then epoch-tagged flags and values), with
+    the last epoch used and the tickets issued so far; the row sums'
+    counters (0 between launches: the last block of a row resets its own);
+    their partial sums."""
+
+    def __init__(self):
+        self.status = self.counters = self.partials = None
+        self.epoch = 0
+        self.tickets = 0
+
+    def take_status(self, like: torch.Tensor, words: int) -> Tuple[torch.Tensor, int, int]:
+        """(status buffer of >= words, a new epoch, the tickets issued before)."""
+        if self.status is None or self.status.numel() < words:
+            self.status = _grown(self.status, words, like)
+            self.tickets = 0  # a new counter
+        self.epoch += 1
+        return self.status, self.epoch, self.tickets
+
+    def take_sums(self, like: torch.Tensor, rows: int, words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rows counters, a buffer of >= words for the partial sums)."""
+        if self.counters is None or self.counters.numel() < rows:
+            self.counters = _grown(self.counters, rows, like)
+        if self.partials is None or self.partials.numel() < words:
+            self.partials = _grown(self.partials, words, like)
+        return self.counters, self.partials
+
+
+def _grown(buf, words: int, like: torch.Tensor) -> torch.Tensor:
+    size = max(words, 2 * (0 if buf is None else buf.numel()))
+    return torch.zeros(size, dtype=torch.int64, device=like.device)
+
+
+_SCRATCH: Dict[tuple, _Scratch] = {}
+_TILES: Dict[tuple, int] = {}
+
+
+def _scratch(x: torch.Tensor) -> _Scratch:
+    key = (x.device, kernels.current_stream())
+    if key not in _SCRATCH:
+        _SCRATCH[key] = _Scratch()
+    return _SCRATCH[key]
+
+
+def _tiles(F, ext: bool, kind: int, n: int) -> int:
+    key = (F.field_id, ext, kind, n)
+    if key not in _TILES:
+        _TILES[key] = kernels.library().gls_tiles(F.field_id, int(ext), kind, n)
+    return _TILES[key]
+
+
+def _rows(x: torch.Tensor, D: int) -> Tuple[int, int]:
+    """(rows, n) of a contiguous base or ext tensor."""
     n = x.shape[-1]
-    per_coord = x.numel() // max(D, 1)
-    rows = per_coord // n if n else 0
-    if rows > _MAX_ROWS:
-        raise ValueError(f"gl_scan takes at most {_MAX_ROWS} rows, got {rows}")
-    return per_coord, rows, n
-
-
-def _scan_cuda(x: torch.Tensor, F, D: int, combine: int, reverse: bool) -> torch.Tensor:
-    cs, rows, n = _rows(x, D)
-    out = torch.empty_like(x)
-    tiles = -(-n // _TILE)
-    tot = torch.empty(((D,) if D else ()) + (rows, tiles), dtype=torch.int64, device=x.device)
-    p = kernels.ptr
-    kernels.GL_SCAN.launch(
-        "gls_scan_tile", F.field_id, int(D > 0), p(x), cs, p(out), cs, p(tot), rows * tiles, rows, n,
-        combine, int(reverse),
-    )
-    if tiles > 1:
-        # tile totals are in logical (scan) order, so their scan runs forward
-        tot = _scan_cuda(tot, F, D, combine, reverse=False)
-        kernels.GL_SCAN.launch(
-            "gls_scan_addback", F.field_id, int(D > 0), p(out), cs, p(tot), rows * tiles, rows, n,
-            combine, int(reverse),
-        )
-    return out
-
-
-def _sum_cuda(x: torch.Tensor, F) -> torch.Tensor:
-    lead = x.shape[:-1]
-    x = x.reshape(-1, x.shape[-1])
-    while x.shape[-1] > 1:
-        rows, n = x.shape
-        if rows > _MAX_ROWS:
-            raise ValueError(f"gl_scan takes at most {_MAX_ROWS} rows, got {rows}")
-        tiles = -(-n // _TILE)
-        tot = torch.empty((rows, tiles), dtype=torch.int64, device=x.device)
-        kernels.GL_SCAN.launch(
-            "gls_sum_tile", F.field_id, 0, kernels.ptr(x), rows * n, kernels.ptr(tot), rows * tiles, rows, n,
-        )
-        x = tot
-    return x[:, 0].reshape(lead)
-
-
-def _batch_inv_cuda(x: torch.Tensor, F, D: int) -> torch.Tensor:
-    cs, rows, n = _rows(x, D)
-    pre = _scan_cuda(x, F, D, _MUL_NONZERO, reverse=False)
-    suf = _scan_cuda(x, F, D, _MUL_NONZERO, reverse=True)
-    tinv = torch.empty(((D,) if D else ()) + (rows,), dtype=torch.int64, device=x.device)
-    out = torch.empty_like(x)
-    p, ext = kernels.ptr, int(D > 0)
-    kernels.GL_SCAN.launch("gls_row_inv", F.field_id, ext, p(pre), cs, p(tinv), rows, rows, n)
-    kernels.GL_SCAN.launch(
-        "gls_binv_finish", F.field_id, ext, p(x), cs, p(pre), p(suf), cs, p(tinv), rows,
-        p(out), cs, rows, n,
-    )
-    return out
+    return x.numel() // max(D, 1) // n, n
 
 
 # --- dispatch -------------------------------------------------------------------
@@ -214,12 +238,17 @@ def _batch_inv_cuda(x: torch.Tensor, F, D: int) -> torch.Tensor:
 def batch_inv(x: torch.Tensor, ops) -> torch.Tensor:
     """Elementwise inverse along the last axis, zeros mapping to zero."""
     x = x.contiguous()
-    if x.shape[-1] == 0:
+    if x.shape[-1] == 0 or x.numel() == 0:
         return x.clone()
     if not kernels.use_kernel(x):
         return batch_inv_plain(x, ops)
     kernels.check_cuda(x)
-    return _batch_inv_cuda(x, *_split(ops))
+    F, D = _split(ops)
+    rows, n = _rows(x, D)
+    out = torch.empty_like(x)
+    kernels.GL_SCAN.launch("gls_batch_inv", F.field_id, int(D > 0), kernels.ptr(x), kernels.ptr(out), rows, n,
+                           cost=(16 * x.numel(), 0))
+    return out
 
 
 def cumsum(x: torch.Tensor, ops) -> torch.Tensor:
@@ -228,8 +257,20 @@ def cumsum(x: torch.Tensor, ops) -> torch.Tensor:
     x = x.contiguous()
     if not kernels.use_kernel(x):
         return cumsum_plain(x, ops)
+    if x.numel() == 0:
+        return x.clone()
     kernels.check_cuda(x)
-    return _scan_cuda(x, _split(ops)[0], 0, _ADD, reverse=False)
+    F = _split(ops)[0]
+    rows, n = _rows(x, 0)
+    tiles = _tiles(F, False, _SCAN, n)
+    sc = _scratch(x)
+    buf, epoch, issued = sc.take_status(x, 1 + 3 * rows * tiles)
+    out = torch.empty_like(x)
+    p = kernels.ptr
+    kernels.GL_SCAN.launch("gls_cumsum", F.field_id, p(x), p(out), rows, n, p(buf), issued, epoch,
+                           cost=(16 * x.numel(), 0))
+    sc.tickets += rows * tiles
+    return out
 
 
 def field_sum(x: torch.Tensor, ops) -> torch.Tensor:
@@ -238,4 +279,59 @@ def field_sum(x: torch.Tensor, ops) -> torch.Tensor:
     if not kernels.use_kernel(x):
         return field_sum_plain(x, ops)
     kernels.check_cuda(x)
-    return _sum_cuda(x, _split(ops)[0])
+    F = _split(ops)[0]
+    rows, n = _rows(x, 0)
+    tiles = _tiles(F, False, _SUM, n)
+    done, partials = _scratch(x).take_sums(x, rows, rows * tiles)
+    out = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
+    p = kernels.ptr
+    kernels.GL_SCAN.launch("gls_sum", F.field_id, p(x), p(out), rows, n, p(done), p(partials),
+                           cost=(8 * (x.numel() + out.numel()), 0))
+    return out
+
+
+def inv_sum(x: torch.Tensor, ops) -> torch.Tensor:
+    """The sum of the inverses of the elements along the last axis (zeros
+    contributing zero): `field_sum(batch_inv(x))` in one launch."""
+    x = x.contiguous()
+    if not kernels.use_kernel(x):
+        return inv_sum_plain(x, ops)
+    kernels.check_cuda(x)
+    F, D = _split(ops)
+    rows, n = _rows(x, D)
+    tiles = _tiles(F, D > 0, _BATCH, n)
+    done, partials = _scratch(x).take_sums(x, rows, rows * tiles * max(D, 1))
+    out = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
+    p = kernels.ptr
+    kernels.GL_SCAN.launch("gls_inv_sum", F.field_id, int(D > 0), p(x), p(out), rows, n, p(done), p(partials),
+                           cost=(8 * (x.numel() + out.numel()), 0))
+    return out
+
+
+def stage2_chain(E: ExtOps, L: int, msgs: torch.Tensor, acc: torch.Tensor):
+    """The logUp stage-2 chain of one circuit from K11's messages: msgs
+    (D+1, n·L), planes 0..D-1 the slot messages in chain order (row-major,
+    slot-minor), plane D the multiplicities; acc the (D,) accumulator before
+    the circuit.  Returns (the stage-2 matrix (L·D, n), row j·D + d =
+    coordinate d of slot j, holding acc plus the chain's exclusive prefix;
+    the chain's total (D,)).  One K4 launch on a CUDA tensor, the plain
+    composition on a CPU one."""
+    D = E.D
+    if msgs.dim() != 2 or msgs.shape[0] != D + 1 or msgs.shape[1] % L:
+        raise ValueError(f"stage2_chain takes ({D + 1}, n·L) messages")
+    if not kernels.use_kernel(msgs):
+        return stage2_chain_plain(E, L, msgs, acc)
+    msgs, acc = msgs.contiguous(), acc.reshape(D).contiguous()
+    kernels.check_cuda(msgs, acc)
+    n = msgs.shape[1] // L
+    F = E.base
+    tiles = _tiles(F, True, _CHAIN, n * L)
+    sc = _scratch(msgs)
+    buf, epoch, issued = sc.take_status(msgs, 1 + (1 + 2 * D) * tiles)
+    mat = torch.empty((L * D, n), dtype=torch.int64, device=msgs.device)
+    total = torch.empty(D, dtype=torch.int64, device=msgs.device)
+    p = kernels.ptr
+    kernels.GL_SCAN.launch("gls_stage2_chain", F.field_id, p(msgs), n, L, p(acc), p(mat), p(total), p(buf),
+                           issued, epoch, cost=(8 * (msgs.numel() + mat.numel() + 2 * D), 0))
+    sc.tickets += tiles
+    return mat, total

@@ -26,6 +26,6 @@ for tree in A B B A; do
     fi
     echo "turn $turn: tree $tree ($dir)"
     (cd "$dir" && python3 -m multistark_tpu_torch.spans "$@") > "$out/${turn}_$tree.txt" 2>&1
-    grep -E "warm prove, |device busy|profiled prove, (K2 |K14 |K15 |ntt_stage_kernel|lde_tile_kernel|merkle_levels_kernel)" \
+    grep -E "warm prove, |device busy|profiled prove, (K[0-9]+ |PyTorch ops)" \
         "$out/${turn}_$tree.txt"
 done

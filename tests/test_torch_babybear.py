@@ -314,8 +314,9 @@ def test_port_imports_nothing_of_jax_and_builds_only_its_own_sources():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "multistark_tpu"), f"{path} imports {mod}"
     pkg = os.path.join(ROOT, "multistark_tpu_torch") + os.sep
-    srcs = kernels.sources() + native.sources()
-    assert len(kernels.sources()) == 12 and len(native.sources()) == 2
+    srcs = kernels.sources() + native.sources() + [kernels.PROGRAM_TEMPLATE]
+    assert len(kernels.sources()) == 11 and len(native.sources()) == 2  # K11 builds per program from its template
+    assert os.path.exists(kernels.PROGRAM_TEMPLATE) and kernels.PROGRAM_TEMPLATE not in kernels.sources()
     assert all(os.path.abspath(s).startswith(pkg) for s in srcs), srcs
     assert {k.name for k in kernels.KERNELS} >= {"bb_arith", "poseidon2_merkle", "dt_flush", "fri_grind",
                                                  "claims_fp", "fri_fold", "expr_sweep", "bary_eval", "reduced_open",

@@ -1,11 +1,15 @@
 """K4 (gl_scan): the port's batch inverse, mod-p sum and prefix sum on CPU
 tensors against the JAX package's utils (_batch_inv_impl, field_sum,
-cumsum), bit-exact, for base and GL2 values, zeros included."""
+cumsum), bit-exact, for base and GL2 values, zeros included; and its two
+fused entries, the stage-2 chain (against JAX batch_inv + lookup._stage2_scan)
+and the sum of inverses (against JAX field_sum of batch_inv), for GL2 and
+BB4."""
 
 import numpy as np
 import pytest
 
-from multistark_tpu import utils as jax_utils
+from multistark_tpu import lookup as jax_lk, utils as jax_utils
+from multistark_tpu.fields import device as jax_fd
 from multistark_tpu.fields.device import GL2_OPS, GL_OPS
 from multistark_tpu_torch import utils
 from multistark_tpu_torch.fields import device as fd
@@ -70,3 +74,42 @@ def test_ext_sum_and_cumsum_match_jax(n):
     np.testing.assert_array_equal(
         fd.to_np(utils.cumsum(_te(x), TGL2)).T, GL2_OPS.to_np(jax_utils.cumsum(GL2_OPS, jx, axis=0))
     )
+
+
+# --- the fused entries: the stage-2 chain and the sum of inverses -----------------
+
+_EXT = {"GL2": (GL_OPS, GL2_OPS, TGL2), "BB4": (jax_fd.BB_OPS, jax_fd.BB4_OPS, fd.BB4_OPS)}
+
+
+@pytest.mark.parametrize("L", [1, 13])
+@pytest.mark.parametrize("ext", list(_EXT))
+def test_stage2_chain_matches_jax_batch_inv_and_stage2_scan(ext, L):
+    """utils.stage2_chain (its plain version on a CPU tensor) against JAX
+    batch_inv + lookup._stage2_scan on the same messages, multiplicities and
+    accumulator, one message zero (it maps to a zero term)."""
+    JF, JE, TE = _EXT[ext]
+    D, p = JE.D, TE.base.p
+    n = 24
+    rng = np.random.default_rng(40 + L + D)
+    msgs = rng.integers(0, p, (n * L, D), dtype=np.uint64)
+    msgs[7] = 0
+    mults = rng.integers(0, p, n * L, dtype=np.uint64)
+    acc = tuple(int(c) for c in rng.integers(0, p, D, dtype=np.uint64))
+    inv = jax_utils.batch_inv(JE, JE.from_np(msgs), axis=0)
+    jmat, jtotal = jax_lk._stage2_scan(JF, JE, L, inv, JF.from_np(mults), jax_utils.ext_scalar(JE, acc))
+    tmsgs = TE.base.from_np(np.concatenate([msgs.T, mults[None]]), "cpu")
+    mat, total = utils.stage2_chain(TE, L, tmsgs, TE.const(acc, "cpu"))
+    np.testing.assert_array_equal(fd.to_np(mat), JF.to_np(jmat))
+    np.testing.assert_array_equal(fd.to_np(total), [int(JF.to_np(c)) for c in jtotal])
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("ext", list(_EXT))
+def test_inv_sum_matches_jax_field_sum_of_batch_inv(ext, n):
+    JF, JE, TE = _EXT[ext]
+    rng = np.random.default_rng(70 + n)
+    x = rng.integers(0, TE.base.p, (n, JE.D), dtype=np.uint64)
+    x[:: max(1, n // 3)] = 0
+    want = JE.to_np(jax_utils.field_sum(JE, jax_utils.batch_inv(JE, JE.from_np(x), axis=0), axis=0))
+    got = utils.inv_sum(TE.base.from_np(np.ascontiguousarray(x.T), "cpu"), TE)
+    np.testing.assert_array_equal(fd.to_np(got), want)
