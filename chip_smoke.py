@@ -14,7 +14,8 @@ without printing a result:
                 recorded program of the bench proves (both configs, 2^14
                 and 2^18), generated from the template csrc/expr_sweep.cu,
                 one nvcc per program, all at once; prints each program's
-                build seconds and gl_scan.cu's registers and spills
+                build seconds and the registers and spills of gl_scan.cu's,
+                K15's and K13's kernels
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K2 one stage per launch and as multi-stage passes at every
@@ -22,15 +23,22 @@ without printing a result:
                 entries (batch inverse, cumsum, sum, sum of inverses, the
                 stage-2 chain) at the stage-2 shape and at edge cases around
                 their tiles; K11 on U32Add's three recorded programs at 2^18
-                rows and the quotient in the sharded natural mode, K12 and
-                K13 on a (14, 2^20) stored LDE at two points, K14 at the
-                tiles the commits pick: the stage-1 commit's tile, with and
-                without an injection inside its levels, the stage-2 width,
-                an iDFT's tail and its DIT head, the quotient iDFT's DIT
-                head; K15 above the stage-1 tile and on a FRI round's
-                2^19-leaf tree); outputs must be bit-equal (all arithmetic
-                is exact mod p, all hashing exact); warm CUDA-event times of
-                both, and for K4 and K11 the profiler's device time
+                rows and the quotient in the sharded natural mode, K12 on a
+                (14, 2^20) stored LDE at two points, K13 at the bench's two
+                LDE heights (2^20: three matrices, 2^10: four; the parent's
+                per-matrix composition timed beside), K14 at the tiles the
+                commits pick: the stage-1 commit's tile, with and without
+                an injection inside its levels, the stage-2 width, an
+                iDFT's tail and its DIT head, the quotient iDFT's DIT head;
+                K15 on every tree of 2^1 to 2^20 leaves at caps 2^0 and 2^4
+                with injections at the first level, above the first tier
+                and at the top, each launched twice, and on forced plans of
+                many tiers, then above the stage-1 tile and on a FRI
+                round's 2^19-leaf tree beside the parent's launch structure,
+                and one compression's latency); outputs must be bit-equal
+                (all arithmetic is exact mod p, all hashing exact); warm
+                CUDA-event times of both, and for K4, K11, K13 and K15 the
+                profiler's device time
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
                 witness) at 2^14 and 2^18 rows on `cuda` along three paths:
@@ -389,24 +397,7 @@ def check_kernels(dev):
                 lambda: pcs.bary_eval_plain(E, lde, 18, ws, zs, s_n, inv_ns),
                 (8 * lde_w * n18 + 8 * P * D * n18 + 8 * P * D * lde_w, P * D * lde_w * n18 * (mul_ops + 2)),
                 name="bary_eval" if F is GL_OPS else None)
-        count = 2 * lde_w + 2 * 13 * D + D  # α powers at the tallest height: stage 1, 2 at two points, quotient at one
-        apows = rnd(F, D, count)
-        vals = [rnd(F, D, lde_w) for _ in range(P)]
-        invs = [rnd(F, D, 1 << lde_log) for _ in range(P)]
-        offs = [3, 3 + lde_w]
-        n_lde = 1 << lde_log
-        compare(f"reduced_open {E.name} (14, 2^20), 2 points",
-                lambda: pcs.reduced_open(E, lde, apows, vals, invs, offs),
-                lambda: pcs.reduced_open_plain(E, lde, apows, vals, invs, offs),
-                (8 * lde_w * n_lde + 8 * P * D * n_lde + 8 * D * n_lde,
-                 n_lde * (lde_w * D * (mul_ops + 2) + P * (2 * ext_muls * mul_ops + 4 * D))),
-                name="reduced_open" if F is GL_OPS else None)
-        acc = rnd(F, D, n_lde)
-        compare(f"reduced_open {E.name} (14, 2^20), 2 points, into a running sum",
-                lambda: pcs.reduced_open(E, lde, apows, vals, invs, offs, acc.clone()),
-                lambda: pcs.reduced_open_plain(E, lde, apows, vals, invs, offs, acc),
-                (8 * lde_w * n_lde + 8 * P * D * n_lde + 16 * D * n_lde,
-                 n_lde * (lde_w * D * (mul_ops + 2) + P * (2 * ext_muls * mul_ops + 4 * D))))
+        check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, first=F is GL_OPS)
 
     # K8: one FRI round's grind at the bench's 10 bits over chain ‖ cap
     bits = BENCH_FRI["commit_proof_of_work_bits"]
@@ -433,6 +424,59 @@ def check_kernels(dev):
     compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
             (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
     return rows
+
+
+def check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, first: bool) -> None:
+    """K13 against its plain version at the bench's two LDE heights, with
+    the prover's rounds (preprocessed, stage 1 and stage 2 at ζ and ζg, the
+    quotient at ζ) and random claimed values, inverses and α: 2^20
+    (U32Add's stage-1, stage-2 and quotient matrices) and 2^10 (ByteTable's
+    four), one scalar and one row launch each; the parent's per-matrix
+    composition (one call per matrix, adding into the sum) timed beside;
+    the adding path against the plain version; profiler device time."""
+    from multistark_tpu_torch import kernels, pcs, system as sm, utils
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    system, _ = sm.System.new(bench_config(dev, "goldilocks_blake3" if first else "babybear_poseidon2"),
+                              u32_add_system_inputs())
+    D, P, b = E.D, 2, BENCH_COMMIT["log_blowup"]
+    heights = {}  # log_lde -> [(width, number of points)] in the prover's round order
+    for c in system.circuits:
+        log_lde = (18 if c.preprocessed_dims is None else c.preprocessed_dims[0].bit_length() - 1) + b
+        if c.preprocessed_dims is not None:
+            heights.setdefault(log_lde, []).append((c.preprocessed_dims[1], 2))
+        heights.setdefault(log_lde, []).extend([(c.main_width, 2), (c.stage2_width, 2),
+                                                (D * c.quotient_degree, 1)])
+    for log_lde in sorted(heights, reverse=True):
+        widths, N = heights[log_lde], 1 << log_lde
+        count = sum(w * k for w, k in widths)
+        mats = [lde[:w] if w <= lde.shape[0] and N == lde.shape[1] else rnd(F, w, N) for w, _ in widths]
+        apows = utils.ext_powers_device(E, rnd(F, D), count).contiguous()  # α^0 .. α^(count - 1), as the prover
+        invs = [rnd(F, D, N) for _ in range(P)]
+        openings, off = [], 0
+        for w, k in widths:
+            openings.append([(p, off + p * w, rnd(F, D, w)) for p in range(k)])
+            off += w * k
+        cols, pairs = sum(w for w, _ in widths), sum(k for _, k in widths)
+        cost = (8 * N * (cols + P * D + D), N * (cols * D + (pairs + P) * ext_muls) * mul_ops)
+        label = f"reduced_open {E.name} LDE height 2^{log_lde}, {len(widths)} matrices {widths} (width, points)"
+        compare(label, lambda: pcs.reduced_open_height(E, mats, apows, openings, invs),
+                lambda: pcs.reduced_open_height_plain(E, mats, apows, openings, invs), cost,
+                name="reduced_open" if first and log_lde == 20 else None, kernel=kernels.REDUCED_OPEN)
+
+        def per_matrix():
+            ro = None
+            for mat, opened in zip(mats, openings):
+                ro = pcs.reduced_open_height(E, [mat], apows, [opened], invs, ro)
+            return ro
+
+        say("kernels", f"{label}: the parent's per-matrix composition (one K13 call per matrix, each adding into "
+            f"the sum): {cuda_ms(per_matrix, 5):.4f} ms, device_ms={device_ms(per_matrix, kernels.REDUCED_OPEN):.4f}")
+        acc = rnd(F, D, N)
+        compare(f"{label}, added into a running sum",
+                lambda: pcs.reduced_open_height(E, mats, apows, openings, invs, acc.clone()),
+                lambda: pcs.reduced_open_height_plain(E, mats, apows, openings, invs, acc),
+                (cost[0] + 8 * D * N, cost[1]))
 
 
 def unfused_stage2_chain(E, L, msgs, acc):
@@ -613,19 +657,115 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
 
     top, L = stage1[-1], 20 - (len(stage1) - 1)  # K15 above the stage-1 tile, up to the cap
     inject = {10 - (len(stage1) - 1): byte_table}
-    S = top.shape[0]
-    compare(f"merkle_levels {F.name} stage-1 tree above the tile, 2^{L} nodes, {L} levels, ByteTable injected",
-            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels(hasher, top, L, inject)]),
-            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels_plain(hasher, top, L, inject)]),
-            (32 * S + 32 * (S - 1) + 32 * 1024, per_hash * (S - 1 + 1024)),
-            time_fn=lambda: ct.merkle_levels(hasher, top, L, inject))
+    check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first)
+
+
+def check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first: bool) -> None:
+    """K15 against its plain version: every tree of 2^1 to 2^20 leaves at
+    cap heights 0 and 4, with injections at the first level, at the first
+    level above the first tier's subtrees and at the top, each launched
+    twice (the second launch finds the arrival counters the first left);
+    forced plans of many small tiers; then the bench's stage-1 tree above
+    its tile (ByteTable injected) and a FRI round's 2^19-leaf tree timed
+    against the parent's launch structure on this kernel (one launch per
+    10 levels, subtrees of 2^10 nodes), with the profiler's device time;
+    last, one compression's latency (a one-thread chain, K15's floor per
+    level) and the ptxas report of the tree kernel."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import commit_tile as ct, kernels
+
+    rng = np.random.default_rng(3)
+
+    def digests(h):  # canonical field elements for Poseidon2, any words for BLAKE3
+        words = rng.integers(0, 2 ** 32 if first else F.p, (h, 8), dtype=np.uint64)
+        return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+
+    def flat(layers):
+        return torch.cat([t.reshape(-1) for t in layers])
+
+    cases = 0
+    for log_size in range(1, 21):
+        leaves = digests(1 << log_size)
+        for cap in (0, 4):
+            levels = log_size - cap
+            if levels < 1:
+                continue
+            s0 = ct.levels_plan(log_size, levels).tiers[0]
+            inj = {lv: digests(1 << (log_size - lv)) for lv in sorted({1, min(s0 + 1, levels), levels})}
+            want = flat(ct.merkle_levels_plain(hasher, leaves, levels, inj))
+            for _ in range(2):
+                if max_abs_err(flat(ct.merkle_levels(hasher, leaves, levels, inj)), want) != 0:
+                    raise AssertionError(f"merkle_levels {F.name} 2^{log_size} leaves, cap 2^{cap}, injections "
+                                         f"{sorted(inj)}: kernel disagrees with its plain version")
+                cases += 1
+    for log_size, tiers in ((12, (2, 2, 2, 2, 2, 2)), (12, (1,) * 7 + (5,)), (16, (7, 5, 4)), (20, (10, 6, 4))):
+        leaves = digests(1 << log_size)
+        levels = sum(tiers)
+        plan = ct.LevelsPlan(tiers, 1 << (log_size - tiers[0]), 256, 0)
+        plan = ct.LevelsPlan(tiers, plan.blocks, 256, sum(plan.blocks >> sum(tiers[1:t + 1])
+                                                         for t in range(1, len(tiers))))
+        inj = {lv: digests(1 << (log_size - lv)) for lv in (1, tiers[0], tiers[0] + 1, levels)}
+        want = flat(ct.merkle_levels_plain(hasher, leaves, levels, inj))
+        for _ in range(2):
+            if max_abs_err(flat(ct.merkle_levels(hasher, leaves, levels, inj, plan=plan)), want) != 0:
+                raise AssertionError(f"merkle_levels {F.name} 2^{log_size} leaves, tiers {tiers}: kernel disagrees "
+                                     "with its plain version")
+            cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"merkle_levels {F.name}: {cases} trees (2^1 to 2^20 leaves, caps 2^0 and 2^4, injections at "
+        "the first level, above the first tier and at the top, each launched twice; forced plans of up to 8 "
+        "tiers) bit-equal to the plain version")
+
+    def parent_structure(layer, levels, inj):
+        """The parent's launches on this kernel: 10 levels per launch, one
+        block per 2^10-node subtree."""
+        out, done = [], 0
+        while done < levels:
+            fold = min(10, levels - done)
+            size = layer.shape[0]
+            plan = ct.LevelsPlan((fold,), size >> fold, 256, 0)
+            sub = {lv - done: d for lv, d in inj.items() if done < lv <= done + fold}
+            out += ct.merkle_levels(hasher, layer, fold, sub, plan=plan)
+            layer, done = out[-1], done + fold
+        return out
+
+    S, L = top.shape[0], top.shape[0].bit_length() - 1
+    injected = sum(d.shape[0] for d in inject.values())
+    plan = ct.levels_plan(L, L)
+    label = f"merkle_levels {F.name} stage-1 tree above the tile, 2^{L} nodes, {L} levels, ByteTable injected"
+    compare(f"{label}, plan {plan.tiers} x {plan.blocks} blocks",
+            lambda: flat(ct.merkle_levels(hasher, top, L, inject)),
+            lambda: flat(ct.merkle_levels_plain(hasher, top, L, inject)),
+            (32 * S + 32 * (S - 1) + 32 * injected, per_hash * (S - 1 + injected)),
+            time_fn=lambda: ct.merkle_levels(hasher, top, L, inject), kernel=kernels.MERKLE_LEVELS)
+    say("kernels", f"{label}, the parent's launch structure on this kernel (10 levels per launch): "
+        f"{cuda_ms(lambda: parent_structure(top, L, inject), 5):.4f} ms, device_ms="
+        f"{device_ms(lambda: parent_structure(top, L, inject), kernels.MERKLE_LEVELS):.4f}")
     leaves = hasher.hash_matrices([rnd(F, 2 * (2 if first else 4), 1 << 19)])  # an arity-2 fold of (D, 2^20)
     S, L = leaves.shape[0], 19
-    compare(f"merkle_levels {F.name} FRI round tree, 2^19 leaves, {L} levels",
-            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels(hasher, leaves, L)]),
-            lambda: torch.cat([t.reshape(-1) for t in ct.merkle_levels_plain(hasher, leaves, L)]),
+    plan = ct.levels_plan(L, L)
+    label = f"merkle_levels {F.name} FRI round tree, 2^19 leaves, {L} levels"
+    compare(f"{label}, plan {plan.tiers} x {plan.blocks} blocks",
+            lambda: flat(ct.merkle_levels(hasher, leaves, L)),
+            lambda: flat(ct.merkle_levels_plain(hasher, leaves, L)),
             (32 * S + 32 * (S - 1), per_hash * (S - 1)), name="merkle_levels" if first else None,
-            time_fn=lambda: ct.merkle_levels(hasher, leaves, L))
+            time_fn=lambda: ct.merkle_levels(hasher, leaves, L), kernel=kernels.MERKLE_LEVELS)
+    say("kernels", f"{label}, the parent's launch structure on this kernel (10 levels per launch): "
+        f"{cuda_ms(lambda: parent_structure(leaves, L, {}), 5):.4f} ms, device_ms="
+        f"{device_ms(lambda: parent_structure(leaves, L, {}), kernels.MERKLE_LEVELS):.4f}")
+
+    d0 = digests(1)
+    if not torch.equal(ct.node_chain(hasher, d0, 64), ct.node_chain_plain(hasher, d0, 64)):
+        raise AssertionError(f"node_chain {F.name}: 64 chained compressions disagree with the plain version")
+    n = 4096
+    t_n = cuda_ms(lambda: ct.node_chain(hasher, d0, n), 3)
+    t_0 = cuda_ms(lambda: ct.node_chain(hasher, d0, 0), 3)
+    lat_us = 1e3 * (t_n - t_0) / n
+    say("kernels", f"merkle_levels {F.name} node latency: {lat_us:.4f} us per compression (a one-thread chain of "
+        f"{n}, {t_n:.4f} ms, less an empty chain {t_0:.4f} ms; equal to the plain chain at 64); depth x latency: "
+        f"a 2^19-leaf tree {19 * lat_us:.2f} us")
 
 
 def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
@@ -700,28 +840,28 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
             f"{program.staging(prog)}; ptxas: {'; '.join(report) or 'no report'}")
 
 
-def ptxas_summary(path: str) -> str:
-    """Registers and spills of each kernel in an `nvcc -Xptxas -v` report."""
+def ptxas_kernels(path: str, names) -> str:
+    """Registers and spills of the kernels `names` in an `nvcc -Xptxas -v`
+    report, each with the template arguments its mangled name carries."""
     import re
 
-    out, name = [], None
+    out, label = [], None
     with open(path) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?\d+(\w+?)I.*$", r"\1", m.group(1))
-                name = next((k for k in ("batch_inv_kernel", "sum_kernel", "cumsum_kernel", "stage2_chain_kernel")
-                             if k in m.group(1) and not (k == "sum_kernel" and "cumsum" in m.group(1))), name)
-                fld = "BabyBear" if "BabyBear" in m.group(1) else "Goldilocks"
-                ext = re.search(r"Li(\d)E", m.group(1))
-                name = f"{name}<{fld}{',' + ext.group(1) if ext else ''}>"
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                mangled = m.group(1)
+                name = next((n for n in names if n in mangled), None)
+                args = re.findall(r"(Goldilocks|BabyBear|Blake3Hasher|Poseidon2TreeHasher|Poseidon2Hasher)|Li(\d+)E",
+                                  mangled[mangled.find(name) + len(name):] if name else "")
+                label = f"{name}<{','.join(a or b for a, b in args)}>" if name else None
             regs = re.search(r"Used (\d+) registers", line)
-            if name and spill:
-                out.append(f"{name} spills {spill.group(1)}/{spill.group(2)} B")
-            if name and regs:
-                out[-1:] = [f"{out[-1]} {regs.group(1)} registers"] if out else [f"{name} {regs.group(1)} registers"]
-    return "; ".join(out) or "no report"
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if label and spill:
+                out.append([label, f"spills {spill.group(1)}/{spill.group(2)} B"])
+            if label and regs and out and out[-1][0] == label:
+                out[-1].append(f"{regs.group(1)} registers")
+    return "; ".join(" ".join(o) for o in out) or "no report"
 
 
 def build_programs(dev) -> None:
@@ -994,7 +1134,10 @@ def main() -> int:
     secs = kernels.build(force=True)
     kernels.library()
     say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
-    say("build", f"gl_scan.cu ptxas: {ptxas_summary(kernels.ptxas_log(kernels.GL_SCAN.source))}")
+    for k, names in ((kernels.GL_SCAN, ("batch_inv_kernel", "stage2_chain_kernel", "cumsum_kernel", "sum_kernel")),
+                     (kernels.MERKLE_LEVELS, kernels.MERKLE_LEVELS.functions),
+                     (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions)):
+        say("build", f"{os.path.basename(k.source)} ptxas ({k.name}): {ptxas_kernels(kernels.ptxas_log(k.source), names)}")
     build_programs(dev)
 
     checked = check_kernels(dev)

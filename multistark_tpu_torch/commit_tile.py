@@ -7,9 +7,11 @@ tiles of 2^tile_log storage positions of every column; with hashing on (DIF
 only) it also hashes each stored row (the Merkle leaf of the batch's
 columns, in order) and folds the tile's digests `levels` levels up the
 tree, injecting shorter rows' leaf digests where asked.  `merkle_levels`
-folds a digest layer up `levels` levels with the same injections, at most
-2^10 nodes and 10 levels per block.  `tile_log_for` picks the tile from the
-shapes: the largest that lets BLOCKS_PER_SM blocks share an H100 SM (a
+folds a digest layer up `levels` levels with the same injections in one
+launch, by the plan `levels_plan` makes from the layer's size: each block
+of the first tier folds a subtree, and the last block of each group to
+finish folds the group's roots higher.  `tile_log_for` picks the tile from
+the shapes: the largest that lets BLOCKS_PER_SM blocks share an H100 SM (a
 hashed tile at most a row per thread), and at least a warp of rows where
 one block's opt-in shared memory allows it.
 
@@ -24,11 +26,12 @@ from the input layer.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import kernels
+from . import kernels, utils
 
 SMEM_BYTES = 232448  # an H100's opt-in shared memory per block (227 KB)
 SM_SMEM_BYTES = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it reserved per resident block
@@ -38,11 +41,61 @@ WARP_LOG = 5  # a warp: 2^5 rows hash, or nodes fold, in parallel
 HASHED_ROWS_LOG = 8  # TILE_THREADS in csrc/commit_tile.cu: a hashed tile has at most a row per thread
 CONST_BYTES = 4 * 157  # Poseidon2's round constants, staged beside a hashed tile
 MAX_TILE_LOG = 16  # MAX_TILE_LOG in csrc/commit_tile.cu
-FOLD_LOG = 10  # MAX_FOLD_LOG in csrc/commit_tile.cu: levels per K15 launch
+SMS = 132  # an H100 SXM's SMs
+TREE_THREADS = 256  # TREE_THREADS in csrc/commit_tile.cu: a K15 block's most threads
+MAX_GROUP_LOG = 10  # MAX_GROUP_LOG in csrc/commit_tile.cu: the most levels one K15 block folds per tier
+MAX_TIERS = 8  # MAX_TIERS in csrc/commit_tile.cu
+SPREAD_LOG = (SMS - 1).bit_length()  # 2^8 = 256 first-tier blocks cover every SM
+MIN_GROUP_LOG = 6  # a first-tier block of a spread tree folds at least 2^6 nodes: a warp of first-level nodes
+NODE_LANES = (1, 4)  # H::LANES in csrc/commit_tile.cu by hasher kernel id: lanes per node at the narrow levels
 
 MODE_DIF, MODE_HASHED, MODE_DIT = 0, 1, 2  # K14's modes in csrc/commit_tile.cu
 
 Injections = Dict[int, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class LevelsPlan:
+    """K15's launch for `levels` levels above a layer of 2^log_size nodes:
+    each of `blocks` first-tier blocks folds tiers[0] levels of its own
+    subtree; tier t >= 1 is folded by the last block to finish of each group
+    of 2^tiers[t] blocks of the tier below (its arrival counters:
+    `counters` words in all); `threads` per block."""
+
+    tiers: Tuple[int, ...]
+    blocks: int
+    threads: int
+    counters: int
+
+
+def levels_plan(log_size: int, levels: int, lanes: int = 1) -> LevelsPlan:
+    """The plan of one K15 launch.  A layer whose first level fits one
+    block's threads (2^(log_size - 1) <= TREE_THREADS) is folded whole by
+    each of the 2^(log_size - levels) top nodes' blocks.  A larger one is
+    spread: first-tier blocks of 2^s0 nodes, s0 = log_size - SPREAD_LOG (at
+    least MIN_GROUP_LOG, at most MAX_GROUP_LOG and `levels`), so that from
+    2^16 nodes up the first level's blocks (256 or more) cover all SMS SMs;
+    the levels above go in as few tiers as MAX_GROUP_LOG allows, split
+    evenly.  Threads: `lanes` (the hasher's NODE_LANES) per first-level
+    node of the largest tier, 32 to TREE_THREADS."""
+    if not 1 <= levels <= log_size:
+        raise ValueError(f"{levels} levels above a layer of 2^{log_size} nodes")
+    if log_size - 1 <= TREE_THREADS.bit_length() - 1:
+        s0 = levels
+    else:
+        s0 = min(levels, MAX_GROUP_LOG, max(MIN_GROUP_LOG, log_size - SPREAD_LOG))
+    rest = levels - s0
+    n = -(-rest // MAX_GROUP_LOG)
+    tiers = (s0,) + tuple(rest // n + (i < rest % n) for i in range(n))
+    if len(tiers) > MAX_TIERS:
+        raise ValueError(f"{levels} levels above 2^{log_size} nodes need more than {MAX_TIERS} tiers")
+    blocks = 1 << (log_size - s0)
+    counters, groups = 0, blocks
+    for s in tiers[1:]:
+        groups >>= s
+        counters += groups
+    threads = min(TREE_THREADS, max(32, lanes << (max(tiers) - 1)))
+    return LevelsPlan(tiers, blocks, threads, counters)
 
 
 def tile_log_for(cols: int, log_n: int, hashed: bool) -> int:
@@ -176,10 +229,12 @@ def lde_tile(F, hasher, x: torch.Tensor, tile_log: int, tw: torch.Tensor, levels
     return outs
 
 
-def merkle_levels(hasher, layer: torch.Tensor, levels: int, inject: Optional[Injections] = None) -> List[torch.Tensor]:
+def merkle_levels(hasher, layer: torch.Tensor, levels: int, inject: Optional[Injections] = None,
+                  plan: Optional[LevelsPlan] = None) -> List[torch.Tensor]:
     """K15: the `levels` digest layers above `layer` ((h, 8) int32), with
-    `inject`'s digests injected at their levels; one launch per FOLD_LOG
-    levels."""
+    `inject`'s digests injected at their levels; one launch, by
+    `levels_plan(log2 h, levels, the hasher's NODE_LANES)` unless `plan`
+    names another (tests force small tiers)."""
     inject = inject or {}
     size = layer.shape[0]
     log_size = size.bit_length() - 1
@@ -189,21 +244,48 @@ def merkle_levels(hasher, layer: torch.Tensor, levels: int, inject: Optional[Inj
     if not kernels.use_kernel(layer):
         return merkle_levels_plain(hasher, layer, levels, inject)
     _check_digests(layer, *inject.values())
+    if levels == 0:
+        return []
+    plan = plan or levels_plan(log_size, levels, NODE_LANES[hasher.kernel_id])
+    if sum(plan.tiers) != levels or plan.blocks != 1 << (log_size - plan.tiers[0]):
+        raise ValueError(f"plan {plan} does not fold {levels} levels above 2^{log_size} nodes")
     consts = hasher.consts(layer.device)
-    out: List[torch.Tensor] = []
-    done = 0
-    while done < levels:
-        fold = min(FOLD_LOG, levels - done)
-        outs = _layers(size >> (done + 1), fold, layer.device)
-        out_p, inj_p = _pointers(outs, inject, done + 1)
-        injected = sum(inject[lv].shape[0] for lv in range(done + 1, done + fold + 1) if lv in inject)
-        nodes = sum(t.shape[0] for t in outs) + injected
-        kernels.MERKLE_LEVELS.launch(
-            "merkle_levels", hasher.kernel_id, kernels.ptr(layer), log_size - done, fold, out_p, inj_p,
-            None if consts is None else kernels.ptr(consts),
-            cost=(32 * (layer.shape[0] + nodes), nodes * kernels.OPS_PER_HASH[hasher.kernel_id]),
-        )
-        out += outs
-        layer = outs[-1]
-        done += fold
+    outs = _layers(size >> 1, levels, layer.device)
+    out_p, inj_p = _pointers(outs, inject, 1)
+    tiers = (ctypes.c_int * len(plan.tiers))(*plan.tiers)
+    counters = utils.scratch(layer).take_tree(layer, plan.counters)
+    injected = sum(d.shape[0] for d in inject.values())
+    nodes = size - (size >> levels) + injected  # compressions
+    kernels.MERKLE_LEVELS.launch(
+        "merkle_levels", hasher.kernel_id, kernels.ptr(layer), log_size, levels, out_p, inj_p,
+        ctypes.cast(tiers, ctypes.c_void_p), len(plan.tiers), plan.threads, kernels.ptr(counters),
+        counters.numel(), None if consts is None else kernels.ptr(consts),
+        cost=(32 * (size + size - (size >> levels) + injected), nodes * kernels.OPS_PER_HASH[hasher.kernel_id]),
+    )
+    return outs
+
+
+def node_chain_plain(hasher, digest: torch.Tensor, n: int) -> torch.Tensor:
+    for _ in range(n):
+        digest = hasher.compress_plain(digest, digest)
+    return digest
+
+
+def node_chain(hasher, digest: torch.Tensor, n: int) -> torch.Tensor:
+    """K15's node compressing a (1, 8) int32 digest with itself n times in a
+    row, as the narrow levels run it (one thread for BLAKE3, a group of
+    four lanes for Poseidon2): n compressions' latency on the card (a
+    measurement: it is not a launch of K15 and is not counted).  The plain
+    version on a CPU tensor."""
+    if tuple(digest.shape) != (1, 8) or n < 0:
+        raise ValueError("node_chain takes a (1, 8) digest and n >= 0")
+    if not kernels.use_kernel(digest):
+        return node_chain_plain(hasher, digest, n)
+    out = digest.clone()
+    _check_digests(out)
+    consts = hasher.consts(out.device)
+    rc = kernels.library().node_chain(hasher.kernel_id, kernels.ptr(out), n,
+                                      None if consts is None else kernels.ptr(consts), kernels.current_stream())
+    if rc != 0:
+        raise RuntimeError(f"node_chain failed with cudaError_t {rc}")
     return out

@@ -33,10 +33,8 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
 
 __device__ __forceinline__ uint64_t neg(uint64_t a) { return a ? P - a : 0; }
 
-// a·b mod p: 128-bit product, then 2^64 = EPS and 2^96 = -1 (mod p).
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  const uint64_t lo = a * b;
-  const uint64_t hi = __umul64hi(a, b);
+// lo + 2^64·hi mod p, by 2^64 = EPS and 2^96 = -1 (mod p).
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
   const uint64_t x2 = hi & EPS, x3 = hi >> 32;
   uint64_t t0 = lo - x3;
   if (lo < x3) t0 -= EPS;
@@ -46,6 +44,9 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   if (r >= P) r -= P;
   return r;
 }
+
+// a·b mod p: the 128-bit product, reduced.
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return reduce128(a * b, __umul64hi(a, b)); }
 
 }  // namespace gl
 

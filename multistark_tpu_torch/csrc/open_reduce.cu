@@ -10,19 +10,28 @@
 // tile of rows per block (block reduction), bary_finish adds the tiles, raises
 // z to the n-th power by squaring and applies the scale.
 //
-// K13 replaces multistark_tpu/pcs.py:1284 _ro_kernel (called from :605): one
-// matrix's contribution to the reduced opening of its LDE height, for all of
-// its points,
-//   ro[x] += Σ_p (-α^{off_p})·(u(x) - S_p)·inv_diff_p[x],
-//   u(x) = Σ_j α^j·mat[j, x],  S_p = Σ_j α^j·v_{p,j},
-// accumulated in place (the matrices of one height run in stream order).
-// Each block computes S_p and -α^{off_p} once, in shared memory.
+// K13 replaces multistark_tpu/pcs.py:1284 _ro_kernel, merged per prove by
+// :605 _ro_all_kern: the reduced opening of one LDE height over all of its
+// matrices and points,
+//   ro[x] = Σ_m Σ_{p of m} (-α^{off_{m,p}})·(u_m(x) - S_{m,p})·inv_p[x],
+//   u_m(x) = Σ_j α^j·mat_m[j, x],  S_{m,p} = Σ_j α^j·v_{m,p,j},
+// in two launches.  ro_scalars (one block) computes the scalars once: per
+// (matrix, point) pair -α^{off} and, per point, C_p = Σ α^{off}·S over its
+// pairs.  ro_rows regroups the sum, exact mod p, as
+//   ro[x] = Σ_p inv_p[x]·(C_p + Σ_{m of p} (-α^{off_{m,p}})·u_m(x)),
+// so a row costs Σ_m w_m·D base-by-extension products (delayed reduction:
+// unreduced 128-bit Goldilocks or 62-bit BabyBear products summed, one
+// reduction per coordinate), one extension product per pair and one per
+// point; it reads each matrix once and each point's inverse row once and
+// writes ro once (no read-modify-write unless asked to add).
 //
-// Bound on the card: memory for both.  K12 reads the (w, n) prefix and P·D
-// weight rows once; K13 reads the (w, N) LDE, P·D inverse rows and the
-// accumulator once and writes it once, with w base-by-extension products
-// per element.  Design: one thread per row (K13) or ITEMS rows (K12);
-// neighbouring threads read neighbouring addresses of each row.
+// Bound on the card: memory for K12 and K13.  K12 reads the (w, n) prefix
+// and P·D weight rows once; K13 reads the matrices' Σw_m·N elements, P·D
+// inverse rows and writes D rows, with about w·D products per row, which
+// at Goldilocks's 64-bit products on 32-bit integer units are near the
+// memory time.  Design: K13 a thread per two rows (16-byte loads of each
+// column, coalesced) where the layout allows, else one; K12 one thread per
+// ITEMS rows; neighbouring threads read neighbouring addresses of each row.
 #include "field.cuh"
 
 namespace {
@@ -34,10 +43,6 @@ constexpr int64_t TILE = (int64_t)THREADS * ITEMS;
 
 struct PointPtrs {
   const uint64_t* p[MAX_POINTS];
-};
-
-struct PointOffs {
-  int64_t o[MAX_POINTS];
 };
 
 template <class F>
@@ -117,54 +122,304 @@ __global__ void bary_finish_kernel(const uint64_t* __restrict__ partials, int64_
   for (int d = 0; d < D; d++) out[(p * D + d) * w + c] = r.c[d];
 }
 
+// -- K13 ---------------------------------------------------------------------------
+
+constexpr int MAX_MATS = 16;   // matrices per ro_rows launch
+constexpr int MAX_PAIRS = 32;  // (matrix, point) pairs per launch
+
+// A sum of unreduced products a·b of canonical values, reduced once: for
+// Goldilocks a 128-bit sum and a carry word (2^128 = -2^32 mod p), for
+// BabyBear a 64-bit sum of 62-bit products and a carry word (2^64 mod p).
 template <class F>
-__global__ void __launch_bounds__(THREADS)
-    reduced_open_kernel(const uint64_t* __restrict__ mat, int64_t w, int64_t N, const uint64_t* __restrict__ apows,
-                        int64_t count, PointPtrs vals, PointPtrs invs, PointOffs offs, int P, int init,
-                        uint64_t* __restrict__ ro) {
+struct Dot;
+
+template <>
+struct Dot<Goldilocks> {
+  uint64_t lo = 0, hi = 0;
+  uint32_t top = 0;
+  __device__ __forceinline__ void mac(uint64_t a, uint64_t b) {
+    const uint64_t pl = a * b, ph = __umul64hi(a, b);
+#if defined(__CUDA_ARCH__)
+    asm("add.cc.u64 %0, %0, %3;\n\taddc.cc.u64 %1, %1, %4;\n\taddc.u32 %2, %2, 0;"
+        : "+l"(lo), "+l"(hi), "+r"(top)
+        : "l"(pl), "l"(ph));
+#else
+    lo += pl;
+    const uint64_t c = lo < pl, h = hi + ph;
+    top += (h < ph) + (h + c < h);
+    hi = h + c;
+#endif
+  }
+  __device__ __forceinline__ uint64_t reduce() const {
+    return gl::sub(gl::reduce128(lo, hi), (uint64_t)top << 32);
+  }
+};
+
+template <>
+struct Dot<BabyBear> {
+  static constexpr uint64_t R64 = 0x45dddde3ull;  // 2^64 mod p
+  uint64_t lo = 0;
+  uint32_t top = 0;
+  __device__ __forceinline__ void mac(uint64_t a, uint64_t b) {
+    const uint64_t pr = (uint64_t)(uint32_t)a * (uint32_t)b;
+#if defined(__CUDA_ARCH__)
+    asm("add.cc.u64 %0, %0, %2;\n\taddc.u32 %1, %1, 0;" : "+l"(lo), "+r"(top) : "l"(pr));
+#else
+    lo += pr;
+    top += lo < pr;
+#endif
+  }
+  __device__ __forceinline__ uint64_t reduce() const { return bb::reduce(bb::reduce(lo) + top * R64); }
+};
+
+// A's Dot accumulators += a·b for extension values, unreduced: coordinate
+// k gets Σ_{i+j=k} a_i·b_j + Σ_{i+j=k+D} (W·a_i)·b_j, with aw = W·a.
+template <class F>
+__device__ __forceinline__ void ext_mac(Dot<F> acc[F::D], const Ext<F>& a, const Ext<F>& aw, const Ext<F>& b) {
+#pragma unroll
+  for (int k = 0; k < F::D; k++)
+#pragma unroll
+    for (int i = 0; i < F::D; i++) acc[k].mac(i <= k ? a.c[i] : aw.c[i], b.c[i <= k ? k - i : k + F::D - i]);
+}
+
+template <class F>
+__device__ __forceinline__ Ext<F> ext_times_w(const Ext<F>& a) {
+  Ext<F> r;
+#pragma unroll
+  for (int d = 0; d < F::D; d++) r.c[d] = d ? F::mul(a.c[d], F::W) : a.c[d];  // coordinate 0 never wraps
+  return r;
+}
+
+// One height's matrices (column j of matrix m at ptr[m] + j·stride[m]) and
+// their (matrix, point) pairs, in matrix order and, within a matrix, by
+// offset: matrix m's pairs end at pair_end[m], pair q opens point
+// pair_point[q] at α offset off[q] with claimed values vals[q] ((D, width)).
+struct RoMats {
+  const uint64_t* ptr[MAX_MATS];
+  int64_t stride[MAX_MATS];
+  int width[MAX_MATS];
+  int pair_end[MAX_MATS];
+  int pair_point[MAX_PAIRS];
+  int mats;
+};
+
+struct RoPairs {
+  const uint64_t* vals[MAX_PAIRS];
+  int64_t off[MAX_PAIRS];
+};
+
+template <class F>
+__device__ __forceinline__ Ext<F> apow(const uint64_t* apows, int64_t count, int64_t j) {
+  Ext<F> a;
+#pragma unroll
+  for (int d = 0; d < F::D; d++) a.c[d] = apows[d * count + j];
+  return a;
+}
+
+// The table ro_rows reads, for cols = Σ widths columns, Q pairs, P points:
+// [cols·D: column j of matrix m weighted by its first pair, -α^{off_q1}·α^j]
+// [Q·2D: pair q's ratio to its matrix's first pair, α^{off_q - off_q1}, and
+// that ratio times W] [P·D: C_p = Σ_{q at p} α^{off_q}·S_q].
+__host__ __device__ __forceinline__ int64_t ratio_at(int64_t cols, int D) { return cols * D; }
+__host__ __device__ __forceinline__ int64_t consts_at(int64_t cols, int Q, int D) { return (cols + 2 * (int64_t)Q) * D; }
+
+// One block.  A warp per pair sums S_q over its columns (lanes strided,
+// then a shuffle tree); a thread per column makes the weights.
+template <class F>
+__global__ void __launch_bounds__(THREADS) ro_scalars_kernel(RoMats mt, RoPairs pr, int Q, int P,
+                                                             const uint64_t* __restrict__ apows, int64_t count,
+                                                             uint64_t* __restrict__ table) {
   constexpr int D = F::D;
-  __shared__ Ext<F> s_p[MAX_POINTS], neg_aoff[MAX_POINTS];
-  if (threadIdx.x < P) {
-    const int p = threadIdx.x;
+  __shared__ Ext<F> cs[MAX_PAIRS];
+  __shared__ int64_t first_off[MAX_MATS], col_at[MAX_MATS + 1];
+  __shared__ int mat_of[MAX_PAIRS];
+  if (threadIdx.x == 0) {
+    col_at[0] = 0;
+    for (int m = 0, q = 0; m < mt.mats; m++) {
+      first_off[m] = pr.off[q];
+      col_at[m + 1] = col_at[m] + mt.width[m];
+      for (; q < mt.pair_end[m]; q++) mat_of[q] = m;
+    }
+  }
+  __syncthreads();
+  const int64_t cols = col_at[mt.mats];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int q = warp; q < Q; q += THREADS / 32) {
+    const int w = mt.width[mat_of[q]];
     Ext<F> s;
 #pragma unroll
     for (int d = 0; d < D; d++) s.c[d] = 0;
-    for (int64_t j = 0; j < w; j++) {
-      Ext<F> a, v;
+    for (int j = lane; j < w; j += 32) {
+      Ext<F> v;
+#pragma unroll
+      for (int d = 0; d < D; d++) v.c[d] = pr.vals[q][d * w + j];
+      s = ext_add<F>(s, ext_mul<F>(apow<F>(apows, count, j), v));
+    }
+#pragma unroll
+    for (int d = 0; d < D; d++) s.c[d] = warp_sum<F>(s.c[d]);
+    if (lane == 0) {
+      cs[q] = ext_mul<F>(apow<F>(apows, count, pr.off[q]), s);
+      const Ext<F> r = apow<F>(apows, count, pr.off[q] - first_off[mat_of[q]]), rw = ext_times_w<F>(r);
 #pragma unroll
       for (int d = 0; d < D; d++) {
-        a.c[d] = apows[d * count + j];
-        v.c[d] = vals.p[p][d * w + j];
+        table[ratio_at(cols, D) + (2 * q) * D + d] = r.c[d];
+        table[ratio_at(cols, D) + (2 * q + 1) * D + d] = rw.c[d];
       }
-      s = ext_add<F>(s, ext_mul<F>(a, v));
     }
-    s_p[p] = s;
+  }
+  for (int64_t c = threadIdx.x; c < cols; c += THREADS) {
+    int m = 0;
+    while (col_at[m + 1] <= c) m++;
+    Ext<F> neg = apow<F>(apows, count, first_off[m]);
 #pragma unroll
-    for (int d = 0; d < D; d++) neg_aoff[p].c[d] = F::neg(apows[d * count + offs.o[p]]);
+    for (int d = 0; d < D; d++) neg.c[d] = F::neg(neg.c[d]);
+    const Ext<F> wt = ext_mul<F>(neg, apow<F>(apows, count, c - col_at[m]));
+#pragma unroll
+    for (int d = 0; d < D; d++) table[c * D + d] = wt.c[d];
   }
   __syncthreads();
-  for (int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; x < N; x += (int64_t)gridDim.x * blockDim.x) {
-    Ext<F> u;
+  if ((int)threadIdx.x < P) {
+    Ext<F> c;
 #pragma unroll
-    for (int d = 0; d < D; d++) u.c[d] = 0;
-    for (int64_t j = 0; j < w; j++) {
-      const uint64_t m = mat[j * N + x];
+    for (int d = 0; d < D; d++) c.c[d] = 0;
+    for (int q = 0; q < Q; q++)
+      if (mt.pair_point[q] == (int)threadIdx.x) c = ext_add<F>(c, cs[q]);
 #pragma unroll
-      for (int d = 0; d < D; d++) u.c[d] = F::add(u.c[d], F::mul(apows[d * count + j], m));
-    }
-    Ext<F> acc;
-#pragma unroll
-    for (int d = 0; d < D; d++) acc.c[d] = init ? 0 : ro[d * N + x];
-    for (int p = 0; p < P; p++) {
-      Ext<F> inv;
-#pragma unroll
-      for (int d = 0; d < D; d++) inv.c[d] = invs.p[p][d * N + x];
-      acc = ext_add<F>(acc, ext_mul<F>(ext_mul<F>(ext_sub<F>(u, s_p[p]), inv), neg_aoff[p]));
-    }
-#pragma unroll
-    for (int d = 0; d < D; d++) ro[d * N + x] = acc.c[d];
+    for (int d = 0; d < D; d++) table[consts_at(cols, Q, D) + threadIdx.x * D + d] = c.c[d];
   }
 }
+
+// R rows x0 .. x0 + R - 1 of one value row, from p (16 bytes when R = 2).
+template <int R>
+__device__ __forceinline__ void load_rows(const uint64_t* p, uint64_t v[R]) {
+  if constexpr (R == 2) {
+    const ulonglong2 t = __ldg(reinterpret_cast<const ulonglong2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <class F>
+__device__ __forceinline__ Ext<F> load_ext(const uint64_t* p) {
+  Ext<F> a;
+#pragma unroll
+  for (int d = 0; d < F::D; d++) a.c[d] = p[d];
+  return a;
+}
+
+// A thread per R rows.  Per matrix, v = Σ_j weight_j·mat[j] (= -α^{off_q1}·u_m)
+// by delayed reduction; its first pair's point gets v, every other pair's
+// point its ratio times v (an unreduced extension product); then Σ_p
+// A_p·inv_p, unreduced, into ro (written, or added to it when `add`).
+template <class F, int P, int R>
+__global__ void __launch_bounds__(THREADS) ro_rows_kernel(RoMats mt, PointPtrs invs, int64_t N,
+                                                          const uint64_t* __restrict__ table, int Q, int add,
+                                                          uint64_t* ro) {
+  constexpr int D = F::D;
+  __shared__ uint64_t tab[(2 * MAX_PAIRS + MAX_POINTS) * D];
+  int64_t cols = 0;
+  for (int m = 0; m < mt.mats; m++) cols += mt.width[m];
+  for (int i = threadIdx.x; i < (2 * Q + P) * D; i += blockDim.x) tab[i] = table[ratio_at(cols, D) + i];
+  __syncthreads();
+  const int64_t x0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (x0 >= N) return;
+  Ext<F> acc[P][R];
+#pragma unroll
+  for (int p = 0; p < P; p++)
+#pragma unroll
+    for (int r = 0; r < R; r++) acc[p][r] = load_ext<F>(tab + (2 * Q + p) * D);
+  const uint64_t* wt = table;
+  int q = 0;
+  for (int m = 0; m < mt.mats; m++) {
+    Dot<F> u[D][R];
+    const uint64_t* col = mt.ptr[m] + x0;
+    const int64_t stride = mt.stride[m];
+#pragma unroll 4
+    for (int j = 0; j < mt.width[m]; j++) {
+      uint64_t v[R];
+      load_rows<R>(col + j * stride, v);
+#pragma unroll
+      for (int d = 0; d < D; d++) {
+        const uint64_t a = __ldg(wt + j * D + d);
+#pragma unroll
+        for (int r = 0; r < R; r++) u[d][r].mac(a, v[r]);
+      }
+    }
+    wt += mt.width[m] * D;
+    Ext<F> v[R];
+#pragma unroll
+    for (int r = 0; r < R; r++)
+#pragma unroll
+      for (int d = 0; d < D; d++) v[r].c[d] = u[d][r].reduce();
+    for (const int q1 = q; q < mt.pair_end[m]; q++) {
+      const int pt = mt.pair_point[q];
+#pragma unroll
+      for (int r = 0; r < R; r++) {
+        Ext<F> t = v[r];
+        if (q != q1) {
+          Dot<F> s[D];
+          ext_mac<F>(s, load_ext<F>(tab + 2 * q * D), load_ext<F>(tab + (2 * q + 1) * D), v[r]);
+#pragma unroll
+          for (int d = 0; d < D; d++) t.c[d] = s[d].reduce();
+        }
+#pragma unroll
+        for (int p = 0; p < P; p++)
+          if (p == pt) acc[p][r] = ext_add<F>(acc[p][r], t);
+      }
+    }
+  }
+  Dot<F> out[R][D];
+#pragma unroll
+  for (int p = 0; p < P; p++) {
+    uint64_t iv[D][R];
+#pragma unroll
+    for (int d = 0; d < D; d++) load_rows<R>(invs.p[p] + d * N + x0, iv[d]);
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+      Ext<F> inv;
+#pragma unroll
+      for (int d = 0; d < D; d++) inv.c[d] = iv[d][r];
+      ext_mac<F>(out[r], acc[p][r], ext_times_w<F>(acc[p][r]), inv);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; d++) {
+    uint64_t o[R];
+    if (add) load_rows<R>(ro + d * N + x0, o);
+#pragma unroll
+    for (int r = 0; r < R; r++) o[r] = add ? F::add(o[r], out[r][d].reduce()) : out[r][d].reduce();
+    if constexpr (R == 2)
+      *reinterpret_cast<ulonglong2*>(ro + d * N + x0) = make_ulonglong2(o[0], o[1]);
+    else
+      ro[d * N + x0] = o[0];
+  }
+}
+
+template <class F, int P>
+int launch_ro_rows(const RoMats& mt, const PointPtrs& invs, int64_t N, const uint64_t* table, int Q, int add,
+                   uint64_t* ro, bool vec, cudaStream_t stream) {
+  const int R = vec ? 2 : 1;
+  const unsigned blocks = (unsigned)((N / R + THREADS - 1) / THREADS);
+  if (vec)
+    ro_rows_kernel<F, P, 2><<<blocks, THREADS, 0, stream>>>(mt, invs, N, table, Q, add, ro);
+  else
+    ro_rows_kernel<F, P, 1><<<blocks, THREADS, 0, stream>>>(mt, invs, N, table, Q, add, ro);
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_ro_rows_p(int P, const RoMats& mt, const PointPtrs& invs, int64_t N, const uint64_t* table, int Q, int add,
+                     uint64_t* ro, bool vec, cudaStream_t stream) {
+  switch (P) {
+    case 1: return launch_ro_rows<F, 1>(mt, invs, N, table, Q, add, ro, vec, stream);
+    case 2: return launch_ro_rows<F, 2>(mt, invs, N, table, Q, add, ro, vec, stream);
+    case 3: return launch_ro_rows<F, 3>(mt, invs, N, table, Q, add, ro, vec, stream);
+    default: return launch_ro_rows<F, 4>(mt, invs, N, table, Q, add, ro, vec, stream);
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 PointPtrs point_ptrs(const uint64_t* const* ptrs, int P) {
   PointPtrs r;
@@ -207,26 +462,74 @@ extern "C" int bary_finish(int field, const uint64_t* partials, int64_t tiles, i
   return (int)cudaGetLastError();
 }
 
-// mat: (w, N) stored LDE; apows: (D, count) α powers; vals: P host pointers
-// to (D, w) claimed values; invs: P host pointers to (D, N) inverses
-// 1/(z_p - x); offs: P host offsets into apows; ro: (D, N), overwritten if
-// init, else added to.
-extern "C" int reduced_open(int field, const uint64_t* mat, int64_t w, int64_t N, const uint64_t* apows,
-                            int64_t count, const uint64_t* const* vals, const uint64_t* const* invs,
-                            const int64_t* offs, int P, int init, uint64_t* ro, cudaStream_t stream) {
-  if (bad(field, P) || N <= 0 || w <= 0 || w > count) return (int)cudaErrorInvalidValue;
-  PointOffs o;
-  for (int p = 0; p < MAX_POINTS; p++) {
-    o.o[p] = p < P ? offs[p] : 0;
-    if (o.o[p] < 0 || o.o[p] >= count) return (int)cudaErrorInvalidValue;
+// Checks one height's matrices (widths, pair_end: M of them) and pairs
+// (pair_point, offs: Q of them, each matrix's by offset) and fills mt.
+int ro_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int* pair_point, const int64_t* offs,
+            int Q, int P, int64_t count) {
+  if (M < 1 || M > MAX_MATS || Q < 1 || Q > MAX_PAIRS || pair_end[M - 1] != Q) return (int)cudaErrorInvalidValue;
+  for (int m = 0, q = 0; m < MAX_MATS; m++) {
+    mt.ptr[m] = nullptr;
+    mt.stride[m] = 0;
+    mt.width[m] = m < M ? widths[m] : 0;
+    mt.pair_end[m] = m < M ? pair_end[m] : Q;
+    if (m >= M) continue;
+    if (widths[m] < 1 || widths[m] > count || pair_end[m] <= q) return (int)cudaErrorInvalidValue;
+    for (const int q1 = q; q < pair_end[m]; q++)
+      if (offs[q] < 0 || offs[q] >= count || offs[q] < offs[q1]) return (int)cudaErrorInvalidValue;
   }
-  int64_t blocks = (N + THREADS - 1) / THREADS;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  for (int q = 0; q < MAX_PAIRS; q++) {
+    mt.pair_point[q] = q < Q ? pair_point[q] : -1;
+    if (q < Q && (pair_point[q] < 0 || pair_point[q] >= P)) return (int)cudaErrorInvalidValue;
+  }
+  mt.mats = M;
+  return 0;
+}
+
+// K13's scalars for one height: M matrices (widths, pair_end) and their Q
+// (matrix, point) pairs in matrix order, each matrix's by offset (points,
+// offs, vals: Q host pointers to (D, width) claimed values); apows (D,
+// count) α powers; table: (Σ widths + 2Q + P)·D words, as ro_rows reads it.
+// One block.
+extern "C" int ro_scalars(int field, const int* widths, const int* pair_end, int M, const int* points,
+                          const int64_t* offs, const uint64_t* const* vals, int Q, int P, const uint64_t* apows,
+                          int64_t count, uint64_t* table, cudaStream_t stream) {
+  if (bad(field, P)) return (int)cudaErrorInvalidValue;
+  RoMats mt;
+  const int rc = ro_mats(mt, widths, pair_end, M, points, offs, Q, P, count);
+  if (rc != 0) return rc;
+  RoPairs pr;
+  for (int q = 0; q < MAX_PAIRS; q++) {
+    pr.vals[q] = q < Q ? vals[q] : nullptr;
+    pr.off[q] = q < Q ? offs[q] : 0;
+  }
   if (field == 0)
-    reduced_open_kernel<Goldilocks><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        mat, w, N, apows, count, point_ptrs(vals, P), point_ptrs(invs, P), o, P, init, ro);
+    ro_scalars_kernel<Goldilocks><<<1, THREADS, 0, stream>>>(mt, pr, Q, P, apows, count, table);
   else
-    reduced_open_kernel<BabyBear><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        mat, w, N, apows, count, point_ptrs(vals, P), point_ptrs(invs, P), o, P, init, ro);
+    ro_scalars_kernel<BabyBear><<<1, THREADS, 0, stream>>>(mt, pr, Q, P, apows, count, table);
   return (int)cudaGetLastError();
+}
+
+// K13's rows for one height: the matrices and pairs as ro_scalars took them,
+// with mats and strides (column j of matrix m at mats[m] + j·strides[m], N
+// rows); invs P host pointers to (D, N) 1/(z_p - x); table ro_scalars'; ro
+// (D, N) written, or added to when add.
+extern "C" int ro_rows(int field, const uint64_t* const* mats, const int64_t* strides, const int* widths,
+                       const int* pair_end, int M, const int* points, const int64_t* offs, int Q, int64_t count,
+                       const uint64_t* const* invs, int P, int64_t N, const uint64_t* table, int add, uint64_t* ro,
+                       cudaStream_t stream) {
+  if (bad(field, P) || N <= 0) return (int)cudaErrorInvalidValue;
+  RoMats mt;
+  const int rc = ro_mats(mt, widths, pair_end, M, points, offs, Q, P, count);
+  if (rc != 0) return rc;
+  bool vec = N % 2 == 0 && aligned16(ro);
+  for (int m = 0; m < M; m++) {
+    if (strides[m] < N) return (int)cudaErrorInvalidValue;
+    mt.ptr[m] = mats[m];
+    mt.stride[m] = strides[m];
+    vec = vec && aligned16(mats[m]) && strides[m] % 2 == 0;
+  }
+  for (int p = 0; p < P; p++) vec = vec && aligned16(invs[p]);
+  const PointPtrs ip = point_ptrs(invs, P);
+  if (field == 0) return launch_ro_rows_p<Goldilocks>(P, mt, ip, N, table, Q, add, ro, vec, stream);
+  return launch_ro_rows_p<BabyBear>(P, mt, ip, N, table, Q, add, ro, vec, stream);
 }

@@ -81,9 +81,11 @@ _SIGNATURES = {
     "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
     "bary_partial": [_i32, _vp, _i64, _i64, _i64, _vp, _i32, _vp, _i64, _vp],
     "bary_finish": [_i32, _vp, _i64, _i32, _i64, _vp, _i32, _u64, _u64, _vp, _vp],
-    "reduced_open": [_i32, _vp, _i64, _i64, _vp, _i64, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "ro_scalars": [_i32, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _i64, _vp, _vp],
+    "ro_rows": [_i32, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i64, _vp, _i32, _i64, _vp, _i32, _vp, _vp],
     "lde_tile": [_i32, _i32, _vp, _i32, _i32, _i32, _vp, _i32, _vp, _vp, _i32, _vp, _vp],
-    "merkle_levels": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
+    "merkle_levels": [_i32, _vp, _i32, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _i64, _vp, _vp],
+    "node_chain": [_i32, _vp, _i32, _vp, _vp],
 }
 
 # host helpers of the library that launch nothing: (argument types, return type)
@@ -282,7 +284,7 @@ BARY_EVAL = CudaKernel(
 REDUCED_OPEN = CudaKernel(
     "reduced_open", "multistark_tpu_torch/csrc/open_reduce.cu",
     "multistark_tpu/pcs.py:1284",
-    ("reduced_open_kernel",),
+    ("ro_scalars_kernel", "ro_rows_kernel"),
 )
 LDE_TILE = CudaKernel(
     "lde_tile", "multistark_tpu_torch/csrc/commit_tile.cu",
@@ -292,7 +294,7 @@ LDE_TILE = CudaKernel(
 MERKLE_LEVELS = CudaKernel(
     "merkle_levels", "multistark_tpu_torch/csrc/commit_tile.cu",
     "multistark_tpu/merkle.py:275",
-    ("merkle_levels_kernel",),
+    ("merkle_tree_kernel",),
 )
 KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERKLE, DT_FLUSH, FRI_GRIND, CLAIMS_FP,
            FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN, LDE_TILE, MERKLE_LEVELS)

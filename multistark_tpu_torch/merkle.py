@@ -12,7 +12,8 @@ Digest layers are (h, 8) int32 tensors (row i = node i's eight u32 words),
 so the children of node i are rows 2i and 2i+1.  The config's hasher hashes
 the leaves: BLAKE3 through K3 (hash/blake3.py) or Poseidon2 through K6
 (hash/poseidon2.py); every tree's levels above the leaves, injections
-included, go through K15 (commit_tile.merkle_levels), and the PCS's LDE
+included, go through K15 (commit_tile.merkle_levels, one launch per tree),
+and the PCS's LDE
 commits hash their leaves and lowest levels in K14 (pcs.py).  Gathers for
 openings are plain tensor indexing.
 """

@@ -23,15 +23,16 @@ forward DIF's stages above the tile, and one K14 launch runs the tile's
 stages, hashes the leaves and folds the lowest tree levels in shared
 memory, injecting the shorter heights' leaf digests (from their own K14
 launches); K15 (commit_tile.merkle_levels) folds the levels above, up to
-the cap.
+the cap, in one launch.
 
 The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
 its hasher the hashing of the trees that are not LDE commits (merkle.py: K3
 or K6 leaves, K15 levels).  The claimed evaluations run
-K12 per matrix (`bary_eval` below), the reduced openings K13 per matrix
-(`reduced_open`), both in csrc/open_reduce.cu, and each fold round K10
-(csrc/fri_fold.cu, `fri_fold`); slicing, stacking and gathers are plain
+K12 per matrix (`bary_eval` below), the reduced openings K13 per LDE height
+for all of its matrices and points (`reduced_open_height`), both in
+csrc/open_reduce.cu, and each fold round K10 (csrc/fri_fold.cu,
+`fri_fold`); slicing, stacking and gathers are plain
 tensor indexing.  Opening points and α are device extension scalars ((D,)
 tensors), whether they came from the host challenger or the device duplex,
 so the same code serves both transcripts.
@@ -47,7 +48,7 @@ Under an active mesh (parallel.use_mesh) with D ranks, at the JAX package's
 thresholds: a matrix whose LDE has >= D² rows takes the sharded LDE and
 every tree with a matrix of >= D rows the sharded commit (`_commit_sharded`);
 the claimed evaluations gather each stored prefix and run K12 replicated;
-the reduced opening of an LDE of >= D rows runs K13 on the rank's block
+the reduced opening of a height of >= D rows runs K13 on the rank's blocks
 (`_ro_sharded`, no collective); a FRI round keeps its vector sharded while
 it has >= D² positions and its fold >= D (`_fri_layout`), its tree then
 sharded too; the query openings come from the ranks that own the leaves
@@ -375,12 +376,13 @@ class TwoAdicFriPcs:
         """Per LDE height, Σ_p (-α^{off_p})·(u - S_p)/(z_p - x) over the
         stored LDEs, with u = Σ_j α^j·col_j and S_p = Σ_j α^j·v_{p,j}, for a
         device α; rounds as `_claimed_evaluations` takes them, vals as it
-        returns them.  One K13 launch per matrix (`reduced_open`) adds its
-        contribution for all of its points.  1/(z_p - x) depends only on
-        (height, point), so it is computed once per pair and shared by every
-        matrix of that height."""
-        E = self.E
-        plan, offsets = [], {}
+        returns them.  One `reduced_open_height` per height (K13: a scalar
+        launch and a row launch) for all of its matrices and points, as the
+        JAX package merges them.  1/(z_p - x) depends only on (height,
+        point): one batch inverse per height for all of its points."""
+        heights: Dict[int, list] = {}  # log_lde -> [(matrix, its (key, z) points, its (offset, (D, w) values))]
+        offsets: Dict[int, int] = {}
+        widths = []
         for r_idx, (data, points_list) in enumerate(rounds):
             for m_idx, points in enumerate(points_list):
                 if not points:
@@ -388,43 +390,41 @@ class TwoAdicFriPcs:
                 w = data.mmcs_data.dims[m_idx][0]
                 log_lde = data.log_trace_heights[m_idx] + self.log_blowup
                 off = offsets.get(log_lde, 0)
-                plan.append((r_idx, m_idx, w, log_lde, off))
+                opened = [(off + p_idx * w, v) for p_idx, v in enumerate(vals[r_idx][m_idx])]
+                heights.setdefault(log_lde, []).append((data.mmcs_data.mats[m_idx], points, opened))
                 offsets[log_lde] = off + w * len(points)
-        if not plan:
+                widths.append(w)
+        if not heights:
             return {}
-        count = max(max(p[2] for p in plan), max(offsets.values()))
-        apows = ext_powers_device(E, alpha, count).contiguous()  # (D, count)
-        ro: Dict[int, torch.Tensor] = {}
-        inv_diffs: Dict[tuple, torch.Tensor] = {}
+        apows = ext_powers_device(self.E, alpha, max(max(widths), max(offsets.values()))).contiguous()  # (D, count)
         pm = parallel.current_mesh()
-        for r_idx, m_idx, w, log_lde, off in plan:
-            data, points_list = rounds[r_idx]
-            points = points_list[m_idx]
-            offs = [off + p_idx * w for p_idx in range(len(points))]
+        inv_diffs: Dict[tuple, torch.Tensor] = {}
+        ro: Dict[int, torch.Tensor] = {}
+        for log_lde, members in heights.items():
+            keys = list({key: (key, z) for _, points, _ in members for key, z in points}.values())
+            index = {key: i for i, (key, _) in enumerate(keys)}
+            openings = [[(index[key], off, v) for (key, _), (off, v) in zip(points, opened)]
+                        for _, points, opened in members]
+            mats = [mat for mat, _, _ in members]
+            x = None
             if pm is not None and (1 << log_lde) >= pm.n:
-                ro[log_lde] = self._ro_sharded(pm, data.mmcs_data.mats[m_idx], log_lde, apows, vals[r_idx][m_idx],
-                                               points, offs, inv_diffs, ro.get(log_lde))
-                continue
-            self._inverse_diffs(log_lde, points, inv_diffs)
-            invs = [inv_diffs[log_lde, key] for key, _ in points]
-            ro[log_lde] = reduced_open(E, data.mmcs_data.mats[m_idx], apows, vals[r_idx][m_idx], invs, offs,
-                                       ro.get(log_lde))
+                mats, x = self._ro_sharded(pm, log_lde, mats)
+            self._inverse_diffs(log_lde, keys, inv_diffs, x=x)
+            ro[log_lde] = reduced_open_height(self.E, mats, apows, openings,
+                                              [inv_diffs[log_lde, key] for key, _ in keys])
         return ro
 
-    def _ro_sharded(self, pm, mat, log_lde: int, apows, vals, points, offs, inv_diffs: dict, ro):
-        """One matrix's reduced-opening contribution on this rank's block of
-        its LDE (JAX pcs.py:696): K13 over the block, 1/(z - x) over the
-        block's x (a block-local K4 batch inverse; inverses are elementwise,
-        so the values are the single-device ones), no collective.  A
-        replicated matrix (the preprocessed one, committed at setup)
-        contributes the block it slices.  The result stays block-sharded."""
+    def _ro_sharded(self, pm, log_lde: int, mats) -> Tuple[list, torch.Tensor]:
+        """A height's reduced opening on this rank's block of its LDEs (JAX
+        pcs.py:696): the matrices' blocks and the block's x, over which
+        1/(z - x) is a block-local K4 batch inverse (inverses are
+        elementwise, so the values are the single-device ones), then K13 on
+        the block, no collective.  A replicated matrix (the preprocessed one,
+        committed at setup) contributes the block it slices.  The result
+        stays block-sharded."""
         parallel.SHARDED_CALLS["ro_sharded"] += 1
-        if mat.shape[1] == 1 << log_lde:
-            mat = parallel.shard_rows(pm, mat)
-        x = parallel.shard_rows(pm, self.x_table_storage(log_lde, self.hf.generator))
-        self._inverse_diffs(log_lde, points, inv_diffs, x=x)
-        invs = [inv_diffs[log_lde, key] for key, _ in points]
-        return reduced_open(self.E, mat, apows, vals, invs, offs, ro)
+        mats = [parallel.shard_rows(pm, m) if m.shape[1] == 1 << log_lde else m for m in mats]
+        return mats, parallel.shard_rows(pm, self.x_table_storage(log_lde, self.hf.generator))
 
     def _inverse_diffs(self, log_n: int, points, cache: dict, times_x: bool = False,
                        x: Optional[torch.Tensor] = None) -> None:
@@ -713,6 +713,7 @@ def opened_to_host(vals) -> list:
 
 _BARY_TILE = 2048  # THREADS * ITEMS in csrc/open_reduce.cu
 _MAX_POINTS = 4
+_RO_MATS, _RO_PAIRS = 16, 32  # MAX_MATS, MAX_PAIRS in csrc/open_reduce.cu: one K13 launch's matrices and pairs
 
 
 def bary_eval_plain(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, inv_ns: int) -> torch.Tensor:
@@ -783,37 +784,94 @@ def reduced_open_plain(E: ExtOps, mat: torch.Tensor, apows: torch.Tensor, vals, 
     return total
 
 
-def reduced_open(E: ExtOps, mat: torch.Tensor, apows: torch.Tensor, vals, invs, offs, ro=None) -> torch.Tensor:
-    """One matrix's reduced-opening contribution for all its points, added
-    to ro ((D, N); a new tensor when ro is None): mat (w, N) stored LDE,
-    apows (D, count) α powers, vals P (D, w) claimed values, invs P (D, N)
-    1/(z_p - x), offs P offsets of α^{off_p} into apows.  K13 (in place into
-    ro) on a CUDA tensor, the plain version on a CPU one."""
-    P = len(vals)
-    if not 1 <= P <= _MAX_POINTS or len(invs) != P or len(offs) != P:
-        raise ValueError(f"reduced_open takes 1 to {_MAX_POINTS} points")
-    w, N = mat.shape
+def reduced_open_height_plain(E: ExtOps, mats, apows: torch.Tensor, openings, invs, ro=None) -> torch.Tensor:
+    """Plain version of K13 for one height: `reduced_open_plain` per matrix,
+    summed."""
+    for mat, opened in zip(mats, openings):
+        ro = reduced_open_plain(E, mat, apows, [v for _, _, v in opened], [invs[p] for p, _, _ in opened],
+                                [off for _, off, _ in opened], ro)
+    return ro
+
+
+def reduced_open_height(E: ExtOps, mats, apows: torch.Tensor, openings, invs, ro=None) -> torch.Tensor:
+    """The reduced opening of one LDE height, Σ over its matrices m and their
+    points p of (-α^{off})·(u_m - S_{m,p})·inv_p (module docstring of
+    csrc/open_reduce.cu): mats M (w_m, N) stored LDEs (rows may be strided),
+    apows (D, count) the powers α^0 .. α^(count - 1) of one α (the kernel
+    weighs a matrix's columns by its first point's -α^{off} and reaches its
+    other points by α^{off' - off}), openings[m] matrix m's [(point index, α
+    offset, (D, w_m) claimed values)], invs P (D, N) 1/(z_p - x).  Returns
+    a new (D, N) tensor, or adds to ro.  K13 on a CUDA tensor: per launch
+    group of up to 16 matrices and 32 (matrix, point) pairs (one for the
+    bench's heights) one ro_scalars launch and one ro_rows launch, the
+    first group writing ro, the others adding to it; the plain version on a
+    CPU tensor."""
+    P, N = len(invs), mats[0].shape[1] if mats else 0
+    if not 1 <= P <= _MAX_POINTS or not mats or len(openings) != len(mats):
+        raise ValueError(f"reduced_open_height takes matrices with their openings and 1 to {_MAX_POINTS} points")
     count = apows.shape[1]
-    if w > count or any(not 0 <= o < count for o in offs) or any(tuple(i.shape) != (E.D, N) for i in invs):
-        raise ValueError("reduced_open: α powers, offsets or inverses do not fit the matrix")
-    if not kernels.use_kernel(mat):
-        return reduced_open_plain(E, mat, apows, vals, invs, offs, ro)
-    mat, apows = mat.contiguous(), apows.contiguous()
-    vals = [v.contiguous() for v in vals]
+    for mat, opened in zip(mats, openings):
+        if mat.dim() != 2 or mat.shape[1] != N or mat.shape[0] > count or not opened:
+            raise ValueError("reduced_open_height: every matrix (w <= α powers, N rows) opened at a point")
+        if any(not 0 <= p < P or not 0 <= off < count or tuple(v.shape) != (E.D, mat.shape[0])
+               for p, off, v in opened):
+            raise ValueError("reduced_open_height: a point, offset or claimed value does not fit")
+    if any(tuple(i.shape) != (E.D, N) for i in invs) or (ro is not None and tuple(ro.shape) != (E.D, N)):
+        raise ValueError("reduced_open_height: inverses and ro are (D, N)")
+    if not kernels.use_kernel(mats[0]):
+        return reduced_open_height_plain(E, mats, apows, openings, invs, ro)
+    mats = [m if m.stride(1) == 1 else m.contiguous() for m in mats]
+    apows = apows.contiguous()
     invs = [i.contiguous() for i in invs]
-    init = ro is None
-    if init:
-        ro = torch.empty((E.D, N), dtype=torch.int64, device=mat.device)
-    kernels.check_cuda(mat, apows, ro, *vals, *invs)
-    vp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in vals])
-    ip = (ctypes.c_void_p * P)(*[t.data_ptr() for t in invs])
-    op = (ctypes.c_int64 * P)(*offs)
-    kernels.REDUCED_OPEN.launch(
-        "reduced_open", E.base.field_id, kernels.ptr(mat), w, N, kernels.ptr(apows), count,
-        ctypes.cast(vp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(op, ctypes.c_void_p), P,
-        int(init), kernels.ptr(ro),
-        cost=(8 * mat.numel() + 8 * P * E.D * N + 8 * E.D * N * (1 if init else 2) + 8 * (w + P * E.D * w), 0),
-    )
+    openings = [[(p, off, v.contiguous()) for p, off, v in opened] for opened in openings]
+    kernels.check_cuda(apows, *invs, *[v for opened in openings for _, _, v in opened])
+    for m in mats:
+        if m.device != apows.device or m.dtype != torch.int64:
+            raise ValueError("reduced_open_height: matrices are int64 on the α powers' device")
+    add = ro is not None
+    if not add:
+        ro = torch.empty((E.D, N), dtype=torch.int64, device=apows.device)
+    else:
+        kernels.check_cuda(ro, apows)
+    D, fid = E.D, E.base.field_id
+    groups, cur = [], []
+    for m in range(len(mats)):
+        if cur and (len(cur) == _RO_MATS or sum(len(openings[i]) for i in cur) + len(openings[m]) > _RO_PAIRS):
+            groups.append(cur)
+            cur = []
+        cur.append(m)
+    groups.append(cur)
+
+    def arr(ctype, values):
+        return ctypes.cast((ctype * len(values))(*values), ctypes.c_void_p)
+
+    ip = arr(ctypes.c_void_p, [t.data_ptr() for t in invs])
+    for group in groups:
+        pairs = [(p, off, v) for m in group for p, off, v in sorted(openings[m], key=lambda o: o[1])]
+        Q, M = len(pairs), len(group)
+        if Q > _RO_PAIRS:
+            raise ValueError(f"reduced_open_height: a matrix opened at more than {_RO_PAIRS} points")
+        widths = [int(mats[m].shape[0]) for m in group]
+        cols = sum(widths)
+        shape = (arr(ctypes.c_int, widths), arr(ctypes.c_int, [int(e) for e in np.cumsum([len(openings[m])
+                                                                                         for m in group])]), M,
+                 arr(ctypes.c_int, [p for p, _, _ in pairs]), arr(ctypes.c_int64, [off for _, off, _ in pairs]))
+        table = torch.empty(((cols + 2 * Q + P) * D,), dtype=torch.int64, device=apows.device)
+        kernels.REDUCED_OPEN.launch(
+            "ro_scalars", fid, *shape, arr(ctypes.c_void_p, [v.data_ptr() for _, _, v in pairs]), Q, P,
+            kernels.ptr(apows), count, kernels.ptr(table),
+            cost=(8 * D * (sum(int(mats[m].shape[0]) * len(openings[m]) for m in group) + cols) + 8 * table.numel(),
+                  0),
+        )
+        adding = add or group is not groups[0]
+        kernels.REDUCED_OPEN.launch(
+            "ro_rows", fid, arr(ctypes.c_void_p, [mats[m].data_ptr() for m in group]),
+            arr(ctypes.c_int64, [mats[m].stride(0) for m in group]), *shape, Q, count, ip, P, N,
+            kernels.ptr(table), int(adding), kernels.ptr(ro),
+            # the matrices and inverse rows read once, ro written (and read when adding); the products
+            cost=(8 * N * (cols + P * D + D * (2 if adding else 1)),
+                  N * D * (cols + D * (Q - M + P)) * kernels.OPS_PER_MUL[fid]),
+        )
     return ro
 
 

@@ -175,15 +175,16 @@ _BATCH, _SUM, _SCAN, _CHAIN = range(4)  # the tile kinds of csrc/gl_scan.cu gls_
 
 
 class _Scratch:
-    """K4's scratch words on one device and stream, in int64 buffers that
-    only grow (zeroed when they do): the single-pass scans' status words
-    (word 0 the ticket counter, then epoch-tagged flags and values), with
-    the last epoch used and the tickets issued so far; the row sums'
-    counters (0 between launches: the last block of a row resets its own);
-    their partial sums."""
+    """K4's and K15's scratch words on one device and stream, in int64
+    buffers that only grow (zeroed when they do): the single-pass scans'
+    status words (word 0 the ticket counter, then epoch-tagged flags and
+    values), with the last epoch used and the tickets issued so far; the row
+    sums' counters (0 between launches: the last block of a row resets its
+    own); their partial sums; K15's tree arrival counters (0 between
+    launches: the last block of a group resets its own)."""
 
     def __init__(self):
-        self.status = self.counters = self.partials = None
+        self.status = self.counters = self.partials = self.tree = None
         self.epoch = 0
         self.tickets = 0
 
@@ -203,6 +204,12 @@ class _Scratch:
             self.partials = _grown(self.partials, words, like)
         return self.counters, self.partials
 
+    def take_tree(self, like: torch.Tensor, words: int) -> torch.Tensor:
+        """K15's arrival counters: a buffer of >= words (at least one)."""
+        if self.tree is None or self.tree.numel() < max(words, 1):
+            self.tree = _grown(self.tree, max(words, 1), like)
+        return self.tree
+
 
 def _grown(buf, words: int, like: torch.Tensor) -> torch.Tensor:
     size = max(words, 2 * (0 if buf is None else buf.numel()))
@@ -213,7 +220,7 @@ _SCRATCH: Dict[tuple, _Scratch] = {}
 _TILES: Dict[tuple, int] = {}
 
 
-def _scratch(x: torch.Tensor) -> _Scratch:
+def scratch(x: torch.Tensor) -> _Scratch:
     key = (x.device, kernels.current_stream())
     if key not in _SCRATCH:
         _SCRATCH[key] = _Scratch()
@@ -263,7 +270,7 @@ def cumsum(x: torch.Tensor, ops) -> torch.Tensor:
     F = _split(ops)[0]
     rows, n = _rows(x, 0)
     tiles = _tiles(F, False, _SCAN, n)
-    sc = _scratch(x)
+    sc = scratch(x)
     buf, epoch, issued = sc.take_status(x, 1 + 3 * rows * tiles)
     out = torch.empty_like(x)
     p = kernels.ptr
@@ -282,7 +289,7 @@ def field_sum(x: torch.Tensor, ops) -> torch.Tensor:
     F = _split(ops)[0]
     rows, n = _rows(x, 0)
     tiles = _tiles(F, False, _SUM, n)
-    done, partials = _scratch(x).take_sums(x, rows, rows * tiles)
+    done, partials = scratch(x).take_sums(x, rows, rows * tiles)
     out = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
     p = kernels.ptr
     kernels.GL_SCAN.launch("gls_sum", F.field_id, p(x), p(out), rows, n, p(done), p(partials),
@@ -300,7 +307,7 @@ def inv_sum(x: torch.Tensor, ops) -> torch.Tensor:
     F, D = _split(ops)
     rows, n = _rows(x, D)
     tiles = _tiles(F, D > 0, _BATCH, n)
-    done, partials = _scratch(x).take_sums(x, rows, rows * tiles * max(D, 1))
+    done, partials = scratch(x).take_sums(x, rows, rows * tiles * max(D, 1))
     out = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
     p = kernels.ptr
     kernels.GL_SCAN.launch("gls_inv_sum", F.field_id, int(D > 0), p(x), p(out), rows, n, p(done), p(partials),
@@ -326,7 +333,7 @@ def stage2_chain(E: ExtOps, L: int, msgs: torch.Tensor, acc: torch.Tensor):
     n = msgs.shape[1] // L
     F = E.base
     tiles = _tiles(F, True, _CHAIN, n * L)
-    sc = _scratch(msgs)
+    sc = scratch(msgs)
     buf, epoch, issued = sc.take_status(msgs, 1 + (1 + 2 * D) * tiles)
     mat = torch.empty((L * D, n), dtype=torch.int64, device=msgs.device)
     total = torch.empty(D, dtype=torch.int64, device=msgs.device)

@@ -2,14 +2,19 @@
 """K14 (lde_tile) and K2 (ntt_stage) alone at the bench's commit shapes on
 one CUDA card: each kernel timed in place on a (cols, 2^20) batch with CUDA
 events, over a sweep of K14's tile sizes and modes, beside K3 / K6 row
-hashing and the K2 stages above a 2^8 tile.
+hashing and the K2 stages above a 2^8 tile.  Then K15 (merkle_levels) on
+the trees of a warm prove at 2^18 rows (the three stage trees above K14's
+levels, 2^17 nodes, and the FRI rounds' trees of 2^19 down to 2^2 leaves)
+and K13 (reduced_open) at the bench's two LDE heights, by CUDA events and
+by the profiler's device time of the kernel's functions.
 
-    python3 scripts/tile_sweep.py [--tree DIR]
+    python3 scripts/tile_sweep.py [--tree DIR] [--only tiles|trees]
 
 --tree points at a checkout of this repository whose multistark_tpu_torch
 is measured (default: this one), so that two checkouts can be swept in one
 call on one card; the K2 passes of a tree that has no `ntt.pass_plan` run
-one launch per stage.  Needs a CUDA device.
+one launch per stage, and K13 in a tree without `pcs.reduced_open_height`
+runs one `reduced_open` per matrix.  Needs a CUDA device.
 """
 
 import argparse
@@ -38,9 +43,114 @@ def ms(fn, iters=10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel, iters=5) -> float:
+    """Mean device milliseconds per fn() of the CUDA functions of `kernel`
+    (a kernels.CudaKernel), from torch.profiler's events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+             if evt.device_type == DeviceType.CUDA and any(f in evt.name for f in kernel.functions))
+    return us / 1e3 / iters
+
+
+def trees_and_openings(dev) -> None:
+    """K15 on a warm prove's trees and K13 at its two heights."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import commit_tile as ct, kernels, pcs
+    from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
+    from multistark_tpu_torch.merkle import Blake3FieldHasher, Poseidon2FieldHasher
+    from multistark_tpu_torch.utils import ext_powers_device
+
+    rng = np.random.default_rng(2)
+    for F, E, hasher in ((GL_OPS, GL2_OPS, Blake3FieldHasher()), (BB_OPS, BB4_OPS, Poseidon2FieldHasher())):
+        def digests(h):
+            words = rng.integers(0, F.p if F is BB_OPS else 2 ** 32, (h, 8), dtype=np.uint64)
+            return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+
+        stage = digests(1 << 17), {7: digests(1 << 10)}  # ByteTable's 2^10 leaves 7 levels above K14's three
+        fri = [digests(1 << k) for k in range(19, 1, -1)]
+
+        def run_stage():
+            ct.merkle_levels(hasher, stage[0], 17, stage[1])
+
+        def run_fri19():
+            ct.merkle_levels(hasher, fri[0], 19)
+
+        def run_prove():  # the 3 stage trees and 18 FRI trees of one warm prove at 2^18
+            for _ in range(3):
+                run_stage()
+            for leaves in fri:
+                ct.merkle_levels(hasher, leaves, leaves.shape[0].bit_length() - 1)
+
+        for label, fn in (("stage tree 2^17 nodes, 17 levels, 2^10 injected", run_stage),
+                          ("FRI tree 2^19 leaves", run_fri19), ("a prove's 21 trees", run_prove)):
+            kernels.reset_launch_counts()
+            fn()
+            n = kernels.MERKLE_LEVELS.launches
+            print(f"[trees] {F.name} K15 {label}: {ms(fn, 5):.4f} ms, device {device_ms(fn, kernels.MERKLE_LEVELS):.4f}"
+                  f" ms, {n} launches", flush=True)
+        if hasattr(ct, "levels_plan"):  # K15's first tier swept (each tree's other tiers as levels_plan splits them)
+            for log_size in (19, 17, 14, 12, 10, 8):
+                layer = digests(1 << log_size)
+                row = []
+                for s0 in range(4, min(log_size, ct.MAX_GROUP_LOG) + 1):
+                    rest = log_size - s0
+                    n = -(-rest // ct.MAX_GROUP_LOG)
+                    tiers = (s0,) + tuple(rest // n + (i < rest % n) for i in range(n))
+                    blocks = 1 << (log_size - s0)
+                    counters = sum(blocks >> sum(tiers[1:t + 1]) for t in range(1, len(tiers)))
+                    plan = ct.LevelsPlan(tiers, blocks, min(256, max(32, 1 << (max(tiers) - 1))), counters)
+                    t = device_ms(lambda: ct.merkle_levels(hasher, layer, log_size, plan=plan), kernels.MERKLE_LEVELS)
+                    row.append(f"{tiers}: {t:.4f}")
+                print(f"[trees] {F.name} K15 2^{log_size}-node tree, device ms by plan (default "
+                      f"{ct.levels_plan(log_size, log_size).tiers}): " + ", ".join(row), flush=True)
+        D, P = E.D, 2
+
+        def rnd(*shape):
+            return F.from_np(rng.integers(0, F.p, shape, dtype=np.uint64), dev)
+
+        # (log LDE height, [(width, points)]): U32Add's stage 1, 2 and quotient; ByteTable's preprocessed, 1, 2, quotient
+        for log_lde, widths in ((20, [(14, 2), (13 * D, 2), (D, 1)]), (10, [(1, 2), (1, 2), (D, 2), (D, 1)])):
+            N = 1 << log_lde
+            mats = [rnd(w, N) for w, _ in widths]
+            apows = ext_powers_device(E, rnd(D), sum(w * k for w, k in widths)).contiguous()
+            invs = [rnd(D, N) for _ in range(P)]
+            openings, off = [], 0
+            for w, k in widths:
+                openings.append([(p, off + p * w, rnd(D, w)) for p in range(k)])
+                off += w * k
+
+            def height():
+                if hasattr(pcs, "reduced_open_height"):
+                    return pcs.reduced_open_height(E, mats, apows, openings, invs)
+                ro = None
+                for mat, opened in zip(mats, openings):
+                    ro = pcs.reduced_open(E, mat, apows, [v for _, _, v in opened], [invs[p] for p, _, _ in opened],
+                                          [o for _, o, _ in opened], ro)
+                return ro
+
+            kernels.reset_launch_counts()
+            height()
+            n = kernels.REDUCED_OPEN.launches
+            print(f"[openings] {F.name} K13 LDE height 2^{log_lde}, matrices {widths} (width, points): "
+                  f"{ms(height, 5):.4f} ms, device {device_ms(height, kernels.REDUCED_OPEN):.4f} ms, {n} launches",
+                  flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--only", choices=("tiles", "trees"))
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -59,6 +169,10 @@ def main(argv) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[sweep] {kernels.__file__}; {smi}", flush=True)
     kernels.build()
+    if args.only != "tiles":
+        trees_and_openings(dev)
+    if args.only == "trees":
+        return 0
     rng = np.random.default_rng(1)
     for F, hasher, mod in ((GL_OPS, Blake3FieldHasher(), b3), (BB_OPS, Poseidon2FieldHasher(), p2)):
         eng = nt.NttEngine(F, F.host, dev)

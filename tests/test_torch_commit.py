@@ -155,8 +155,8 @@ def test_openings_match_jax(name, case):
 
 
 def test_merkle_levels_fold_many_levels_with_injections():
-    """K15's host loop: more levels than one launch folds (FOLD_LOG), with
-    injections below, at and above the launch boundary, against the plain
+    """K15 over more levels than one block folds (a second tier), with
+    injections below, at and above the first tier's top, against the plain
     fold of merkle.py's loop."""
     _, pcs = _pcs_pair("gl", 0)
     hasher = pcs.mmcs.hasher
@@ -175,6 +175,61 @@ def test_merkle_levels_fold_many_levels_with_injections():
         if lv in inject:
             want = hasher.compress_plain(want, inject[lv])
         assert torch.equal(layer, want)
+
+
+@pytest.mark.parametrize("log_size", [16, 17, 18, 19])
+@pytest.mark.parametrize("cap_height", range(5))
+def test_levels_plan_spreads_the_first_level_over_every_sm(log_size, cap_height):
+    """From 2^16 nodes up (the stage trees above K14's tile start at 2^17,
+    the FRI trees at 2^19) the first tier's blocks cover all 132 SMs, each
+    folding a subtree of at most 2^10 nodes with a thread per first-level
+    node (at most 256); the tiers above fold the rest up to the cap."""
+    levels = log_size - cap_height
+    plan = commit_tile.levels_plan(log_size, levels)
+    assert plan.blocks >= commit_tile.SMS and plan.blocks == 1 << (log_size - plan.tiers[0])
+    assert sum(plan.tiers) == levels and all(1 <= t <= commit_tile.MAX_GROUP_LOG for t in plan.tiers)
+    assert plan.threads == min(256, 1 << (max(plan.tiers) - 1))
+    groups = [plan.blocks >> sum(plan.tiers[1:t + 1]) for t in range(1, len(plan.tiers))]
+    assert plan.counters == sum(groups) and (not groups or groups[-1] == 1 << cap_height)
+
+
+@pytest.mark.parametrize("log_size, levels, want", [
+    (1, 1, ((1,), 1, 32, 0)),  # a 2^1-leaf tree: one block, one warp
+    (2, 2, ((2,), 1, 32, 0)),  # a 2^2-leaf tree
+    (2, 1, ((1,), 2, 32, 0)),  # 2^2 leaves under a cap of 2: a block per cap node
+    (9, 9, ((9,), 1, 256, 0)),  # the largest tree one block folds whole
+    (10, 10, ((6, 4), 16, 32, 1)),  # the smallest spread tree: 2^6-node subtrees
+    (17, 17, ((9, 8), 256, 256, 1)),  # a stage tree above K14's three in-tile levels
+    (19, 19, ((10, 9), 512, 256, 1)),  # the first FRI round's tree
+    (19, 15, ((10, 5), 512, 256, 16)),  # the same under a cap of 2^4
+    (30, 30, ((10, 10, 10), 1 << 20, 256, 1025)),
+])
+def test_levels_plan(log_size, levels, want):
+    plan = commit_tile.levels_plan(log_size, levels)
+    assert (plan.tiers, plan.blocks, plan.threads, plan.counters) == want
+
+
+@pytest.mark.parametrize("log_size, want_threads", [(2, 32), (5, 64), (7, 256), (10, 128), (19, 256)])
+def test_levels_plan_gives_poseidon2_a_group_of_lanes_per_node(log_size, want_threads):
+    """Poseidon2's narrow levels run a node on four lanes (NODE_LANES): the
+    same tiers, four times the threads (up to 256)."""
+    lanes = commit_tile.NODE_LANES[1]
+    plan, plain = commit_tile.levels_plan(log_size, log_size, lanes), commit_tile.levels_plan(log_size, log_size)
+    assert (plan.tiers, plan.blocks, plan.counters) == (plain.tiers, plain.blocks, plain.counters)
+    assert plan.threads == want_threads
+
+
+def test_node_chain_plain_is_repeated_compression():
+    """K15's latency chain (a measurement on the card) on a CPU tensor: the
+    digest compressed with itself n times."""
+    _, pcs = _pcs_pair("gl", 0)
+    hasher = pcs.mmcs.hasher
+    d = torch.arange(8, dtype=torch.int32).reshape(1, 8)
+    want = d
+    for _ in range(3):
+        want = hasher.compress_plain(want, want)
+    assert torch.equal(commit_tile.node_chain(hasher, d, 3), want)
+    assert torch.equal(commit_tile.node_chain(hasher, d, 0), d)
 
 
 @pytest.mark.parametrize("cols, log_n, hashed, want", [

@@ -6,8 +6,9 @@ against the JAX package, exact (tolerance zero: everything is mod p):
     the same stored LDEs, publics and α, for U32Add, ByteTable and a MulAir,
     at 2^4 and 2^6 rows, under GoldilocksBlake3 and BabyBearPoseidon2;
   - K12's and K13's plain versions (pcs.bary_eval_plain through
-    `_eval_matrix`, pcs.reduced_open_plain) equal JAX pcs._eval_kernel and
-    _ro_kernel for one and two points under both fields;
+    `_eval_matrix`, pcs.reduced_open_height_plain on one matrix) equal JAX
+    pcs._eval_kernel and _ro_kernel for one and two points under both
+    fields;
   - a program whose live set exceeds K11's register file raises
     RegisterFileExceeded, which names the program, on the plain path too;
   - K11's generator (program.program_body, cuda_source, host_source): the
@@ -185,11 +186,11 @@ def test_opening_reductions_match_jax(config, n_points):
     invs = [tcfg.pcs.E.inv(tpcs._ext_minus_base(F, E, z, x)) for _, z in tzs]
     apows = F.from_np(np.asarray(apow_host, np.uint64).T.copy(), "cpu")
     before = _rand(rng, hf.p, D, 1 << log_lde)
-    got = tpcs.reduced_open(E, F.from_np(mat, "cpu"), apows, [F.from_np(v, "cpu") for v in vals], invs, offs,
-                            F.from_np(before, "cpu"))
+    opened = [[(k, o, F.from_np(v, "cpu")) for k, (o, v) in enumerate(zip(offs, vals))]]
+    got = tpcs.reduced_open_height(E, [F.from_np(mat, "cpu")], apows, opened, invs, F.from_np(before, "cpu"))
     want_np = np.stack([JF.to_np(c) for c in want])
     np.testing.assert_array_equal(fd.to_np(got), fd.to_np(E.add(F.from_np(before, "cpu"), F.from_np(want_np, "cpu"))))
-    got0 = tpcs.reduced_open(E, F.from_np(mat, "cpu"), apows, [F.from_np(v, "cpu") for v in vals], invs, offs)
+    got0 = tpcs.reduced_open_height(E, [F.from_np(mat, "cpu")], apows, opened, invs)
     np.testing.assert_array_equal(fd.to_np(got0), want_np)
 
 
