@@ -15,7 +15,7 @@ without printing a result:
                 and 2^18), generated from the template csrc/expr_sweep.cu,
                 one nvcc per program, all at once; prints each program's
                 build seconds and the registers and spills of gl_scan.cu's,
-                K15's and K13's kernels
+                K15's, K13's, K12's and K8's kernels
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K2 one stage per launch and as multi-stage passes at every
@@ -23,10 +23,13 @@ without printing a result:
                 entries (batch inverse, cumsum, sum, sum of inverses, the
                 stage-2 chain) at the stage-2 shape and at edge cases around
                 their tiles; K11 on U32Add's three recorded programs at 2^18
-                rows and the quotient in the sharded natural mode, K12 on a
-                (14, 2^20) stored LDE at two points, K13 at the bench's two
-                LDE heights (2^20: three matrices, 2^10: four; the parent's
-                per-matrix composition timed beside), K14 at the tiles the
+                rows and the quotient in the sharded natural mode, K12 at
+                the bench's two trace heights (2^18: the (14, 2^20) stored
+                LDE and two more matrices, 2^8: four) and below one tile,
+                each launched twice (the per-matrix launch structure timed
+                beside), K13 at the bench's two LDE heights (2^20: three
+                matrices, 2^10: four; the parent's per-matrix composition
+                timed beside), K14 at the tiles the
                 commits pick: the stage-1 commit's tile, with and without
                 an injection inside its levels, the stage-2 width, an
                 iDFT's tail and its DIT head, the quotient iDFT's DIT head;
@@ -35,10 +38,15 @@ without printing a result:
                 and at the top, each launched twice, and on forced plans of
                 many tiers, then above the stage-1 tile and on a FRI
                 round's 2^19-leaf tree beside the parent's launch structure,
-                and one compression's latency); outputs must be bit-equal
-                (all arithmetic is exact mod p, all hashing exact); warm
-                CUDA-event times of both, and for K4, K11, K13 and K15 the
-                profiler's device time
+                and one compression's latency), K8 on duplex inputs of 8 to
+                767 words around every edge of its prefix at 0, 1, 10 and
+                16 bits and D = 1..3, each launched twice, and on an input
+                whose least witness lies past the first wave, then 18
+                chained rounds; outputs must be bit-equal (all arithmetic
+                is exact mod p, all hashing exact); warm CUDA-event times of
+                both, and for K4, K7, K8, K11, K12, K13 and K15 the device
+                time (the calls queued behind a spin kernel, so that the
+                host's launch path is hidden, between two CUDA events)
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
                 witness) at 2^14 and 2^18 rows on `cuda` along three paths:
@@ -131,6 +139,8 @@ INT_OPS_PER_S = 67e12
 OPS_PER_MUL = {"Goldilocks": 12, "BabyBear": 6}
 OPS_PER_BLAKE3 = 7 * 8 * 14
 OPS_PER_POSEIDON2 = 772 * OPS_PER_MUL["BabyBear"]
+LATENCY_US = {}  # one compression's latency by field name (check_trees' node chain)
+SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second, at least (an H100's SM clock is at most 1.98 GHz)
 
 
 def say(phase: str, msg: str) -> None:
@@ -152,23 +162,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel, iters: int = 5) -> float:
-    """Mean device milliseconds per fn() of the CUDA functions of `kernel`
-    (a kernels.CudaKernel), from torch.profiler's events: the kernel's own
-    time on the card, without the host's launch path."""
+def device_ms(fn, iters: int = 5) -> float:
+    """Mean device milliseconds per fn(), without the host's launch path:
+    the calls are queued behind a spin kernel that keeps the card busy
+    while the host enqueues them, so they run back to back between two
+    CUDA events.  The spin is long enough for the host's enqueueing, timed
+    first, or the measurement is taken again with a longer one.  (Short
+    torch.profiler sessions in this script lost 20-60% of the kernels'
+    records, counted against the wrappers' launches: the profiler is left
+    to spans.py and scripts/tile_sweep.py, which count theirs.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_s = 0.005
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        host_s = time.perf_counter() - t0
+        end.record()
         torch.cuda.synchronize()
-    us = sum(evt.time_range.elapsed_us() for evt in prof.events()
-             if evt.device_type == DeviceType.CUDA and any(f in evt.name for f in kernel.functions))
-    return us / 1e3 / iters
+        if host_s < 0.5 * spin_s:
+            break
+        spin_s = 4 * host_s
+    return start.elapsed_time(end) / iters
 
 
 def max_abs_err(a, b) -> float:
@@ -201,7 +222,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, kernels, lookup as lk, pcs, utils
+    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, lookup as lk, pcs, utils
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
     from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
@@ -214,19 +235,18 @@ def check_kernels(dev):
 
     rows = {}
 
-    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None, time_fn=None, kernel=None):
+    def compare(label, kernel_fn, plain_fn, cost, iters=5, plain_iters=1, name=None, time_fn=None, device=False):
         """cost: (bytes the function must move, 32-bit integer operations).
         time_fn, where given, is what the kernel's time is taken on: the
         kernel alone, in place on a scratch copy, without the copy and
-        concatenation that kernel_fn adds for the comparison.  kernel, where
-        given (a kernels.CudaKernel), adds its device time per call from the
-        profiler."""
+        concatenation that kernel_fn adds for the comparison.  device adds
+        its device time per call (`device_ms`)."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         ms, plain_ms = cuda_ms(time_fn or kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
         bound_ms, bound_by = bound(*cost)
-        dev = "" if kernel is None else f" device_ms={device_ms(time_fn or kernel_fn, kernel, iters):.4f}"
+        dev = f" device_ms={device_ms(time_fn or kernel_fn, iters):.4f}" if device else ""
         say("kernels", f"{label}: max_abs_err={err} kernel_ms={ms:.4f}{dev} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4g} ({bound_by})")
         if err != 0:
@@ -237,7 +257,6 @@ def check_kernels(dev):
 
     m = 1 << 20
     lde_w, lde_log = 14, 20  # the stage-1 LDE of 2^18 rows at blowup 4
-    K4 = kernels.GL_SCAN
     for F, E, arith in ((GL_OPS, GL2_OPS, "gl_arith"), (BB_OPS, BB4_OPS, "bb_arith")):
         D, mul_ops = E.D, OPS_PER_MUL[F.name]
         inv_muls = (F.p - 2).bit_length() + bin(F.p - 2).count("1")  # Fermat square-and-multiply
@@ -305,16 +324,16 @@ def check_kernels(dev):
         N = chain.shape[1]
         binv_ops = 3 * ext_muls * mul_ops * N
         compare(f"gl_scan {E.name} cumsum ({D}, 13·2^18)", lambda: utils.cumsum(chain, E),
-                lambda: utils.cumsum_plain(chain, E), (16 * chain.numel(), 2 * chain.numel()), kernel=K4)
+                lambda: utils.cumsum_plain(chain, E), (16 * chain.numel(), 2 * chain.numel()), device=True)
         compare(f"gl_scan {F.name} field_sum (14, 2^18)", lambda: utils.field_sum(lde[:, : 1 << 18], F),
-                lambda: utils.field_sum_plain(lde[:, : 1 << 18], F), (8 * n18 + 8 * lde_w, 2 * n18), kernel=K4)
+                lambda: utils.field_sum_plain(lde[:, : 1 << 18], F), (8 * n18 + 8 * lde_w, 2 * n18), device=True)
         compare(f"gl_scan {E.name} batch_inv ({D}, 13·2^18)", lambda: utils.batch_inv(chain, E),
                 lambda: utils.batch_inv_plain(chain, E), (16 * chain.numel(), binv_ops), iters=3,
-                name="gl_scan" if F is GL_OPS else None, kernel=K4)
+                name="gl_scan" if F is GL_OPS else None, device=True)
         # the two fused entries: the sum of inverses (the claims accumulator's)
         # and the stage-2 chain from K11's messages
         compare(f"gl_scan {E.name} inv_sum ({D}, 13·2^18)", lambda: utils.inv_sum(chain, E),
-                lambda: utils.inv_sum_plain(chain, E), (8 * chain.numel() + 8 * D, binv_ops + 2 * D * N), kernel=K4)
+                lambda: utils.inv_sum_plain(chain, E), (8 * chain.numel() + 8 * D, binv_ops + 2 * D * N), device=True)
         msgs = torch.cat([chain, rnd(F, 1, N)])  # (D + 1, 13·2^18): messages, multiplicities
         acc = rnd(F, D)
         chain_ops = binv_ops + (D * mul_ops + 2 * 2 * D) * N  # inverses, terms, prefix sum, accumulator
@@ -322,7 +341,7 @@ def check_kernels(dev):
                 lambda: torch.cat([t.reshape(-1) for t in utils.stage2_chain(E, 13, msgs, acc)]),
                 lambda: torch.cat([t.reshape(-1) for t in utils.stage2_chain_plain(E, 13, msgs, acc)]),
                 (8 * msgs.numel() + 8 * D * N + 16 * D, chain_ops), iters=3,
-                time_fn=lambda: utils.stage2_chain(E, 13, msgs, acc), kernel=K4)
+                time_fn=lambda: utils.stage2_chain(E, 13, msgs, acc), device=True)
         unfused = cuda_ms(lambda: unfused_stage2_chain(E, 13, msgs, acc), 3)
         say("kernels", f"gl_scan {E.name} stage-2 chain as the parent composed it (K4 batch_inv, K1 scale, K4 "
             f"cumsum, cat, K1 add, permute): {unfused:.4f} ms")
@@ -387,29 +406,14 @@ def check_kernels(dev):
         # stored LDEs, the witness's lookup values, the stage-2 messages)
         check_programs(dev, F, E, rnd, compare, mul_ops, first=F is GL_OPS)
 
-        # K12 and K13: the claimed evaluations and the reduced opening of a
-        # (14, 2^20) stored LDE (2^18 rows at blowup 4) at two points
-        n18, P = 1 << 18, 2
-        ws, zs = [rnd(F, D, n18) for _ in range(P)], [rnd(F, D) for _ in range(P)]
-        s_n, inv_ns = hf.pow(hf.generator, n18), hf.inv(hf.mul(n18 % hf.p, hf.pow(hf.generator, n18)))
-        compare(f"bary_eval {E.name} (14, 2^20) prefix 2^18, 2 points",
-                lambda: pcs.bary_eval(E, lde, 18, ws, zs, s_n, inv_ns),
-                lambda: pcs.bary_eval_plain(E, lde, 18, ws, zs, s_n, inv_ns),
-                (8 * lde_w * n18 + 8 * P * D * n18 + 8 * P * D * lde_w, P * D * lde_w * n18 * (mul_ops + 2)),
-                name="bary_eval" if F is GL_OPS else None)
+        # K12 and K13: the claimed evaluations and the reduced openings at
+        # the bench's heights
+        check_claimed_evaluations(dev, F, E, rnd, compare, mul_ops, lde, first=F is GL_OPS)
         check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, first=F is GL_OPS)
 
-    # K8: one FRI round's grind at the bench's 10 bits over chain ‖ cap
-    bits = BENCH_FRI["commit_proof_of_work_bits"]
-    inp = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 16).astype(np.int32)).to(dev)
-    n_cands = 64 << bits
-    blocks = -(-(4 * 16 + 8) // 64)
-
-    def grind(fn):
-        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn(inp, bits, 2)])
-
-    compare(f"fri_grind 2^{bits} bits, {n_cands} candidates", grind(dt.fri_grind), grind(dt.fri_grind_plain),
-            (4 * 16 + 8 * 4 + 32, n_cands * blocks * OPS_PER_BLAKE3), name="fri_grind")
+    # K8: the FRI round's grind at every edge of its prefix, then at the
+    # bench's 10 bits over chain ‖ cap
+    check_grind(dev, rng, compare)
 
     # K7: the β/γ flush of a 2^18-row prove (random cap and claims)
     inputs = beta_gamma_flush(dev, 18, rng)
@@ -419,11 +423,164 @@ def check_kernels(dev):
     say("kernels", f"dt_flush plan: {plan[0]} chunks, {T} on the device, {S} host siblings, {n_ops} parent ops")
 
     def flush(fn):
-        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn(*inputs)])
+        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn(*inputs[:4])])
 
-    compare("dt_flush 2^18 beta/gamma flush", flush(dt.dt_flush), flush(dt.dt_flush_plain),
-            (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush")
+    compare("dt_flush 2^18 beta/gamma flush", lambda: torch.cat([t.reshape(-1).to(torch.int64)
+                                                                   for t in dt.dt_flush(*inputs)]),
+            flush(dt.dt_flush_plain),
+            (1024 * T + 32 * S + 4 * inputs.plan.numel() + 32 + 64, compressions * OPS_PER_BLAKE3), name="dt_flush",
+            time_fn=lambda: dt.dt_flush(*inputs), device=True)
+    say("kernels", f"dt_flush 2^18 beta/gamma flush: latency floor {inputs.chain} dependent compressions x "
+        f"{LATENCY_US['Goldilocks']:.4f} us = {inputs.chain * LATENCY_US['Goldilocks'] / 1e3:.4f} ms")
     return rows
+
+
+def bench_opened(dev, first: bool, log_n: int = 18) -> dict:
+    """The bench prove's opened matrices by trace height, in the prover's
+    round order (preprocessed, stage 1 and stage 2 at ζ and ζg, the
+    quotient at ζ): {log trace height: [(width, number of points)]}."""
+    from multistark_tpu_torch import system as sm
+    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+
+    config = bench_config(dev, "goldilocks_blake3" if first else "babybear_poseidon2")
+    system, _ = sm.System.new(config, u32_add_system_inputs())
+    heights = {}
+    for c in system.circuits:
+        ln = log_n if c.preprocessed_dims is None else c.preprocessed_dims[0].bit_length() - 1
+        if c.preprocessed_dims is not None:
+            heights.setdefault(ln, []).append((c.preprocessed_dims[1], 2))
+        heights.setdefault(ln, []).extend([(c.main_width, 2), (c.stage2_width, 2),
+                                           (config.ext.D * c.quotient_degree, 1)])
+    return heights
+
+
+def check_claimed_evaluations(dev, F, E, rnd, compare, mul_ops, lde, first: bool) -> None:
+    """K12 against its plain version at the bench's two trace heights, one
+    launch each, with random points, inverses and coset points: 2^18
+    (U32Add's stage-1 LDE, the (14, 2^20) of phase 3, its stage-2 and
+    quotient LDEs) and 2^8 (ByteTable's four matrices), U32Add's at 2^14
+    (tiles sized down so that every SM gets one), then heights of one tile
+    and below one warp (2^5 and 2^3 rows); each launched twice in a row
+    (the second launch finds the arrival counter the first reset); at 2^18
+    also the parent's launch structure on this kernel (one launch per
+    matrix) and the profiler's device time."""
+    import torch
+
+    from multistark_tpu_torch import pcs
+
+    hf, D = F.host, E.D
+    cases = (sorted(bench_opened(dev, first).items(), reverse=True) + [(14, bench_opened(dev, first, 14)[14])]
+             + [(5, [(2, 1), (3, 2)]), (3, [(3, 2)])])
+    for log_n, widths in cases:
+        n, N = 1 << log_n, 1 << (log_n + BENCH_COMMIT["log_blowup"])
+        mats = [lde[:w] if w <= lde.shape[0] and N == lde.shape[1] else rnd(F, w, N) for w, _ in widths]
+        openings = [list(range(k)) for _, k in widths]
+        P = max(k for _, k in widths)
+        zs, invs, x = [rnd(F, D) for _ in range(P)], [rnd(F, D, n) for _ in range(P)], rnd(F, n)
+        s_n = hf.pow(hf.generator, n)
+        inv_ns = hf.inv(hf.mul(n % hf.p, s_n))
+
+        def run(fn, mats=mats, openings=openings, log_n=log_n, zs=zs, invs=invs, x=x, s_n=s_n, inv_ns=inv_ns):
+            return lambda: torch.cat([v.reshape(-1) for vals in fn(E, mats, log_n, openings, zs, invs, x, s_n, inv_ns)
+                                      for v in vals])
+
+        want = run(pcs.bary_eval_height_plain)()
+        for _ in range(2):
+            if max_abs_err(run(pcs.bary_eval_height)(), want) != 0:
+                raise AssertionError(f"bary_eval {E.name} 2^{log_n} {widths}: kernel disagrees with its plain version")
+        pairs = sum(w * k for w, k in widths)
+        cost = (8 * (n * (sum(w for w, _ in widths) + P * D + 1) + D * pairs), n * D * (pairs + P) * mul_ops)
+        label = f"bary_eval {E.name} trace height 2^{log_n}, {len(widths)} matrices {widths} (width, points)"
+        compare(f"{label} (two launches in a row bit-equal before)", run(pcs.bary_eval_height),
+                run(pcs.bary_eval_height_plain), cost, name="bary_eval" if first and log_n == 18 else None,
+                time_fn=lambda: pcs.bary_eval_height(E, mats, log_n, openings, zs, invs, x, s_n, inv_ns), device=True)
+        if log_n == 18:
+            def per_matrix():
+                return [pcs.bary_eval_height(E, [m], log_n, [o], zs, invs, x, s_n, inv_ns)
+                        for m, o in zip(mats, openings)]
+
+            say("kernels", f"{label}: the parent's launch structure on this kernel (one launch per matrix): "
+                f"{cuda_ms(per_matrix, 5):.4f} ms, device_ms={device_ms(per_matrix):.4f}")
+
+
+def check_grind(dev, rng, compare) -> None:
+    """K8 against its plain version (grind_round and sample_ext_from_digest
+    on the card): duplex inputs of L words around every edge of its prefix
+    (w's low word at a block's start, middle and last word, the last block
+    of a one-chunk message, a second chunk, w's high word alone in the next
+    chunk, a third chunk), bits 0, 1, 10 and 16, β of D = 1..3, each
+    launched twice in a row; then inputs at 16 bits until one's least
+    witness lies past the first wave (a thread's second candidate); then
+    the bench's round (L = 16, 10 bits) timed, with its least time from
+    this run's witness and the latency floor beside."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import device_transcript as dt
+
+    def words(L):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, L).astype(np.int32)).to(dev)
+
+    def flat(outs):
+        return torch.cat([t.reshape(-1).to(torch.int64) for t in outs])
+
+    def check(inp, bits, label):
+        w, digest, found = dt.grind_round(inp, bits)
+        for D in (1, 2, 3):
+            beta, valid = dt.sample_ext_from_digest(digest, D)
+            want = flat((w, (found & valid).to(torch.int64), beta, digest))
+            for _ in range(2):
+                if max_abs_err(flat(dt.fri_grind(inp, bits, D)), want) != 0:
+                    raise AssertionError(f"fri_grind {label} bits={bits} D={D}: kernel disagrees with its plain "
+                                         "version")
+        return int(w)
+
+    cases = 0
+    for L in (8, 15, 16, 17, 254, 255, 256, 300, 767):
+        inp = words(L)
+        for bits in (0, 1, 10, 16):
+            check(inp, bits, f"L={L}")
+            cases += 6
+    first_wave = min(1024 * 128, 16 << 16)  # GRIND_MAX_BLOCKS x GRIND_THREADS in csrc/dt_blake3.cu
+    for tries in range(1, 201):
+        inp = words(16)
+        if int(dt.fri_grind(inp, 16, 2)[0]) >= first_wave:
+            break
+    else:
+        raise AssertionError("fri_grind: no input in 200 had its least witness at 16 bits past the first wave")
+    w = check(inp, 16, "past the first wave")
+    torch.cuda.synchronize()
+    say("kernels", f"fri_grind: {cases + 6} cases (L = 8, 15, 16, 17, 254, 255, 256, 300, 767 words; bits 0, 1, 10, "
+        f"16; D = 1..3; each launched twice) bit-equal to the plain version, one of them (try {tries}) with its "
+        f"least witness {w} past the first wave of {first_wave} candidates")
+
+    bits, L = BENCH_FRI["commit_proof_of_work_bits"], 16
+    inp = words(L)
+    w = int(dt.fri_grind(inp, bits, 2)[0])
+    prefix, per = dt.grind_compressions(L)
+    ops = ((w + 1) * per + prefix + per) * OPS_PER_BLAKE3  # candidates 0..w, the prefix, the winner again
+
+    def grind(fn):
+        return lambda: flat(fn(inp, bits, 2))
+
+    compare(f"fri_grind bench round: L = {L}, 2^{bits} bits, least witness {w}", grind(dt.fri_grind),
+            grind(dt.fri_grind_plain), (4 * L + 8 * 8 + 32, ops), name="fri_grind",
+            time_fn=lambda: dt.fri_grind(inp, bits, 2), device=True)
+    lat = LATENCY_US["Goldilocks"]
+    say("kernels", f"fri_grind bench round: latency floor {prefix + 2 * per} dependent compressions x {lat:.4f} us = "
+        f"{(prefix + 2 * per) * lat / 1e3:.4f} ms; the old bound (every candidate hashed in full) "
+        f"{1e3 * (64 << bits) * -(-(4 * L + 8) // 64) * OPS_PER_BLAKE3 / INT_OPS_PER_S:.4f} ms")
+
+    def rounds(n_rounds=18):
+        """A commit phase's grinds in a row: each round's digest is the next
+        round's chain, beside 8 cap words."""
+        chain = inp[:8]
+        for _ in range(n_rounds):
+            chain = dt.fri_grind(torch.cat([chain, inp[8:]]), bits, 2)[3]
+        return chain
+
+    say("kernels", f"fri_grind 18 chained rounds (L = {L}, 2^{bits} bits): {cuda_ms(rounds, 5):.4f} ms, "
+        f"device_ms={device_ms(rounds):.4f}")
 
 
 def check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, first: bool) -> None:
@@ -434,19 +591,10 @@ def check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, firs
     four), one scalar and one row launch each; the parent's per-matrix
     composition (one call per matrix, adding into the sum) timed beside;
     the adding path against the plain version; profiler device time."""
-    from multistark_tpu_torch import kernels, pcs, system as sm, utils
-    from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+    from multistark_tpu_torch import pcs, utils
 
-    system, _ = sm.System.new(bench_config(dev, "goldilocks_blake3" if first else "babybear_poseidon2"),
-                              u32_add_system_inputs())
     D, P, b = E.D, 2, BENCH_COMMIT["log_blowup"]
-    heights = {}  # log_lde -> [(width, number of points)] in the prover's round order
-    for c in system.circuits:
-        log_lde = (18 if c.preprocessed_dims is None else c.preprocessed_dims[0].bit_length() - 1) + b
-        if c.preprocessed_dims is not None:
-            heights.setdefault(log_lde, []).append((c.preprocessed_dims[1], 2))
-        heights.setdefault(log_lde, []).extend([(c.main_width, 2), (c.stage2_width, 2),
-                                                (D * c.quotient_degree, 1)])
+    heights = {log_n + b: widths for log_n, widths in bench_opened(dev, first).items()}
     for log_lde in sorted(heights, reverse=True):
         widths, N = heights[log_lde], 1 << log_lde
         count = sum(w * k for w, k in widths)
@@ -462,7 +610,7 @@ def check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, firs
         label = f"reduced_open {E.name} LDE height 2^{log_lde}, {len(widths)} matrices {widths} (width, points)"
         compare(label, lambda: pcs.reduced_open_height(E, mats, apows, openings, invs),
                 lambda: pcs.reduced_open_height_plain(E, mats, apows, openings, invs), cost,
-                name="reduced_open" if first and log_lde == 20 else None, kernel=kernels.REDUCED_OPEN)
+                name="reduced_open" if first and log_lde == 20 else None, device=True)
 
         def per_matrix():
             ro = None
@@ -471,7 +619,7 @@ def check_reduced_openings(dev, F, E, rnd, compare, mul_ops, ext_muls, lde, firs
             return ro
 
         say("kernels", f"{label}: the parent's per-matrix composition (one K13 call per matrix, each adding into "
-            f"the sum): {cuda_ms(per_matrix, 5):.4f} ms, device_ms={device_ms(per_matrix, kernels.REDUCED_OPEN):.4f}")
+            f"the sum): {cuda_ms(per_matrix, 5):.4f} ms, device_ms={device_ms(per_matrix):.4f}")
         acc = rnd(F, D, N)
         compare(f"{label}, added into a running sum",
                 lambda: pcs.reduced_open_height(E, mats, apows, openings, invs, acc.clone()),
@@ -674,7 +822,7 @@ def check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first: bool
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import commit_tile as ct, kernels
+    from multistark_tpu_torch import commit_tile as ct
 
     rng = np.random.default_rng(3)
 
@@ -739,10 +887,10 @@ def check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first: bool
             lambda: flat(ct.merkle_levels(hasher, top, L, inject)),
             lambda: flat(ct.merkle_levels_plain(hasher, top, L, inject)),
             (32 * S + 32 * (S - 1) + 32 * injected, per_hash * (S - 1 + injected)),
-            time_fn=lambda: ct.merkle_levels(hasher, top, L, inject), kernel=kernels.MERKLE_LEVELS)
+            time_fn=lambda: ct.merkle_levels(hasher, top, L, inject), device=True)
     say("kernels", f"{label}, the parent's launch structure on this kernel (10 levels per launch): "
         f"{cuda_ms(lambda: parent_structure(top, L, inject), 5):.4f} ms, device_ms="
-        f"{device_ms(lambda: parent_structure(top, L, inject), kernels.MERKLE_LEVELS):.4f}")
+        f"{device_ms(lambda: parent_structure(top, L, inject)):.4f}")
     leaves = hasher.hash_matrices([rnd(F, 2 * (2 if first else 4), 1 << 19)])  # an arity-2 fold of (D, 2^20)
     S, L = leaves.shape[0], 19
     plan = ct.levels_plan(L, L)
@@ -751,10 +899,10 @@ def check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first: bool
             lambda: flat(ct.merkle_levels(hasher, leaves, L)),
             lambda: flat(ct.merkle_levels_plain(hasher, leaves, L)),
             (32 * S + 32 * (S - 1), per_hash * (S - 1)), name="merkle_levels" if first else None,
-            time_fn=lambda: ct.merkle_levels(hasher, leaves, L), kernel=kernels.MERKLE_LEVELS)
+            time_fn=lambda: ct.merkle_levels(hasher, leaves, L), device=True)
     say("kernels", f"{label}, the parent's launch structure on this kernel (10 levels per launch): "
         f"{cuda_ms(lambda: parent_structure(leaves, L, {}), 5):.4f} ms, device_ms="
-        f"{device_ms(lambda: parent_structure(leaves, L, {}), kernels.MERKLE_LEVELS):.4f}")
+        f"{device_ms(lambda: parent_structure(leaves, L, {})):.4f}")
 
     d0 = digests(1)
     if not torch.equal(ct.node_chain(hasher, d0, 64), ct.node_chain_plain(hasher, d0, 64)):
@@ -763,6 +911,7 @@ def check_trees(dev, F, hasher, rnd, compare, per_hash, top, inject, first: bool
     t_n = cuda_ms(lambda: ct.node_chain(hasher, d0, n), 3)
     t_0 = cuda_ms(lambda: ct.node_chain(hasher, d0, 0), 3)
     lat_us = 1e3 * (t_n - t_0) / n
+    LATENCY_US[F.name] = lat_us
     say("kernels", f"merkle_levels {F.name} node latency: {lat_us:.4f} us per compression (a one-thread chain of "
         f"{n}, {t_n:.4f} ms, less an empty chain {t_0:.4f} ms; equal to the plain chain at 64); depth x latency: "
         f"a 2^19-leaf tree {19 * lat_us:.2f} us")
@@ -773,7 +922,7 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     (blowup 4): the quotient composition over the stored stage-1 and stage-2
     LDEs (bit-reversed, next row q = 1 ahead), the lookup values over the
     trace, and the stage-2 messages over those values."""
-    from multistark_tpu_torch import kernels, program, prover, system as sm
+    from multistark_tpu_torch import program, prover, system as sm
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs
 
     name = "goldilocks_blake3" if first else "babybear_poseidon2"
@@ -807,7 +956,7 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     compare(f"expr_sweep {F.name} quotient of U32Add (2^18 rows)",
             lambda: program.expr_sweep(F, qprog, qops, (D, m), m, 1),
             lambda: program.expr_sweep_plain(F, qprog, qops, (D, m), m, 1), cost(qprog, m, D),
-            name="expr_sweep" if first else None, kernel=kernels.EXPR_SWEEP)
+            name="expr_sweep" if first else None, device=True)
     # (a') the same program in natural mode on a rank's block of a four-rank
     # mesh plus the q rows after it, as the sharded quotient runs it
     b = m // 4
@@ -817,7 +966,7 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     )
     compare(f"expr_sweep {F.name} quotient of U32Add, natural mode, a block of {b} rows + {q} halo",
             lambda: program.expr_sweep(F, qprog, nops, (D, b + q), b + q, 1),
-            lambda: program.expr_sweep_plain(F, qprog, nops, (D, b + q), b + q, 1), cost(qprog, b + q, D), kernel=kernels.EXPR_SWEEP)
+            lambda: program.expr_sweep_plain(F, qprog, nops, (D, b + q), b + q, 1), cost(qprog, b + q, D), device=True)
     # (b) the lookup values
     lprog = system.lookup_values_program(c_idx)
     arities = tuple(len(a) for _, a in circuit.graph.lookups)
@@ -825,14 +974,14 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     lops = program.Operands(sources=[None, rnd(F, circuit.main_width, n)], rows=n)
     compare(f"expr_sweep {F.name} lookup values of U32Add (2^18 rows)",
             lambda: program.expr_sweep(F, lprog, lops, (n_out, n), n, 1),
-            lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out), kernel=kernels.EXPR_SWEEP)
+            lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out), device=True)
     # (c) the stage-2 messages
     L = len(arities)
     sprog = system.stage2_program(c_idx)
     sops = program.Operands(sources=[rnd(F, n_out, n)], rows=n, pubs=rnd(F, 2 * D))
     compare(f"expr_sweep {F.name} stage-2 messages of U32Add (2^18 rows, {L} slots)",
             lambda: program.expr_sweep(F, sprog, sops, (D + 1, n * L), n * L, L),
-            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)), kernel=kernels.EXPR_SWEEP)
+            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)), device=True)
     for prog in (qprog, lprog, sprog):
         report = [ln.split(":", 1)[-1].strip() for ln in program.ptxas_report(F, prog).splitlines()
                   if "registers" in ln or "spill" in ln]
@@ -1136,7 +1285,9 @@ def main() -> int:
     say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
     for k, names in ((kernels.GL_SCAN, ("batch_inv_kernel", "stage2_chain_kernel", "cumsum_kernel", "sum_kernel")),
                      (kernels.MERKLE_LEVELS, kernels.MERKLE_LEVELS.functions),
-                     (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions)):
+                     (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions),
+                     (kernels.BARY_EVAL, kernels.BARY_EVAL.functions),
+                     (kernels.FRI_GRIND, kernels.FRI_GRIND.functions)):
         say("build", f"{os.path.basename(k.source)} ptxas ({k.name}): {ptxas_kernels(kernels.ptxas_log(k.source), names)}")
     build_programs(dev)
 

@@ -253,7 +253,7 @@ def merkle_levels(hasher, layer: torch.Tensor, levels: int, inject: Optional[Inj
     outs = _layers(size >> 1, levels, layer.device)
     out_p, inj_p = _pointers(outs, inject, 1)
     tiers = (ctypes.c_int * len(plan.tiers))(*plan.tiers)
-    counters = utils.scratch(layer).take_tree(layer, plan.counters)
+    counters = utils.scratch(layer).take_counters(layer, plan.counters)
     injected = sum(d.shape[0] for d in inject.values())
     nodes = size - (size >> levels) + injected  # compressions
     kernels.MERKLE_LEVELS.launch(

@@ -13,11 +13,19 @@
 //
 // K8 replaces multistark_tpu/device_transcript.py grind_round and
 // sample_ext_from_digest (:74-118), the per-round grind of pcs.py
-// _device_round_kernel (:1183): hash chain ‖ cap ‖ w_le8 for every candidate
-// w < 64·2^bits in parallel, keep the least w whose draw 0 is canonical with
-// `bits` low zero bits (atomicMin), then from the winning digest take β =
-// draws 1..D and the found & valid flag.  Bound on the card: integer ALU,
-// 65,536 candidates of two compressions each at 10 bits.
+// _device_round_kernel (:1183): the least w < 64·2^bits whose BLAKE3 digest
+// of chain ‖ cap ‖ w_le8 has a canonical draw 0 with `bits` low zero bits,
+// then from that digest β = draws 1..D and the found & valid flag, in one
+// launch per round.  Every block hashes once what comes before the block
+// that holds w (the chunks before w's chunk and that chunk's earlier
+// blocks), so a candidate costs the compressions from w's block on (one on
+// the bench's chain ‖ cap of 16 words); threads take their candidates in
+// increasing order and stop once a smaller one has passed; the last block to
+// arrive hashes the winner again and resets the round's words.  Bound on the
+// card: latency, the round's dependent compressions (the prefix, a
+// candidate, the winner) and the memory round trips between them (the
+// input, the least witness, the arrival counter); the about 2^bits
+// candidates a round needs are far fewer operations than that.
 //
 // Draw k of a digest d (the challenger pops bytes from the digest's end) is
 // the u64 with low word bswap(d[7 - 2k]) and high word bswap(d[6 - 2k]); it is
@@ -112,55 +120,167 @@ __global__ void flush_root_kernel(const int32_t* __restrict__ plan, const uint32
 
 // ---- K8 -------------------------------------------------------------------
 
-// The words of chain ‖ cap ‖ w_le8: L input words, then w's low and high word.
-struct GrindWords {
-  const uint32_t* inp;
-  int64_t L;
-  uint32_t w;
-  int64_t i;
+constexpr int GRIND_THREADS = 128;
+constexpr int GRIND_MAX_BLOCKS = 1024;
 
-  __device__ __forceinline__ uint32_t next() {
-    const int64_t k = i++;
-    return k < L ? inp[k] : (k == L ? w : 0u);
+// Where w's low word (message word L of chain ‖ cap ‖ w_le8, T = L + 2
+// words) falls: chunk c, block b of that chunk, word pos of that block.
+struct GrindShape {
+  int64_t L, T, c, chunk_words, n_chunks;
+  int b, pos, extra;  // extra: a second block in chunk c (w's high word alone, when pos = 15)
+  bool single, tail;  // one chunk in all; chunk c + 1 exists (w's high word alone, when L % 256 = 255)
+
+  __device__ explicit GrindShape(int64_t L_) : L(L_), T(L_ + 2) {
+    c = L / b3::CHUNK_WORDS;
+    n_chunks = (T + b3::CHUNK_WORDS - 1) / b3::CHUNK_WORDS;
+    chunk_words = b3::imin(b3::CHUNK_WORDS, T - c * b3::CHUNK_WORDS);
+    b = (int)((L % b3::CHUNK_WORDS) / 16);
+    pos = (int)(L % 16);
+    extra = (int)((chunk_words + 15) / 16) - b - 1;
+    single = n_chunks == 1;
+    tail = c + 1 < n_chunks;
   }
 };
 
-__device__ __forceinline__ void grind_digest(const uint32_t* inp, int64_t L, uint32_t w, uint32_t d[8]) {
-  GrindWords src{inp, L, w, 0};
-  b3::hash_words(src, L + 2, d);
-}
+// The part of every candidate's hash that does not depend on w, made once
+// per block: the chunk-tree stack of the chunks before c, the chaining value
+// entering block b of chunk c, that block's other words, and the chaining
+// value of chunk c + 1 when it exists.
+struct GrindPrefix {
+  uint32_t stack[b3::MAX_STACK][8];
+  uint32_t mid[8], fixed[16], tail[8];
+  int depth;
+};
 
-__global__ void grind_search_kernel(const uint32_t* __restrict__ inp, int64_t L, int64_t n, uint32_t mask,
-                                    unsigned int* __restrict__ best) {
-  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < n; c += (int64_t)gridDim.x * blockDim.x) {
-    uint32_t d[8];
-    grind_digest(inp, L, (uint32_t)c, d);
-    bool canonical;
-    const uint64_t v = draw(d, 0, &canonical);
-    if (canonical && ((uint32_t)v & mask) == 0) atomicMin(best, (unsigned int)c);
+// Warp 0 makes the prefix: lanes hash the whole chunks before c 32 at a time,
+// lane 0 merges them into the stack and hashes the blocks of chunk c before b.
+__device__ void grind_prefix(const uint32_t* __restrict__ inp, const GrindShape& sh, GrindPrefix& g,
+                             uint32_t (*cvs)[8]) {
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= 32) return;
+  if (lane == 0) g.depth = 0;
+  for (int64_t base = 0; base < sh.c; base += 32) {
+    if (base + lane < sh.c)
+      chunk_cv_bytes(inp + b3::CHUNK_WORDS * (base + lane), 4 * b3::CHUNK_WORDS, (uint64_t)(base + lane), false,
+                     cvs[lane]);
+    __syncwarp();
+    if (lane == 0) {
+      for (int64_t k = base; k < sh.c && k < base + 32; k++) {
+        uint32_t out[8];
+#pragma unroll
+        for (int i = 0; i < 8; i++) out[i] = cvs[k - base][i];
+        for (int64_t t = k + 1; (t & 1) == 0; t >>= 1) b3::parent(out, g.stack[--g.depth], 0);
+#pragma unroll
+        for (int i = 0; i < 8; i++) g.stack[g.depth][i] = out[i];
+        g.depth++;
+      }
+    }
+    __syncwarp();
+  }
+  if (lane != 0) return;
+  const uint32_t* chunk = inp + b3::CHUNK_WORDS * sh.c;
+#pragma unroll
+  for (int i = 0; i < 8; i++) g.mid[i] = b3::IV[i];
+  for (int blk = 0; blk < sh.b; blk++)
+    b3::compress(g.mid, chunk + 16 * blk, (uint64_t)sh.c, 64, blk == 0 ? b3::CHUNK_START : 0u);
+  for (int i = 0; i < 16; i++) {
+    const int64_t k = b3::CHUNK_WORDS * sh.c + 16 * sh.b + i;
+    g.fixed[i] = k < sh.L ? inp[k] : 0u;
+  }
+  if (sh.tail) {
+    const uint32_t zero[16] = {};
+    chunk_cv_bytes(zero, 4, (uint64_t)(sh.c + 1), false, g.tail);
   }
 }
 
-// out: [w, found & valid, β_0 .. β_{D-1}, ..., scratch]; digest: the winning
-// candidate's digest (candidate 0's when none passed).
-__global__ void grind_finish_kernel(const uint32_t* __restrict__ inp, int64_t L, int D,
-                                    const unsigned int* __restrict__ best, uint64_t* __restrict__ out,
-                                    uint32_t* __restrict__ digest) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  const bool found = *best != 0xFFFFFFFFu;
-  const uint32_t w = found ? *best : 0u;
+// The digest of chain ‖ cap ‖ w_le8 from the prefix: the block that holds w
+// (its other words `fixed`, in registers), the block after it when w's high
+// word spills into it, then the merges up the chunk tree.
+__device__ __forceinline__ void grind_digest(const GrindShape& sh, const GrindPrefix& g, const uint32_t fixed[16],
+                                             uint32_t w, uint32_t d[8]) {
+  uint32_t block[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) block[i] = i == sh.pos ? w : fixed[i];
+#pragma unroll
+  for (int i = 0; i < 8; i++) d[i] = g.mid[i];
+  const uint32_t end = b3::CHUNK_END | (sh.single ? b3::ROOT : 0u);
+  b3::compress(d, block, (uint64_t)sh.c, (uint32_t)(4 * b3::imin(16, sh.chunk_words - 16 * sh.b)),
+               (sh.b == 0 ? b3::CHUNK_START : 0u) | (sh.extra ? 0u : end));
+  if (sh.extra) {
+    const uint32_t zero[16] = {};
+    b3::compress(d, zero, (uint64_t)sh.c, (uint32_t)(4 * (sh.chunk_words - 16 * (sh.b + 1))), end);
+  }
+  if (sh.single) return;
+  int depth = g.depth;
+  if (sh.tail) {
+    for (int64_t t = sh.c + 1; (t & 1) == 0; t >>= 1) b3::parent(d, g.stack[--depth], 0);
+    uint32_t r[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) r[i] = g.tail[i];
+    b3::parent(r, d, depth == 0 ? b3::ROOT : 0u);
+#pragma unroll
+    for (int i = 0; i < 8; i++) d[i] = r[i];
+  }
+  while (depth > 0) {
+    depth--;
+    b3::parent(d, g.stack[depth], depth == 0 ? b3::ROOT : 0u);
+  }
+}
+
+// One launch per round.  Each thread takes its candidates in increasing
+// order and stops once a smaller passing one is known: the least passing
+// candidate m is never skipped (the least known is >= m whenever its thread
+// looks), so the result is the full search's, a miss included.  The least
+// is kept complemented (atomicMax of ~w), so that 0 means none.  The last
+// block to arrive hashes the winner again from the prefix, writes w, the
+// flag and β, and sets both words back to 0.
+__global__ void __launch_bounds__(GRIND_THREADS)
+    fri_grind_kernel(const uint32_t* __restrict__ inp, int64_t L, uint32_t n, uint32_t mask, int D,
+                     unsigned int* __restrict__ inv_best, unsigned int* __restrict__ arrived,
+                     uint64_t* __restrict__ out, uint32_t* __restrict__ digest) {
+  __shared__ GrindPrefix g;
+  __shared__ uint32_t cvs[32][8];
+  __shared__ bool last;
+  const GrindShape sh(L);
+  grind_prefix(inp, sh, g, cvs);
+  __syncthreads();
+  uint32_t fixed[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) fixed[i] = g.fixed[i];
+  const volatile unsigned int* least = inv_best;
+  const uint32_t first = blockIdx.x * blockDim.x + threadIdx.x;
+  for (uint32_t w = first; w < n; w += gridDim.x * blockDim.x) {
+    if (w != first && ~*least < w) break;  // a smaller candidate passed (the first is hashed regardless)
+    uint32_t d[8];
+    grind_digest(sh, g, fixed, w, d);
+    bool canonical;
+    const uint64_t v = draw(d, 0, &canonical);
+    if (canonical && ((uint32_t)v & mask) == 0) atomicMax(inv_best, ~w);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(arrived, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x != 0) return;
+  __threadfence();
+  const unsigned int inv = *least;
+  const uint32_t w = ~inv;
   uint32_t d[8];
-  grind_digest(inp, L, w, d);
+  grind_digest(sh, g, fixed, inv ? w : 0u, d);
   bool valid = true;
   for (int k = 0; k < D; k++) {
     bool ok;
     out[2 + k] = draw(d, k + 1, &ok);
     valid = valid && ok;
   }
-  out[0] = w;
-  out[1] = (found && valid) ? 1 : 0;
+  out[0] = inv ? w : 0u;
+  out[1] = (inv && valid) ? 1 : 0;
 #pragma unroll
   for (int i = 0; i < 8; i++) digest[i] = d[i];
+  *inv_best = 0;
+  *arrived = 0;
 }
 
 unsigned blocks_for(int64_t n, int threads) {
@@ -186,21 +306,19 @@ int dt_flush(const uint32_t* chunks, const int32_t* plan, const uint32_t* sibs, 
   return (int)cudaGetLastError();
 }
 
-// The FRI commit-phase grind: out (8 u64) gets [w, ok, β_0 .. β_{D-1}] and
-// uses out[7] as scratch; digest (8 u32) becomes the next round's chain.
+// The FRI commit-phase grind: out (8 u64) gets [w, ok, β_0 .. β_{D-1}];
+// digest (8 u32) becomes the next round's chain; words: two words of a
+// counter buffer, 0 on entry and on return.  One launch, sized so that its
+// first wave covers 16·2^bits candidates.
 int fri_grind(const uint32_t* inp, int64_t L, int bits, int D, uint64_t* out, uint32_t* digest,
-              cudaStream_t stream) {
+              unsigned long long* words, cudaStream_t stream) {
   if (L <= 0 || bits < 0 || bits > 24 || D < 1 || D > 3) return (int)cudaErrorInvalidValue;
-  unsigned int* best = reinterpret_cast<unsigned int*>(out + 7);
-  cudaError_t err = cudaMemsetAsync(best, 0xFF, sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)64 << bits;
-  const uint32_t mask = bits == 0 ? 0u : (uint32_t)((1u << bits) - 1u);
-  const int threads = 128;
-  grind_search_kernel<<<blocks_for(n, threads), threads, 0, stream>>>(inp, L, n, mask, best);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  grind_finish_kernel<<<1, 1, 0, stream>>>(inp, L, D, best, out, digest);
+  const uint32_t n = 64u << bits, mask = bits == 0 ? 0u : (uint32_t)((1u << bits) - 1u);
+  const int64_t first = (int64_t)16 << bits < n ? (int64_t)16 << bits : n;
+  const int64_t want = (first + GRIND_THREADS - 1) / GRIND_THREADS;
+  const unsigned blocks = (unsigned)(want < GRIND_MAX_BLOCKS ? want : GRIND_MAX_BLOCKS);
+  unsigned int* w32 = reinterpret_cast<unsigned int*>(words);
+  fri_grind_kernel<<<blocks, GRIND_THREADS, 0, stream>>>(inp, L, n, mask, D, w32, w32 + 2, out, digest);
   return (int)cudaGetLastError();
 }
 

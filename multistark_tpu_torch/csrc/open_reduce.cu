@@ -1,14 +1,22 @@
 // K12 bary_eval and K13 reduced_open: the two reductions of the PCS opening
 // over a stored (bit-reversed) LDE, over Goldilocks / GL2 or BabyBear / BB4.
 //
-// K12 replaces multistark_tpu/pcs.py:1256 _eval_kernel (called from :590):
-// the claimed evaluations of one matrix at each of its points by the
-// barycentric formula on the size-n same-shift sub-coset, a stored prefix,
-//   p(z) = (z^n - s^n)/(n·s^n) · Σ_i e_i·w_i,   w_i = x_i/(z - x_i),
-// per column.  The weights come in the prefix's storage order, so the sum
-// reads the stored prefix as it lies.  Two launches: bary_partial sums a
-// tile of rows per block (block reduction), bary_finish adds the tiles, raises
-// z to the n-th power by squaring and applies the scale.
+// K12 replaces multistark_tpu/pcs.py:1256 _eval_kernel, merged per prove by
+// :590 _eval_all_kern: the claimed evaluations of every matrix of one trace
+// height n at each of its points by the barycentric formula on the size-n
+// same-shift sub-coset, a stored prefix,
+//   p(z) = (z^n - s^n)/(n·s^n) · Σ_i e_i·x_i/(z - x_i),
+// per column.  One launch per height (bary_height) for all of its matrices
+// and points.  A block owns a tile of rows: it makes the tile's weights
+// x_i·inv_p[i] (inv_p = 1/(z_p - x), in the prefix's storage order) once per
+// row and point into shared memory, then its warps walk every column of every
+// matrix, lanes over the tile's rows (neighbouring lanes, neighbouring
+// addresses), summing e·w for each of the matrix's points unreduced (delayed
+// reduction, as ro_rows), one reduction per (column, point, coordinate), then
+// a warp sum, whose low and high halves atomics add into the launch's sums.
+// The last block to arrive (a counter it resets) forms each value from its
+// two sums, applies its point's scale (z^n - s^n)·inv_ns and sets the sums
+// back to 0.  Each matrix element and each weight word is read once.
 //
 // K13 replaces multistark_tpu/pcs.py:1284 _ro_kernel, merged per prove by
 // :605 _ro_all_kern: the reduced opening of one LDE height over all of its
@@ -25,21 +33,20 @@
 // point; it reads each matrix once and each point's inverse row once and
 // writes ro once (no read-modify-write unless asked to add).
 //
-// Bound on the card: memory for K12 and K13.  K12 reads the (w, n) prefix
-// and P·D weight rows once; K13 reads the matrices' Σw_m·N elements, P·D
-// inverse rows and writes D rows, with about w·D products per row, which
-// at Goldilocks's 64-bit products on 32-bit integer units are near the
-// memory time.  Design: K13 a thread per two rows (16-byte loads of each
-// column, coalesced) where the layout allows, else one; K12 one thread per
-// ITEMS rows; neighbouring threads read neighbouring addresses of each row.
+// Bound on the card: K12 reads the height's prefixes (Σ w_m·n elements),
+// P·D inverse rows and x once, with Σ_{pairs} w·D products per row: two to
+// four Goldilocks 64-bit products per element on 32-bit integer units,
+// which take longer than its bytes (about 3x the byte bound on the bench's
+// 2^18 height).  K13 reads the matrices' Σw_m·N elements, P·D inverse rows
+// and writes D rows, with about w·D products per row, near the memory
+// time; it runs a thread per two rows (16-byte loads of each column,
+// coalesced) where the layout allows, else one.
 #include "field.cuh"
 
 namespace {
 
 constexpr int MAX_POINTS = 4;
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;
-constexpr int64_t TILE = (int64_t)THREADS * ITEMS;
 
 struct PointPtrs {
   const uint64_t* p[MAX_POINTS];
@@ -50,76 +57,6 @@ __device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = F::add(v, __shfl_down_sync(0xFFFFFFFFu, v, off));
   return v;
-}
-
-// grid (tiles, w): block (tile, c) sums rows [tile·TILE, (tile+1)·TILE) of
-// column c against every point's weights; partials (P, D, w, tiles).
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-    bary_partial_kernel(const uint64_t* __restrict__ mat, int64_t row_stride, int64_t w, int64_t n, PointPtrs wts,
-                        int P, uint64_t* __restrict__ partials) {
-  constexpr int D = F::D;
-  __shared__ uint64_t warp_part[THREADS / 32][MAX_POINTS * D];
-  const int64_t tile = blockIdx.x, tiles = gridDim.x, c = blockIdx.y;
-  uint64_t acc[MAX_POINTS][D];
-#pragma unroll
-  for (int p = 0; p < MAX_POINTS; p++)
-#pragma unroll
-    for (int d = 0; d < D; d++) acc[p][d] = 0;
-  for (int j = 0; j < ITEMS; j++) {
-    const int64_t t = tile * TILE + (int64_t)j * THREADS + threadIdx.x;
-    if (t >= n) break;
-    const uint64_t v = mat[c * row_stride + t];
-#pragma unroll
-    for (int p = 0; p < MAX_POINTS; p++) {
-      if (p >= P) break;
-#pragma unroll
-      for (int d = 0; d < D; d++) acc[p][d] = F::add(acc[p][d], F::mul(v, wts.p[p][d * n + t]));
-    }
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int p = 0; p < MAX_POINTS; p++) {
-#pragma unroll
-    for (int d = 0; d < D; d++) {
-      const uint64_t s = warp_sum<F>(acc[p][d]);
-      if (lane == 0) warp_part[warp][p * D + d] = s;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < P * D) {
-    uint64_t s = 0;
-    for (int k = 0; k < THREADS / 32; k++) s = F::add(s, warp_part[k][threadIdx.x]);
-    const int p = threadIdx.x / D, d = threadIdx.x % D;
-    partials[((p * D + d) * w + c) * tiles + tile] = s;
-  }
-}
-
-// One thread per (point, column): the sum over tiles times the point's scale
-// (z^n - s^n)·inv_ns; out (P, D, w).
-template <class F>
-__global__ void bary_finish_kernel(const uint64_t* __restrict__ partials, int64_t tiles, int P, int64_t w,
-                                   PointPtrs zs, int log_n, uint64_t s_n, uint64_t inv_ns, uint64_t* __restrict__ out) {
-  constexpr int D = F::D;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P * w) return;
-  const int p = (int)(i / w);
-  const int64_t c = i % w;
-  Ext<F> acc;
-#pragma unroll
-  for (int d = 0; d < D; d++) {
-    uint64_t s = 0;
-    for (int64_t k = 0; k < tiles; k++) s = F::add(s, partials[((p * D + d) * w + c) * tiles + k]);
-    acc.c[d] = s;
-  }
-  Ext<F> zn;
-#pragma unroll
-  for (int d = 0; d < D; d++) zn.c[d] = zs.p[p][d];
-  for (int k = 0; k < log_n; k++) zn = ext_mul<F>(zn, zn);
-  zn.c[0] = F::sub(zn.c[0], s_n);
-  const Ext<F> r = ext_mul<F>(acc, ext_scale<F>(zn, inv_ns));
-#pragma unroll
-  for (int d = 0; d < D; d++) out[(p * D + d) * w + c] = r.c[d];
 }
 
 // -- K13 ---------------------------------------------------------------------------
@@ -419,6 +356,154 @@ int launch_ro_rows_p(int P, const RoMats& mt, const PointPtrs& invs, int64_t N, 
   }
 }
 
+// -- K12 ---------------------------------------------------------------------------
+
+constexpr int BARY_WARPS = THREADS / 32;
+constexpr int BARY_WEIGHTS = 4096;  // weight words of a tile in shared memory (32 KB): P·D·2^log_tile
+constexpr int BARY_UNROLL = 16;     // loads in flight per lane (a lane has up to 64 rows of a column in a tile)
+
+// One launch per trace height; grid: the height's tiles of 2^log_tile rows
+// (as many rows as the weights' shared memory holds, fewer on a height too
+// short to give every SM a tile).
+// mt: the height's matrices (column j of matrix m at ptr[m] + j·stride[m],
+// the prefix's first n entries read) and their (matrix, point) pairs, each
+// matrix's in a run; invs `points` (D, n) 1/(z_p - x); xs (n,) the coset
+// points; zs `points` (D,) points; out: per pair its (D, w) values, pairs in
+// order.  words: [0] the arrival counter, then per output word its tiles'
+// sums split into low and high 32-bit halves, each summed into a u64 by
+// atomics (exact: below 2^56 for up to 2^24 tiles), all 0 on entry and set
+// back to 0 by the last block.  P is the most points a matrix of the height has.
+template <class F, int P>
+__global__ void __launch_bounds__(THREADS, 2)
+    bary_height_kernel(RoMats mt, int Q, int points, PointPtrs invs, const uint64_t* __restrict__ xs, PointPtrs zs,
+                       int64_t n, int log_tile, int log_n, uint64_t s_n, uint64_t inv_ns,
+                       unsigned long long* __restrict__ words, uint64_t* __restrict__ out) {
+  constexpr int D = F::D;
+  __shared__ uint64_t wts[BARY_WEIGHTS];
+  __shared__ int64_t col_at[MAX_MATS + 1], pair_col[MAX_PAIRS + 1];
+  __shared__ int mat_of[MAX_PAIRS];
+  __shared__ Ext<F> scale[MAX_POINTS];
+  __shared__ int last;
+  const int64_t R = (int64_t)1 << log_tile, t0 = (int64_t)blockIdx.x << log_tile, tiles = gridDim.x;
+  const int64_t rows = n - t0 < R ? n - t0 : R;
+  unsigned long long* sums = words + 1;
+  if (threadIdx.x == 0) {
+    col_at[0] = pair_col[0] = 0;
+    for (int m = 0, q = 0; m < mt.mats; m++) {
+      col_at[m + 1] = col_at[m] + mt.width[m];
+      for (; q < mt.pair_end[m]; q++) {
+        mat_of[q] = m;
+        pair_col[q + 1] = pair_col[q] + mt.width[m];
+      }
+    }
+  }
+  // the tile's weights x·inv_p, one product per row, point and coordinate
+  for (int64_t r = threadIdx.x; r < rows; r += THREADS) {
+    const uint64_t x = __ldg(xs + t0 + r);
+    for (int p = 0; p < points; p++)
+#pragma unroll
+      for (int d = 0; d < D; d++) wts[(p * D + d) * R + r] = F::mul(__ldg(invs.p[p] + d * n + t0 + r), x);
+  }
+  __syncthreads();
+  // a warp per column: lanes over the tile's rows, BARY_UNROLL of a lane's
+  // rows loaded before their products (two blocks an SM: at most 128
+  // registers; 8, 16 or 32 loads ahead, and loads one batch ahead, timed
+  // within 2% of each other on the bench's heights)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int m = 0;
+  for (int64_t c = warp; c < col_at[mt.mats]; c += BARY_WARPS) {
+    while (col_at[m + 1] <= c) m++;
+    const int64_t j = c - col_at[m];
+    const int q0 = m ? mt.pair_end[m - 1] : 0, np = mt.pair_end[m] - q0;
+    int pt[P];
+#pragma unroll
+    for (int k = 0; k < P; k++) pt[k] = k < np ? mt.pair_point[q0 + k] : 0;
+    const unsigned long long* col = reinterpret_cast<const unsigned long long*>(mt.ptr[m] + j * mt.stride[m] + t0);
+    Dot<F> acc[P][D];
+    for (int64_t base = lane; base < rows; base += 32 * BARY_UNROLL) {
+      uint64_t e[BARY_UNROLL];
+#pragma unroll
+      for (int u = 0; u < BARY_UNROLL; u++) e[u] = base + 32 * u < rows ? __ldcs(col + base + 32 * u) : 0;
+#pragma unroll
+      for (int u = 0; u < BARY_UNROLL; u++) {
+        if (base + 32 * u >= rows) break;
+#pragma unroll
+        for (int k = 0; k < P; k++)
+          if (k < np)
+#pragma unroll
+            for (int d = 0; d < D; d++) acc[k][d].mac(e[u], wts[(pt[k] * D + d) * R + base + 32 * u]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < P; k++) {
+      if (k >= np) break;
+#pragma unroll
+      for (int d = 0; d < D; d++) {
+        const uint64_t v = warp_sum<F>(acc[k][d].reduce());
+        if (lane == 0) {
+          unsigned long long* s = sums + 2 * (pair_col[q0 + k] * D + d * mt.width[m] + j);
+          atomicAdd(s, v & 0xFFFFFFFFull);
+          atomicAdd(s + 1, v >> 32);
+        }
+      }
+    }
+  }
+  __threadfence();  // this block's sums, before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(words, 1ull) == (unsigned long long)tiles - 1;
+    if (last) words[0] = 0;  // every tile has arrived
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every tile's sums, before they are read
+  if ((int)threadIdx.x < points) {
+    Ext<F> zn;
+#pragma unroll
+    for (int d = 0; d < D; d++) zn.c[d] = zs.p[threadIdx.x][d];
+    for (int k = 0; k < log_n; k++) zn = ext_mul<F>(zn, zn);
+    zn.c[0] = F::sub(zn.c[0], s_n);
+    scale[threadIdx.x] = ext_scale<F>(zn, inv_ns);
+  }
+  __syncthreads();
+  // a thread per (pair, column): its D coordinates from the halves' sums,
+  // times the point's scale; the sums set back to 0
+  constexpr uint64_t TWO32 = (1ull << 32) % F::P;
+  for (int64_t o = threadIdx.x; o < pair_col[Q]; o += THREADS) {
+    int q = 0;
+    while (pair_col[q + 1] <= o) q++;
+    const int64_t w = mt.width[mat_of[q]], at = pair_col[q] * D + (o - pair_col[q]);
+    Ext<F> v;
+#pragma unroll
+    for (int d = 0; d < D; d++) {
+      unsigned long long* s = sums + 2 * (at + d * w);
+      v.c[d] = F::add(__ldcg(s) % F::P, F::mul(__ldcg(s + 1) % F::P, TWO32));
+      s[0] = s[1] = 0;
+    }
+    const Ext<F> r = ext_mul<F>(v, scale[mt.pair_point[q]]);
+#pragma unroll
+    for (int d = 0; d < D; d++) out[at + d * w] = r.c[d];
+  }
+}
+
+template <class F>
+int launch_bary_height(int P, const RoMats& mt, int Q, int points, const PointPtrs& invs, const uint64_t* xs,
+                       const PointPtrs& zs, int64_t n, int log_tile, int log_n, uint64_t s_n, uint64_t inv_ns,
+                       unsigned long long* words, uint64_t* out, cudaStream_t stream) {
+  const unsigned tiles = (unsigned)((n + ((int64_t)1 << log_tile) - 1) >> log_tile);
+#define BARY_LAUNCH(K)                                                                                          \
+  bary_height_kernel<F, K><<<tiles, THREADS, 0, stream>>>(mt, Q, points, invs, xs, zs, n, log_tile, log_n, s_n, \
+                                                          inv_ns, words, out)
+  switch (P) {
+    case 1: BARY_LAUNCH(1); break;
+    case 2: BARY_LAUNCH(2); break;
+    case 3: BARY_LAUNCH(3); break;
+    default: BARY_LAUNCH(4); break;
+  }
+#undef BARY_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 PointPtrs point_ptrs(const uint64_t* const* ptrs, int P) {
@@ -431,41 +516,9 @@ bool bad(int field, int P) { return (field != 0 && field != 1) || P < 1 || P > M
 
 }  // namespace
 
-// mat: a stored LDE, column c at mat + c·row_stride; wts: P host pointers to
-// (D, n) weights in the prefix's storage order; partials: (P, D, w, tiles)
-// with tiles = ceil(n / TILE).
-extern "C" int bary_partial(int field, const uint64_t* mat, int64_t row_stride, int64_t w, int64_t n,
-                            const uint64_t* const* wts, int P, uint64_t* partials, int64_t tiles,
-                            cudaStream_t stream) {
-  if (bad(field, P) || n <= 0 || w <= 0 || w > 65535 || tiles != (n + TILE - 1) / TILE) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)w);
-  if (field == 0)
-    bary_partial_kernel<Goldilocks><<<grid, THREADS, 0, stream>>>(mat, row_stride, w, n, point_ptrs(wts, P), P, partials);
-  else
-    bary_partial_kernel<BabyBear><<<grid, THREADS, 0, stream>>>(mat, row_stride, w, n, point_ptrs(wts, P), P, partials);
-  return (int)cudaGetLastError();
-}
-
-// zs: P host pointers to (D,) points; out (P, D, w).
-extern "C" int bary_finish(int field, const uint64_t* partials, int64_t tiles, int P, int64_t w,
-                           const uint64_t* const* zs, int log_n, uint64_t s_n, uint64_t inv_ns, uint64_t* out,
-                           cudaStream_t stream) {
-  if (bad(field, P) || tiles <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((P * w + threads - 1) / threads);
-  if (field == 0)
-    bary_finish_kernel<Goldilocks><<<blocks, threads, 0, stream>>>(partials, tiles, P, w, point_ptrs(zs, P), log_n,
-                                                                  s_n, inv_ns, out);
-  else
-    bary_finish_kernel<BabyBear><<<blocks, threads, 0, stream>>>(partials, tiles, P, w, point_ptrs(zs, P), log_n,
-                                                                s_n, inv_ns, out);
-  return (int)cudaGetLastError();
-}
-
-// Checks one height's matrices (widths, pair_end: M of them) and pairs
-// (pair_point, offs: Q of them, each matrix's by offset) and fills mt.
-int ro_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int* pair_point, const int64_t* offs,
-            int Q, int P, int64_t count) {
+// Checks one height's matrices (widths, pair_end: M of them) and their Q
+// (matrix, point) pairs (pair_point) and fills mt, pointers left null.
+int fill_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int* pair_point, int Q, int P) {
   if (M < 1 || M > MAX_MATS || Q < 1 || Q > MAX_PAIRS || pair_end[M - 1] != Q) return (int)cudaErrorInvalidValue;
   for (int m = 0, q = 0; m < MAX_MATS; m++) {
     mt.ptr[m] = nullptr;
@@ -473,9 +526,8 @@ int ro_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int
     mt.width[m] = m < M ? widths[m] : 0;
     mt.pair_end[m] = m < M ? pair_end[m] : Q;
     if (m >= M) continue;
-    if (widths[m] < 1 || widths[m] > count || pair_end[m] <= q) return (int)cudaErrorInvalidValue;
-    for (const int q1 = q; q < pair_end[m]; q++)
-      if (offs[q] < 0 || offs[q] >= count || offs[q] < offs[q1]) return (int)cudaErrorInvalidValue;
+    if (widths[m] < 1 || pair_end[m] <= q) return (int)cudaErrorInvalidValue;
+    q = pair_end[m];
   }
   for (int q = 0; q < MAX_PAIRS; q++) {
     mt.pair_point[q] = q < Q ? pair_point[q] : -1;
@@ -483,6 +535,58 @@ int ro_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int
   }
   mt.mats = M;
   return 0;
+}
+
+// fill_mats for K13, whose pairs also carry α offsets (offs: each matrix's
+// by offset, below count, widths at most count).
+int ro_mats(RoMats& mt, const int* widths, const int* pair_end, int M, const int* pair_point, const int64_t* offs,
+            int Q, int P, int64_t count) {
+  const int rc = fill_mats(mt, widths, pair_end, M, pair_point, Q, P);
+  if (rc != 0) return rc;
+  for (int m = 0, q = 0; m < M; m++) {
+    if (widths[m] > count) return (int)cudaErrorInvalidValue;
+    for (const int q1 = q; q < pair_end[m]; q++)
+      if (offs[q] < 0 || offs[q] >= count || offs[q] < offs[q1]) return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// K12 for one trace height n = 2^log_n: M matrices (mats, strides, widths:
+// column j of matrix m at mats[m] + j·strides[m], its first n entries the
+// stored prefix) and their Q (matrix, point) pairs, each matrix's in a run
+// (pair_end, points: indices into the height's P points), invs P host
+// pointers to (D, n) 1/(z_p - x), xs (n,) the coset points in the prefix's
+// storage order, zs P host pointers to (D,) points, the scale s^n and
+// inv_ns = 1/(n·s^n); tiles of 2^log_tile rows (P·D·2^log_tile <= 4096,
+// 2^log_tile >= 32), at most 2^24 of them; words: 1 + 2·Σ_pairs D·w
+// counter words, 0 on entry and on return; out: per pair its (D, w)
+// values, pairs in order.  One launch.
+extern "C" int bary_height(int field, const uint64_t* const* mats, const int64_t* strides, const int* widths,
+                           const int* pair_end, int M, const int* points, int Q, const uint64_t* const* invs,
+                           const uint64_t* xs, const uint64_t* const* zs, int P, int64_t n, int log_tile, int log_n,
+                           uint64_t s_n, uint64_t inv_ns, unsigned long long* words, uint64_t* out,
+                           cudaStream_t stream) {
+  const int D = field == 0 ? Goldilocks::D : BabyBear::D;
+  if (bad(field, P) || n <= 0 || n != (int64_t)1 << log_n || log_tile < 5 ||
+      ((int64_t)P * D << log_tile) > BARY_WEIGHTS || log_n - log_tile > 24)
+    return (int)cudaErrorInvalidValue;
+  RoMats mt;
+  const int rc = fill_mats(mt, widths, pair_end, M, points, Q, P);
+  if (rc != 0) return rc;
+  int most = 1;  // the most points one matrix has
+  for (int m = 0, q = 0; m < M; q = pair_end[m++]) {
+    most = pair_end[m] - q > most ? pair_end[m] - q : most;
+    if (strides[m] < n) return (int)cudaErrorInvalidValue;
+    mt.ptr[m] = mats[m];
+    mt.stride[m] = strides[m];
+  }
+  if (most > MAX_POINTS) return (int)cudaErrorInvalidValue;
+  const PointPtrs ip = point_ptrs(invs, P), zp = point_ptrs(zs, P);
+  if (field == 0)
+    return launch_bary_height<Goldilocks>(most, mt, Q, P, ip, xs, zp, n, log_tile, log_n, s_n, inv_ns, words, out,
+                                          stream);
+  return launch_bary_height<BabyBear>(most, mt, Q, P, ip, xs, zp, n, log_tile, log_n, s_n, inv_ns, words, out,
+                                      stream);
 }
 
 // K13's scalars for one height: M matrices (widths, pair_end) and their Q

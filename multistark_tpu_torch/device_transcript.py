@@ -44,7 +44,7 @@ from . import kernels
 from .hash.blake3 import _compress_plain, _hash_words_plain, _to_i32
 from .hash.blake3_host import BLOCK_LEN, CHUNK_END, CHUNK_LEN, CHUNK_START, IV, PARENT, ROOT, blake3_hash
 from .native import lib as native_lib
-from .utils import to_device
+from .utils import scratch, to_device
 
 GOLDILOCKS_P = 0xFFFFFFFF_00000001
 _M32 = 0xFFFFFFFF
@@ -146,7 +146,8 @@ def fri_grind(inp: torch.Tensor, bits: int, degree: int):
     """One FRI round's grind and β on the duplex input `inp` (chain ‖ cap,
     (L,) int32).  Returns (w 0-d int64, ok 0-d int64: 1 when a witness was
     found and β is canonical, β (D,) int64, digest (8,) int32: the next
-    round's chain)."""
+    round's chain).  K8 on a CUDA tensor (one launch), the plain version on
+    a CPU one."""
     inp = inp.reshape(-1).contiguous()
     if inp.dtype != torch.int32:
         raise TypeError("fri_grind takes int32 words")
@@ -157,11 +158,38 @@ def fri_grind(inp: torch.Tensor, bits: int, degree: int):
     kernels.check_cuda(inp)
     out = torch.empty(8, dtype=torch.int64, device=inp.device)
     digest = torch.empty(8, dtype=torch.int32, device=inp.device)
-    blocks = max(1, -(-(4 * inp.shape[0] + 8) // 64))  # the duplex input and the witness
-    kernels.FRI_GRIND.launch("fri_grind", kernels.ptr(inp), inp.shape[0], bits, degree, kernels.ptr(out),
-                             kernels.ptr(digest),
-                             cost=(4 * inp.shape[0] + 8 * 8 + 32, (64 << bits) * blocks * kernels.OPS_PER_BLAKE3))
+    L = inp.shape[0]
+    kernels.FRI_GRIND.launch("fri_grind", kernels.ptr(inp), L, bits, degree, kernels.ptr(out), kernels.ptr(digest),
+                             kernels.ptr(scratch(inp).take_counters(inp, 2)), cost=grind_cost(L, bits))
     return out[0], out[1], out[2 : 2 + degree], digest
+
+
+def grind_compressions(L: int) -> Tuple[int, int]:
+    """(the dependent compressions of K8's prefix, those of one candidate)
+    for an L-word duplex input.  The prefix: the whole chunks before w's
+    chunk c, 32 at a time side by side (16 blocks each), merged one after
+    another (c - popcount(c) parents), then chunk c's blocks before w's.
+    A candidate: from w's block to the end of its chunk, then the chunk
+    tree's parents above it."""
+    T = L + 2
+    c, n_chunks = L // 256, -(-T // 256)
+    prefix = 16 * -(-c // 32) + c - bin(c).count("1") + (L % 256) // 16
+    chunk_words = min(256, T - 256 * c)
+    candidate = -(-chunk_words // 16) - (L % 256) // 16
+    if n_chunks > 1:
+        candidate += bin(c).count("1") + (c + 1 < n_chunks)  # parents above w's chunk
+    return prefix, candidate
+
+
+def grind_cost(L: int, bits: int) -> Tuple[float, float, float]:
+    """K8's least time per round, as kernels.CudaKernel.launch takes it: the
+    bytes (the input read, w, the flag, β and the digest written), the
+    operations of the about 2^bits candidates a round hashes to its first
+    passing one, and the latency of the round's dependent compressions: the
+    prefix, one candidate, the winner hashed again."""
+    prefix, candidate = grind_compressions(L)
+    return (4 * L + 8 * 8 + 32, (1 << bits) * candidate * kernels.OPS_PER_BLAKE3,
+            (prefix + 2 * candidate) * kernels.BLAKE3_LATENCY_MS)
 
 
 # --- K7: one duplex flush ------------------------------------------------------------
@@ -169,12 +197,15 @@ def fri_grind(inp: torch.Tensor, bits: int, degree: int):
 class FlushInputs(NamedTuple):
     """K7's operands: the spliced chunks holding device bytes (T, 256)
     int32, the plan (int32, layout in csrc/dt_blake3.cu), the host sibling
-    chaining values (S, 8) int32, and the plan's number of parent ops."""
+    chaining values (S, 8) int32, the plan's number of parent ops, and the
+    flush's dependent compressions (the most blocks of a device chunk, then
+    the parent ops, which one thread runs in order)."""
 
     chunks: torch.Tensor
     plan: torch.Tensor
     sibs: torch.Tensor
     n_ops: int
+    chain: int
 
 
 _PLAN_HEAD = 5  # n_chunks, T, S, n_ops, root source
@@ -224,9 +255,10 @@ def dt_flush_plain(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor,
     return _to_i32(digest), torch.stack(vals + oks)
 
 
-def dt_flush(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor, n_ops: int):
-    """One duplex flush (K7): returns (digest (8,) int32, draws (8,) int64:
-    draws 0-3, then their `< p` flags)."""
+def dt_flush(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor, n_ops: int, chain: int):
+    """One duplex flush (K7) of `FlushInputs`: returns (digest (8,) int32,
+    draws (8,) int64: draws 0-3, then their `< p` flags).  `chain` only
+    enters the launch's least time."""
     if not kernels.use_kernel(chunks):
         return dt_flush_plain(chunks, plan, sibs, n_ops)
     kernels.check_cuda(chunks, plan, sibs)
@@ -234,13 +266,13 @@ def dt_flush(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor, n_ops
         raise ValueError("dt_flush takes (T, 256) int32 chunks")
     T = chunks.shape[0]
     dev = chunks.device
-    scratch = torch.empty((T + n_ops, 8), dtype=torch.int32, device=dev)
+    cvs = torch.empty((T + n_ops, 8), dtype=torch.int32, device=dev)
     digest = torch.empty(8, dtype=torch.int32, device=dev)
     draws = torch.empty(8, dtype=torch.int64, device=dev)
     p = kernels.ptr
-    kernels.DT_FLUSH.launch("dt_flush", p(chunks), p(plan), p(sibs), p(scratch), T, p(digest), p(draws),
+    kernels.DT_FLUSH.launch("dt_flush", p(chunks), p(plan), p(sibs), p(cvs), T, p(digest), p(draws),
                             cost=(4 * (chunks.numel() + plan.numel() + sibs.numel()) + 32 + 64,
-                                  (16 * T + n_ops) * kernels.OPS_PER_BLAKE3))
+                                  (16 * T + n_ops) * kernels.OPS_PER_BLAKE3, chain * kernels.BLAKE3_LATENCY_MS))
     return digest, draws
 
 
@@ -395,7 +427,8 @@ class DeviceDuplex:
                 chunk_bytes[t * CHUNK_LEN + at : t * CHUNK_LEN + at + take] = run_bytes[done : done + take]
                 done += take
         sib_t = dev[T * 256 : T * 256 + S * 8].view(S, 8)
-        return FlushInputs(chunks, dev[T * 256 + S * 8 :], sib_t, len(ops))
+        blocks = max(max(1, -(-min(CHUNK_LEN, total - c * CHUNK_LEN) // BLOCK_LEN)) for c in dev_chunks)
+        return FlushInputs(chunks, dev[T * 256 + S * 8 :], sib_t, len(ops), blocks + len(ops))
 
     def _flush(self) -> None:
         inputs = self.flush_inputs()

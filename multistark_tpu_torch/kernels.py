@@ -15,9 +15,11 @@ time one of its C entry points is launched, and only there; its
 (spans.py groups device time by them).  Each launch site states the bytes
 its launch must move (each operand read once, each output written once)
 and, where hashing, grinding or an inversion dominates, its 32-bit integer
-operations; `bound_ms` sums the least time those take on one H100 over
-the kernel's launches (spans.py prints it per warm prove).  Launch sites
-that count bytes only give a bound that is still a least time.
+operations, and where a chain of dependent BLAKE3 compressions is longer
+than either, that chain's latency; `bound_ms` sums the least time those
+take on one H100 over the kernel's launches (spans.py prints it per warm
+prove).  Launch sites that count bytes only give a bound that is still a
+least time.
 
 K11's kernels are not in the library: program.py builds one per recorded
 program from the template csrc/expr_sweep.cu.
@@ -57,11 +59,17 @@ OPS_PER_MUL = (12, 6)
 OPS_PER_BLAKE3 = 7 * 8 * 14
 OPS_PER_POSEIDON2 = 772 * OPS_PER_MUL[1]
 OPS_PER_HASH = (OPS_PER_BLAKE3, OPS_PER_POSEIDON2)  # by hasher kernel_id
+# One BLAKE3 compression's latency on one thread (ms): chip_smoke.py's chain
+# of 4096 dependent compressions (commit_tile.node_chain) on an NVIDIA H100
+# 80GB HBM3 at 700 W.  A chain of k dependent compressions takes at least k
+# times this.
+BLAKE3_LATENCY_MS = 0.7484e-3
 
 
-def least_ms(n_bytes: float, ops: float = 0) -> float:
-    """The least milliseconds one H100 takes to move n_bytes and do ops."""
-    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S)
+def least_ms(n_bytes: float, ops: float = 0, latency_ms: float = 0) -> float:
+    """The least milliseconds one H100 takes to move n_bytes, do ops and run
+    a dependency chain of latency_ms."""
+    return max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S, latency_ms)
 
 # C entry point -> argument types (the stream is always the last c_void_p)
 _SIGNATURES = {
@@ -76,11 +84,11 @@ _SIGNATURES = {
     "gls_cumsum": [_i32, _vp, _vp, _i64, _i64, _vp, _u64, _u64, _vp],
     "gls_stage2_chain": [_i32, _vp, _i64, _i32, _vp, _vp, _vp, _vp, _u64, _u64, _vp],
     "dt_flush": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp],
-    "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp],
+    "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp],
     "claims_fp": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp],
     "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
-    "bary_partial": [_i32, _vp, _i64, _i64, _i64, _vp, _i32, _vp, _i64, _vp],
-    "bary_finish": [_i32, _vp, _i64, _i32, _i64, _vp, _i32, _u64, _u64, _vp, _vp],
+    "bary_height": [_i32, _vp, _vp, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _u64, _u64,
+                    _vp, _vp, _vp],
     "ro_scalars": [_i32, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _i64, _vp, _vp],
     "ro_rows": [_i32, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i64, _vp, _i32, _i64, _vp, _i32, _vp, _vp],
     "lde_tile": [_i32, _i32, _vp, _i32, _i32, _i32, _vp, _i32, _vp, _vp, _i32, _vp, _vp],
@@ -200,20 +208,23 @@ def current_stream() -> int:
 class CudaKernel:
     """One hand-written kernel: its source, the TPU program it replaces, the
     CUDA functions it runs (name fragments of the profiler's kernel names),
-    and a count of its launches."""
+    how many of them one launch of an entry point runs, and a count of its
+    launches."""
 
-    def __init__(self, name: str, source: str, replaces: str, functions: Tuple[str, ...]):
+    def __init__(self, name: str, source: str, replaces: str, functions: Tuple[str, ...], per_launch: int = 1):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.functions = functions
+        self.per_launch = per_launch
         self.launches = 0
         self.bound_ms = 0.0
 
-    def launch(self, entry: str, *args, cost: Tuple[float, float], lib: Optional[ctypes.CDLL] = None) -> None:
+    def launch(self, entry: str, *args, cost: Tuple[float, ...], lib: Optional[ctypes.CDLL] = None) -> None:
         """Call C entry point `entry` of the kernel library (or of `lib`) on
         the current stream; raise on a CUDA error code.  cost: (bytes the
-        launch must move, its 32-bit operations or 0), added to bound_ms."""
+        launch must move, its 32-bit operations or 0[, the latency in ms of
+        its longest chain of dependent steps]), added to bound_ms."""
         rc = getattr(lib or library(), entry)(*args, current_stream())
         if rc != 0:
             raise RuntimeError(f"{self.name}: {entry} failed with cudaError_t {rc}")
@@ -254,12 +265,12 @@ POSEIDON2_MERKLE = CudaKernel(
 DT_FLUSH = CudaKernel(
     "dt_flush", "multistark_tpu_torch/csrc/dt_blake3.cu",
     "multistark_tpu/device_transcript.py:358",
-    ("flush_chunks_kernel", "flush_root_kernel"),
+    ("flush_chunks_kernel", "flush_root_kernel"), per_launch=2,
 )
 FRI_GRIND = CudaKernel(
     "fri_grind", "multistark_tpu_torch/csrc/dt_blake3.cu",
     "multistark_tpu/device_transcript.py:74",
-    ("grind_search_kernel", "grind_finish_kernel"),
+    ("fri_grind_kernel",),
 )
 CLAIMS_FP = CudaKernel(
     "claims_fp", "multistark_tpu_torch/csrc/claims_fp.cu",
@@ -279,7 +290,7 @@ EXPR_SWEEP = CudaKernel(
 BARY_EVAL = CudaKernel(
     "bary_eval", "multistark_tpu_torch/csrc/open_reduce.cu",
     "multistark_tpu/pcs.py:1256",
-    ("bary_partial_kernel", "bary_finish_kernel"),
+    ("bary_height_kernel",),
 )
 REDUCED_OPEN = CudaKernel(
     "reduced_open", "multistark_tpu_torch/csrc/open_reduce.cu",

@@ -29,8 +29,9 @@ The config's field ops F (base) and E (extension, degree D) carry the
 field arithmetic on tensors: K1 or K5 (fields/device.py) and K4 (utils.py);
 its hasher the hashing of the trees that are not LDE commits (merkle.py: K3
 or K6 leaves, K15 levels).  The claimed evaluations run
-K12 per matrix (`bary_eval` below), the reduced openings K13 per LDE height
-for all of its matrices and points (`reduced_open_height`), both in
+K12 per trace height (`bary_eval_height` below) and the reduced openings
+K13 per LDE height (`reduced_open_height`), each for all of the height's
+matrices and points, both in
 csrc/open_reduce.cu, and each fold round K10 (csrc/fri_fold.cu,
 `fri_fold`); slicing, stacking and gathers are plain
 tensor indexing.  Opening points and α are device extension scalars ((D,)
@@ -75,7 +76,8 @@ from .fields.host import HostExtField, HostField
 from .fields.npref import np_mul, np_powers
 from .merkle import BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np
 from .ntt import NttEngine
-from .utils import batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, reverse_bits, to_device
+from .utils import (batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, reverse_bits, scratch,
+                    to_device)
 
 ExtVal = Tuple[int, ...]  # host extension element
 
@@ -339,38 +341,48 @@ class TwoAdicFriPcs:
     def _claimed_evaluations(self, rounds):
         """rounds: [(PcsProverData, [[(key, z (D,) device point)] per
         matrix])].  Returns [round][matrix] = one (D, w) device tensor per
-        point.  The barycentric weights depend only on (point, height), so
-        they are computed once per pair and shared by every matrix of that
-        height."""
-        weights = {}
-        out = []
-        for data, points_list in rounds:
-            round_vals = []
+        point.  The matrices are grouped by trace height, across rounds, as
+        the JAX package merges them (_eval_all_kern), and each height is
+        evaluated at once (`_eval_height`: one K12 launch for all of its
+        matrices and points)."""
+        heights: Dict[int, list] = {}  # log_n -> [(round, matrix, stored LDE or gathered prefix, its points)]
+        out = [[[] for _ in points_list] for _, points_list in rounds]
+        for r_idx, (data, points_list) in enumerate(rounds):
             for m_idx, points in enumerate(points_list):
                 if not points:
-                    round_vals.append([])
                     continue
+                log_n = data.log_trace_heights[m_idx]
                 mat = data.mmcs_data.mats[m_idx]
                 if data.mmcs_data.is_block(m_idx):  # the stored prefix, gathered (JAX pcs.py:521-560)
-                    mat = parallel.whole_prefix(data.mmcs_data, m_idx, 1 << data.log_trace_heights[m_idx], "evals")
-                round_vals.append(self._eval_matrix(mat, data.log_trace_heights[m_idx], points, weights))
-            out.append(round_vals)
+                    mat = parallel.whole_prefix(data.mmcs_data, m_idx, 1 << log_n, "evals")
+                heights.setdefault(log_n, []).append((r_idx, m_idx, mat, points))
+        for log_n, members in heights.items():
+            keys = list({key: (key, z) for *_, points in members for key, z in points}.values())
+            index = {key: i for i, (key, _) in enumerate(keys)}
+            vals = self._eval_height(log_n, [mat for _, _, mat, _ in members],
+                                     [[index[key] for key, _ in points] for *_, points in members], keys)
+            for (r_idx, m_idx, _, _), v in zip(members, vals):
+                out[r_idx][m_idx] = v
         return out
 
-    def _eval_matrix(self, mat: torch.Tensor, log_n: int, points, weights: dict) -> List[torch.Tensor]:
-        """Barycentric evaluation of a stored bit-reversed LDE at each device
-        point z ((key, (D,) tensor) pairs): p(z) = (z^n - s^n)/(n·s^n) ·
+    def _eval_height(self, log_n: int, mats, openings, points) -> List[List[torch.Tensor]]:
+        """Barycentric evaluation of the stored bit-reversed LDEs of one trace
+        height at their device points: p(z) = (z^n - s^n)/(n·s^n) ·
         Σ_i e_i·x_i/(z - x_i) over the size-n same-shift sub-coset, the
-        stored prefix, read in its storage order by K12 (`bary_eval`).
-        weights caches each (log_n, key)'s x_i/(z - x_i) in that order.
-        Returns one (D, w) tensor per point."""
+        stored prefix, read in its storage order.  points: the height's
+        (key, (D,) tensor) pairs; openings[m]: matrix m's points as indices
+        into them.  1/(z - x) comes from one K4 batch inverse for all the
+        points, the rest from K12 (`bary_eval_height`).  Returns [matrix]
+        [its point] (D, w) tensors."""
         hf = self.hf
         n = 1 << log_n
-        self._inverse_diffs(log_n, points, weights, times_x=True)
-        ws = [weights[log_n, key] for key, _ in points]
+        inv: dict = {}
+        self._inverse_diffs(log_n, points, inv)
         s_n = hf.pow(hf.generator, n)
         inv_ns = hf.inv(hf.mul(n % hf.p, s_n))
-        return list(bary_eval(self.E, mat, log_n, ws, [z for _, z in points], s_n, inv_ns))
+        return bary_eval_height(self.E, mats, log_n, openings, [z for _, z in points],
+                                [inv[log_n, key] for key, _ in points], self.x_table_storage(log_n, hf.generator),
+                                s_n, inv_ns)
 
     def _reduced_openings(self, rounds, vals, alpha: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Per LDE height, Σ_p (-α^{off_p})·(u - S_p)/(z_p - x) over the
@@ -426,12 +438,11 @@ class TwoAdicFriPcs:
         mats = [parallel.shard_rows(pm, m) if m.shape[1] == 1 << log_lde else m for m in mats]
         return mats, parallel.shard_rows(pm, self.x_table_storage(log_lde, self.hf.generator))
 
-    def _inverse_diffs(self, log_n: int, points, cache: dict, times_x: bool = False,
-                       x: Optional[torch.Tensor] = None) -> None:
-        """Cache under (log_n, key) 1/(z - x) (times x if times_x) over the
-        2^log_n-point coset GENERATOR·H in storage order (or over the given
-        part x of it), as a contiguous (D, len(x)) tensor, for each (key, z)
-        of points not cached yet: all of them in one batch inverse."""
+    def _inverse_diffs(self, log_n: int, points, cache: dict, x: Optional[torch.Tensor] = None) -> None:
+        """Cache under (log_n, key) 1/(z - x) over the 2^log_n-point coset
+        GENERATOR·H in storage order (or over the given part x of it), as a
+        contiguous (D, len(x)) tensor, for each (key, z) of points not cached
+        yet: all of them in one batch inverse."""
         F, E = self.F, self.E
         todo = [(key, z) for key, z in points if (log_n, key) not in cache]
         if not todo:
@@ -439,8 +450,6 @@ class TwoAdicFriPcs:
         if x is None:
             x = self.x_table_storage(log_n, self.hf.generator)
         inv = batch_inv(torch.stack([_ext_minus_base(F, E, z, x) for _, z in todo], dim=1), E)  # (D, P, n)
-        if times_x:
-            inv = E.scale(inv, x)
         inv = inv.transpose(0, 1).contiguous()  # (P, D, n): each point's rows contiguous
         for i, (key, _) in enumerate(todo):
             cache[log_n, key] = inv[i]
@@ -711,58 +720,111 @@ def opened_to_host(vals) -> list:
 
 # --- K12 and K13: the opening reductions ------------------------------------------
 
-_BARY_TILE = 2048  # THREADS * ITEMS in csrc/open_reduce.cu
 _MAX_POINTS = 4
-_RO_MATS, _RO_PAIRS = 16, 32  # MAX_MATS, MAX_PAIRS in csrc/open_reduce.cu: one K13 launch's matrices and pairs
+_MATS, _PAIRS = 16, 32  # MAX_MATS, MAX_PAIRS in csrc/open_reduce.cu: one K12 or K13 launch's matrices and pairs
+_BARY_WEIGHTS = 4096  # BARY_WEIGHTS in csrc/open_reduce.cu: weight words of one K12 tile (P·D·rows)
 
 
-def bary_eval_plain(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, inv_ns: int) -> torch.Tensor:
-    """Plain version of K12: per point, Σ_t mat[:, t]·w[t] over the stored
-    prefix t < n, times (z^n - s^n)·inv_ns.  Returns (P, D, w)."""
+def _launch_groups(widths_points) -> List[List[int]]:
+    """The matrices (by (width, number of points)) split into runs of at most
+    _MATS matrices and _PAIRS (matrix, point) pairs: one K12 or K13 launch
+    each (one for every height of the bench)."""
+    groups, cur, pairs = [], [], 0
+    for m, (_, k) in enumerate(widths_points):
+        if k > _PAIRS:
+            raise ValueError(f"a matrix opened at more than {_PAIRS} points")
+        if cur and (len(cur) == _MATS or pairs + k > _PAIRS):
+            groups.append(cur)
+            cur, pairs = [], 0
+        cur.append(m)
+        pairs += k
+    groups.append(cur)
+    return groups
+
+
+def _carr(ctype, values):
+    return ctypes.cast((ctype * len(values))(*values), ctypes.c_void_p)
+
+
+def bary_eval_height_plain(E: ExtOps, mats, log_n: int, openings, zs, invs, x: torch.Tensor, s_n: int,
+                           inv_ns: int) -> List[List[torch.Tensor]]:
+    """Plain version of K12 for one trace height: per matrix and each of its
+    points p, Σ_i mat[:, i]·x_i·inv_p[i] over the stored prefix i < n, times
+    (z_p^n - s^n)·inv_ns."""
     F = E.base
-    small = mat[:, : 1 << log_n]
-    out = []
-    for w_i, z in zip(weights, zs):
-        acc = torch.stack([field_sum_plain(F.mul_plain(small, w_i[d]), F) for d in range(E.D)])  # (D, w)
+    n = 1 << log_n
+    scales = []
+    for z in zs:
         zn = z.reshape(E.D, 1)
         for _ in range(log_n):
             zn = E.mul_plain(zn, zn)
         zn = zn.clone()
         zn[0] = F.sub_plain(zn[0], F.const(s_n, zn.device))
-        out.append(E.mul_plain(acc, E.scale_plain(zn, F.const(inv_ns, zn.device))))
-    return torch.stack(out)
+        scales.append(E.scale_plain(zn, F.const(inv_ns, zn.device)))
+    weights = [E.scale_plain(inv, x) for inv in invs]  # x_i/(z_p - x_i)
+    out = []
+    for mat, points in zip(mats, openings):
+        small = mat[:, :n]
+        out.append([E.mul_plain(torch.stack([field_sum_plain(F.mul_plain(small, weights[p][d]), F)
+                                             for d in range(E.D)]), scales[p]) for p in points])
+    return out
 
 
-def bary_eval(E: ExtOps, mat: torch.Tensor, log_n: int, weights, zs, s_n: int, inv_ns: int) -> torch.Tensor:
-    """Claimed evaluations of a stored LDE mat ((w, N), N >= n = 2^log_n) at
-    P device points zs ((D,) each), with each point's (D, n) barycentric
-    weights in the prefix's storage order and the scale (z^n - s^n)·inv_ns:
-    (P, D, w).  K12 (two launches) on a CUDA tensor, the plain version on a
-    CPU one."""
-    P, n = len(zs), 1 << log_n
-    if not 1 <= P <= _MAX_POINTS or len(weights) != P:
-        raise ValueError(f"bary_eval takes 1 to {_MAX_POINTS} points with one weight vector each")
-    if mat.dim() != 2 or mat.shape[1] < n or any(tuple(w_i.shape) != (E.D, n) for w_i in weights):
-        raise ValueError(f"bary_eval: a (w, >= {n}) matrix and (D, {n}) weights")
-    if not kernels.use_kernel(mat):
-        return bary_eval_plain(E, mat, log_n, weights, zs, s_n, inv_ns)
-    mat = mat.contiguous()
-    weights = [w_i.contiguous() for w_i in weights]
+def bary_eval_height(E: ExtOps, mats, log_n: int, openings, zs, invs, x: torch.Tensor, s_n: int,
+                     inv_ns: int) -> List[List[torch.Tensor]]:
+    """The claimed evaluations of one trace height n = 2^log_n: mats M stored
+    LDEs ((w_m, N_m), N_m >= n, rows may be strided; the first n entries of
+    a row are the stored prefix), openings[m] matrix m's points as indices
+    into zs (P (D,) device points, 1 to 4), invs P (D, n) 1/(z_p - x), x
+    (n,) the sub-coset's points in the prefix's storage order, and the
+    scale s^n, inv_ns = 1/(n·s^n).  Returns [matrix][its point] (D, w_m)
+    tensors.  K12 on a CUDA tensor: one launch per group of up to 16
+    matrices and 32 (matrix, point) pairs (one for every height of the
+    bench); the plain version on a CPU one."""
+    P, n, D = len(zs), 1 << log_n, E.D
+    if not 1 <= P <= _MAX_POINTS or len(invs) != P or not mats or len(openings) != len(mats):
+        raise ValueError(f"bary_eval_height takes matrices with their openings and 1 to {_MAX_POINTS} points")
+    for mat, points in zip(mats, openings):
+        if mat.dim() != 2 or mat.shape[1] < n or not points or any(not 0 <= p < P for p in points):
+            raise ValueError(f"bary_eval_height: every matrix (w, >= {n}) opened at one of the points")
+    if any(tuple(i.shape) != (D, n) for i in invs) or tuple(x.shape) != (n,) or any(z.numel() != D for z in zs):
+        raise ValueError(f"bary_eval_height: inverses ({D}, {n}), x ({n},) and points of {D} coordinates")
+    if not kernels.use_kernel(mats[0]):
+        return bary_eval_height_plain(E, mats, log_n, openings, zs, invs, x, s_n, inv_ns)
+    mats = [m if m.stride(1) == 1 else m.contiguous() for m in mats]
     zs = [z.reshape(-1).contiguous() for z in zs]
-    kernels.check_cuda(mat, *weights, *zs)
-    w = mat.shape[0]
-    tiles = -(-n // _BARY_TILE)
-    partials = torch.empty((P, E.D, w, tiles), dtype=torch.int64, device=mat.device)
-    out = torch.empty((P, E.D, w), dtype=torch.int64, device=mat.device)
-    wp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in weights])
-    zp = (ctypes.c_void_p * P)(*[t.data_ptr() for t in zs])
+    invs = [i.contiguous() for i in invs]
+    x = x.contiguous()
+    kernels.check_cuda(x, *invs, *zs)
+    for m in mats:
+        if m.device != x.device or m.dtype != torch.int64:
+            raise ValueError("bary_eval_height: matrices are int64 on the points' device")
+    # tiles of up to _BARY_WEIGHTS / (P·D) rows, fewer where that would leave SMs without a tile
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    log_tile = min((_BARY_WEIGHTS // (P * D)).bit_length() - 1, max(5, (n // sms).bit_length() - 1))
     fid = E.base.field_id
-    kernels.BARY_EVAL.launch("bary_partial", fid, kernels.ptr(mat), mat.shape[1], w, n,
-                             ctypes.cast(wp, ctypes.c_void_p), P, kernels.ptr(partials), tiles,
-                             cost=(8 * w * n + 8 * P * E.D * n + 8 * partials.numel(), 0))
-    kernels.BARY_EVAL.launch("bary_finish", fid, kernels.ptr(partials), tiles, P, w, ctypes.cast(zp, ctypes.c_void_p),
-                             log_n, s_n, inv_ns, kernels.ptr(out),
-                             cost=(8 * partials.numel() + 8 * P * E.D + 8 * out.numel(), 0))
+    ip, zp = _carr(ctypes.c_void_p, [t.data_ptr() for t in invs]), _carr(ctypes.c_void_p, [t.data_ptr() for t in zs])
+    out: List[List[torch.Tensor]] = []
+    for group in _launch_groups([(int(m.shape[0]), len(o)) for m, o in zip(mats, openings)]):
+        widths = [int(mats[m].shape[0]) for m in group]
+        pairs = [p for m in group for p in openings[m]]
+        words = D * sum(w * len(openings[m]) for w, m in zip(widths, group))
+        vals = torch.empty(words, dtype=torch.int64, device=x.device)
+        kernels.BARY_EVAL.launch(
+            "bary_height", fid, _carr(ctypes.c_void_p, [mats[m].data_ptr() for m in group]),
+            _carr(ctypes.c_int64, [mats[m].stride(0) for m in group]), _carr(ctypes.c_int, widths),
+            _carr(ctypes.c_int, [int(e) for e in np.cumsum([len(openings[m]) for m in group])]), len(group),
+            _carr(ctypes.c_int, pairs), len(pairs), ip, kernels.ptr(x), zp, P, n, log_tile, log_n, s_n, inv_ns,
+            kernels.ptr(scratch(x).take_counters(x, 1 + 2 * words)), kernels.ptr(vals),
+            # each prefix element, inverse word and x read once, the values written; the products
+            cost=(8 * (n * (sum(widths) + P * D + 1) + words), n * (words + P * D) * kernels.OPS_PER_MUL[fid]),
+        )
+        off = 0
+        for m, w in zip(group, widths):
+            out.append([])
+            for _ in openings[m]:
+                out[-1].append(vals[off : off + D * w].view(D, w))
+                off += D * w
     return out
 
 
@@ -834,39 +896,27 @@ def reduced_open_height(E: ExtOps, mats, apows: torch.Tensor, openings, invs, ro
     else:
         kernels.check_cuda(ro, apows)
     D, fid = E.D, E.base.field_id
-    groups, cur = [], []
-    for m in range(len(mats)):
-        if cur and (len(cur) == _RO_MATS or sum(len(openings[i]) for i in cur) + len(openings[m]) > _RO_PAIRS):
-            groups.append(cur)
-            cur = []
-        cur.append(m)
-    groups.append(cur)
-
-    def arr(ctype, values):
-        return ctypes.cast((ctype * len(values))(*values), ctypes.c_void_p)
-
-    ip = arr(ctypes.c_void_p, [t.data_ptr() for t in invs])
+    groups = _launch_groups([(int(m.shape[0]), len(o)) for m, o in zip(mats, openings)])
+    ip = _carr(ctypes.c_void_p, [t.data_ptr() for t in invs])
     for group in groups:
         pairs = [(p, off, v) for m in group for p, off, v in sorted(openings[m], key=lambda o: o[1])]
         Q, M = len(pairs), len(group)
-        if Q > _RO_PAIRS:
-            raise ValueError(f"reduced_open_height: a matrix opened at more than {_RO_PAIRS} points")
         widths = [int(mats[m].shape[0]) for m in group]
         cols = sum(widths)
-        shape = (arr(ctypes.c_int, widths), arr(ctypes.c_int, [int(e) for e in np.cumsum([len(openings[m])
+        shape = (_carr(ctypes.c_int, widths), _carr(ctypes.c_int, [int(e) for e in np.cumsum([len(openings[m])
                                                                                          for m in group])]), M,
-                 arr(ctypes.c_int, [p for p, _, _ in pairs]), arr(ctypes.c_int64, [off for _, off, _ in pairs]))
+                 _carr(ctypes.c_int, [p for p, _, _ in pairs]), _carr(ctypes.c_int64, [off for _, off, _ in pairs]))
         table = torch.empty(((cols + 2 * Q + P) * D,), dtype=torch.int64, device=apows.device)
         kernels.REDUCED_OPEN.launch(
-            "ro_scalars", fid, *shape, arr(ctypes.c_void_p, [v.data_ptr() for _, _, v in pairs]), Q, P,
+            "ro_scalars", fid, *shape, _carr(ctypes.c_void_p, [v.data_ptr() for _, _, v in pairs]), Q, P,
             kernels.ptr(apows), count, kernels.ptr(table),
             cost=(8 * D * (sum(int(mats[m].shape[0]) * len(openings[m]) for m in group) + cols) + 8 * table.numel(),
                   0),
         )
         adding = add or group is not groups[0]
         kernels.REDUCED_OPEN.launch(
-            "ro_rows", fid, arr(ctypes.c_void_p, [mats[m].data_ptr() for m in group]),
-            arr(ctypes.c_int64, [mats[m].stride(0) for m in group]), *shape, Q, count, ip, P, N,
+            "ro_rows", fid, _carr(ctypes.c_void_p, [mats[m].data_ptr() for m in group]),
+            _carr(ctypes.c_int64, [mats[m].stride(0) for m in group]), *shape, Q, count, ip, P, N,
             kernels.ptr(table), int(adding), kernels.ptr(ro),
             # the matrices and inverse rows read once, ro written (and read when adding); the products
             cost=(8 * N * (cols + P * D + D * (2 if adding else 1)),

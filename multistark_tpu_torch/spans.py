@@ -10,7 +10,9 @@ BabyBearPoseidon2 through `prove_multiple_claims` (its host transcript).
 First, for each path and size, it builds the system and witness, runs one
 cold prove, then K warm proves with nothing wrapped, and prints their wall
 times (host clock ending in a synchronise).  Then one more warm prove
-runs under `torch.profiler`: the device's busy time (the events that ran
+runs under `torch.profiler` (its capture window open 20 ms on both sides,
+and a kernel whose events fall short of its wrapper's launches says so):
+the device's busy time (the events that ran
 on the card, kernels and copies) is printed beside the median unwrapped
 warm prove, and each kernel's device time and launches in that prove
 (K1-K15 by their CUDA functions, `kernels.CudaKernel.functions`;
@@ -209,18 +211,25 @@ def device_profile(run):
     """Profile one run() with torch.profiler: (the device's busy seconds, the
     sum over the events that ran on it, kernels and copies; the old measure,
     the sum of every event's self device time, which also counts each
-    PyTorch op's kernels once more under the op; {label: [seconds,
-    launches]} by `kernel_of`; {label: the least ms the card could take for
-    the kernel's launches in the run}, from the bytes and operations each
-    launch site states)."""
+    PyTorch op's kernels once more under the op; {label: [seconds, events]}
+    by `kernel_of`; {label: the least ms the card could take for the
+    kernel's launches in the run}, from the bytes and operations each
+    launch site states; {label: the CUDA functions its wrapper launched,
+    its launches times the functions per launch}).  The capture window
+    stays open 20 ms on both sides of the run: a session that closes right
+    after its last kernels can lose their records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    before = _bounds()
+    before, counts = _bounds(), kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         run()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     bounds = {label: ms - before[label] for label, ms in _bounds().items() if ms is not None}
+    launched = {f"K{i} {k.name}": (k.launches - counts[k.name]) * getattr(k, "per_launch", 1)
+                for i, k in enumerate(kernels.KERNELS, 1)}
     by_label = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -228,7 +237,7 @@ def device_profile(run):
             cell[0] += evt.time_range.elapsed_us() / 1e6
             cell[1] += 1
     all_events = sum(evt.self_device_time_total for evt in prof.key_averages()) / 1e6
-    return sum(sec for sec, _ in by_label.values()), all_events, dict(by_label), bounds
+    return sum(sec for sec, _ in by_label.values()), all_events, dict(by_label), bounds, launched
 
 
 def main(argv) -> int:
@@ -277,15 +286,16 @@ def main(argv) -> int:
         print(f"[spans] {path} log_n={log_n} warm prove, {args.proves} runs: "
               + ", ".join(f"{w:.4f}" for w in plain[path, log_n]) + " s", flush=True)
     for path, log_n, run, _ in cases:
-        busy, all_events, by_label, bounds = device_profile(run)
+        busy, all_events, by_label, bounds, launched = device_profile(run)
         median = float(np.median(plain[path, log_n]))  # the profiler's own overhead would swamp its prove's wall time
         print(f"[spans] {path} log_n={log_n} profiled prove: device busy {busy:.4f} s against the "
               f"median warm prove of {median:.4f} s ({100 * (1 - busy / median):.1f}% idle); every profiler "
               f"event's self device time summed: {all_events:.4f} s", flush=True)
         for label, (sec, count) in sorted(by_label.items(), key=lambda kv: -kv[1][0]):
             least = f"; bound {bounds[label]:.4f} ms" if label in bounds else ""
+            lost = f" (the wrapper launched {launched[label]})" if launched.get(label, count) != count else ""
             print(f"[spans] {path} log_n={log_n} device time of the profiled prove, {label}: "
-                  f"{1e3 * sec:.4f} ms in {count} launches{least}", flush=True)
+                  f"{1e3 * sec:.4f} ms in {count} launches{lost}{least}", flush=True)
     spans = Spans()  # one for every path: the challenger and duplex classes are wrapped once
     for config in {id(c): c for *_, c in cases}.values():
         instrument(config, spans)

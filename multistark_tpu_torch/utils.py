@@ -175,16 +175,17 @@ _BATCH, _SUM, _SCAN, _CHAIN = range(4)  # the tile kinds of csrc/gl_scan.cu gls_
 
 
 class _Scratch:
-    """K4's and K15's scratch words on one device and stream, in int64
-    buffers that only grow (zeroed when they do): the single-pass scans'
+    """The kernels' scratch words on one device and stream, in int64
+    buffers that only grow (zeroed when they do): K4's single-pass scans'
     status words (word 0 the ticket counter, then epoch-tagged flags and
-    values), with the last epoch used and the tickets issued so far; the row
-    sums' counters (0 between launches: the last block of a row resets its
-    own); their partial sums; K15's tree arrival counters (0 between
-    launches: the last block of a group resets its own)."""
+    values), with the last epoch used and the tickets issued so far; K4's
+    row sums' counters (0 between launches: the last block of a row resets
+    its own); their partial sums; the arrival counters of K8, K12 and K15
+    (0 between launches: the block that arrives last resets its own).
+    Launches on one stream run one after another, so they share them."""
 
     def __init__(self):
-        self.status = self.counters = self.partials = self.tree = None
+        self.status = self.counters = self.partials = self.arrivals = None
         self.epoch = 0
         self.tickets = 0
 
@@ -204,11 +205,12 @@ class _Scratch:
             self.partials = _grown(self.partials, words, like)
         return self.counters, self.partials
 
-    def take_tree(self, like: torch.Tensor, words: int) -> torch.Tensor:
-        """K15's arrival counters: a buffer of >= words (at least one)."""
-        if self.tree is None or self.tree.numel() < max(words, 1):
-            self.tree = _grown(self.tree, max(words, 1), like)
-        return self.tree
+    def take_counters(self, like: torch.Tensor, words: int) -> torch.Tensor:
+        """Arrival counters, 0 between launches: a buffer of >= words (at
+        least one)."""
+        if self.arrivals is None or self.arrivals.numel() < max(words, 1):
+            self.arrivals = _grown(self.arrivals, max(words, 1), like)
+        return self.arrivals
 
 
 def _grown(buf, words: int, like: torch.Tensor) -> torch.Tensor:

@@ -67,6 +67,48 @@ def test_grind_and_beta_match_jax_and_the_host_challenger(bits):
     assert pch.grind(bits) == w_host and pch.sample_ext() == beta_host
 
 
+_GRINDS = {}
+
+
+def _grind_at_length(L: int, bits: int):
+    """A duplex input of L words (the chain after a flush, then L - 8 random
+    words observed as bytes), the host challenger that holds it and JAX
+    grind_round's (w, digest, found) on it, made once per length."""
+    if L not in _GRINDS:
+        rng = np.random.default_rng(40 + L)
+        jch = JaxChallenger(JF, JE2)
+        jch.observe_bytes(SEED_BYTES)
+        jch.sample_ext()  # input buffer = the 32 chaining bytes
+        jch.observe_bytes(rng.integers(0, 1 << 32, L - 8, dtype=np.uint64).astype("<u4").tobytes())
+        inp = jdt.entry_buffer_words(bytes(jch.inner.input_buffer))
+        assert inp.shape == (L,)
+        _GRINDS[L] = inp, jch, jdt.grind_round(jnp.asarray(inp), bits)
+    return _GRINDS[L]
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("L", [8, 15, 16, 17, 30])
+def test_grind_and_beta_at_every_input_length_and_degree(L, degree):
+    """K8's function at duplex inputs of L words (w's low word at the start
+    of a block, in its middle, at its last word so that its high word starts
+    the next block) and β of D = 1..3 coordinates: the port's grind equals
+    JAX grind_round and sample_ext_from_digest, and the host challenger
+    grinds the same witness and draws the same β."""
+    bits = 4
+    inp, jch, (w_j, digest_j, found_j) = _grind_at_length(L, bits)
+    beta_j, valid_j = jdt.sample_ext_from_digest(digest_j, degree)
+    host = jch.clone()
+    w_host = host.grind(bits)
+    beta_host = tuple(host.sample_field() for _ in range(degree))
+
+    w, ok, beta, digest = dt.fri_grind(_words(inp), bits, degree)
+    assert int(ok) == 1 and bool(found_j) and bool(valid_j)
+    assert int(w) == w_host == jdt.u64_of_pair(int(w_j[0]), int(w_j[1]))
+    assert tuple(beta.shape) == (degree,)
+    assert _u64s(beta) == beta_host == tuple(jdt.u64_of_pair(int(lo), int(hi)) for lo, hi in beta_j)
+    assert np.array_equal(digest.numpy().view(np.uint32), np.asarray(digest_j))
+
+
 def test_draw_layout_and_the_p_boundary():
     digest = (np.arange(8, dtype=np.uint64) * 0x11223344 % (1 << 32)).astype(np.uint32)
     got = dt.digest_draws(_words(digest))

@@ -5,8 +5,8 @@ against the JAX package, exact (tolerance zero: everything is mod p):
     (program.expr_sweep_plain), equals JAX prover._quotient_sweep_only on
     the same stored LDEs, publics and α, for U32Add, ByteTable and a MulAir,
     at 2^4 and 2^6 rows, under GoldilocksBlake3 and BabyBearPoseidon2;
-  - K12's and K13's plain versions (pcs.bary_eval_plain through
-    `_eval_matrix`, pcs.reduced_open_height_plain on one matrix) equal JAX
+  - K12's and K13's plain versions (pcs.bary_eval_height_plain through
+    `_eval_height`, pcs.reduced_open_height_plain on one matrix) equal JAX
     pcs._eval_kernel and _ro_kernel for one and two points under both
     fields;
   - a program whose live set exceeds K11's register file raises
@@ -147,7 +147,7 @@ def test_quotient_program_matches_jax_quotient_sweep(systems, circuit, log_n):
 @pytest.mark.parametrize("n_points", [1, 2])
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_opening_reductions_match_jax(config, n_points):
-    """K12 through `_eval_matrix` against _eval_kernel, and K13 against
+    """K12 through `_eval_height` against _eval_kernel, and K13 against
     _ro_kernel, on a (3, 2^6) stored LDE of a 2^4-row trace."""
     jax_cls, torch_cls = CONFIGS[config]
     fri = FriParameters.standard_fast()
@@ -163,7 +163,7 @@ def test_opening_reductions_match_jax(config, n_points):
     tzs = [(k, E.const(z, "cpu")) for k, z in enumerate(zs)]
 
     want = jcfg.pcs._eval_kernel(JF.from_np(mat), jzs, log_n)
-    got = tcfg.pcs._eval_matrix(F.from_np(mat, "cpu"), log_n, tzs, {})
+    (got,) = tcfg.pcs._eval_height(log_n, [F.from_np(mat, "cpu")], [list(range(n_points))], tzs)
     assert len(got) == n_points
     for g, v in zip(got, want):
         np.testing.assert_array_equal(fd.to_np(g), np.stack([JF.to_np(c) for c in v]))
