@@ -14,11 +14,19 @@ without printing a result:
                 recorded program of the bench proves (both configs, 2^14
                 and 2^18), generated from the template csrc/expr_sweep.cu,
                 one nvcc per program, all at once; prints each program's
-                build seconds and the registers and spills of gl_scan.cu's,
-                K15's, K13's, K12's and K8's kernels
+                build seconds and the registers, stack frames and spills
+                of K1's and K5's, K3's, gl_scan.cu's, K15's, K13's, K12's
+                and K8's kernels
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
-                (K2 one stage per launch and as multi-stage passes at every
+                (K1 / K5 every op at the shapes the prove broadcasts by
+                period and the powers entry at counts 1 to 300, each
+                launched twice, the powers timed beside the parent's
+                doubling loop, and one extension product's latency; K3's
+                FRI entry at every FRI level of the 2^18 prove, arity 2, 4
+                and 16, each launched twice, timed beside the parent's
+                layout copy and hash_rows, and hash_rows at rows of 14, 26
+                and 520 elements; K2 one stage per launch and as multi-stage passes at every
                 pass size, with the whole DIF and DIT through NttEngine; K4's
                 entries (batch inverse, cumsum, sum, sum of inverses, the
                 stage-2 chain) at the stage-2 shape and at edge cases around
@@ -58,8 +66,10 @@ without printing a result:
                 device memory and the launches of each warm prove.  The
                 launch counts are set to 0 before each path and read right
                 after its proves; every kernel of that path must have
-                launched, K14 and K15 on every path, and no kernel entry
-                point compresses Merkle pairs outside K14 / K15.  After that
+                launched, K14 and K15 on every path, no kernel entry
+                point compresses Merkle pairs outside K14 / K15, and the
+                GoldilocksBlake3 paths make no PyTorch layout copy of a FRI
+                level (kernels.COPIES: K3's FRI entry writes the matrix).  After that
                 read, the device transcript's path up to its one global
                 fetch runs once more per size under
                 torch.cuda.set_sync_debug_mode("error") (any op there that
@@ -140,6 +150,7 @@ OPS_PER_MUL = {"Goldilocks": 12, "BabyBear": 6}
 OPS_PER_BLAKE3 = 7 * 8 * 14
 OPS_PER_POSEIDON2 = 772 * OPS_PER_MUL["BabyBear"]
 LATENCY_US = {}  # one compression's latency by field name (check_trees' node chain)
+EXT_LATENCY_US = {}  # one extension product's latency by field name (check_arith's chain)
 SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second, at least (an H100's SM clock is at most 1.98 GHz)
 
 
@@ -282,6 +293,7 @@ def check_kernels(dev):
                 if not (torch.equal(op(ea, sc), op(ea, full)) and torch.equal(op(sc, ea), op(full, ea))):
                     raise AssertionError(f"{arith}: an ext scalar of shape {shape} broadcasts wrongly")
         say("kernels", f"{arith}: ext scalars of shape ({D},) and ({D}, 1) broadcast against ({D}, 2^20)")
+        check_arith(F, E, arith, rnd, compare, mul_ops, ext_muls, first=F is GL_OPS)
 
         # K2: the (14, 2^20) stage-1 LDE's forward DIF, all 20 stages one
         # launch each (the r = 1 pass, as the sharded DIF's coarse stages run)
@@ -360,6 +372,11 @@ def check_kernels(dev):
             s2 = rnd(F, 26, 1 << 20)
             compare("blake3_merkle hash_rows (26, 2^20)", lambda: b3.hash_rows([s2]), lambda: b3.hash_rows_plain([s2]),
                     (8 * 26 * m + 32 * m, 4 * per_hash * m))
+            wide = rnd(F, 520, 1 << 12)  # 4160-byte rows: five chunks, four parents
+            compare("blake3_merkle hash_rows (520, 2^12), rows of 4160 bytes (the chunk tree)",
+                    lambda: b3.hash_rows([wide]), lambda: b3.hash_rows_plain([wide]),
+                    (8 * wide.numel() + 32 * (1 << 12), (65 + 4) * per_hash * (1 << 12)))
+            check_fri_leaves(F, rnd, compare)
         leaves = mod.hash_rows([lde])
         mmcs = MerkleMmcs(hasher, 0)
         t0 = time.perf_counter()
@@ -433,6 +450,166 @@ def check_kernels(dev):
     say("kernels", f"dt_flush 2^18 beta/gamma flush: latency floor {inputs.chain} dependent compressions x "
         f"{LATENCY_US['Goldilocks']:.4f} us = {inputs.chain * LATENCY_US['Goldilocks'] / 1e3:.4f} ms")
     return rows
+
+
+def parent_powers(E, alpha, count):
+    """The α-power table as the parent built it: doubling, one ext product
+    and one square per step, each followed by a concatenation."""
+    import torch
+
+    pows = torch.zeros((E.D, 1), dtype=torch.int64, device=alpha.device)
+    pows[0] = 1
+    step = alpha.reshape(E.D, 1)
+    while pows.shape[1] < count:
+        pows = torch.cat([pows, E.mul(pows, step)], dim=1)
+        if pows.shape[1] < count:
+            step = E.square(step)
+    return pows[:, :count]
+
+
+def check_arith(F, E, arith, rnd, compare, mul_ops, ext_muls, first: bool) -> None:
+    """K1 / K5: every op against its plain version at the shapes the prove
+    broadcasts by period (a (w, n) matrix times a row vector of n: the coset
+    and scale tables; a scalar; two full operands; an extension scalar; rows
+    of an extension matrix; an odd period; a view that does not lie on 16
+    bytes; more than 65535 rows of a short period; a column, as the opening
+    points against the coset's x), each launched twice;
+    the coset product timed; then the powers entry at counts 1 to 300, each
+    launched twice, timed at the prove's counts beside the parent's doubling
+    loop, and one extension product's latency (a one-thread chain of
+    squarings, the powers entry's floor per bit)."""
+    import torch
+
+    D = E.D
+    k = 1 << 14
+    big = rnd(F, 3, k + 1)
+    base_cases = (("(14, 2^14) x (2^14,)", (14, k), (k,)), ("(2^14,) x ()", (k,), ()),
+                  ("(14, 2^14) x (14, 2^14)", (14, k), (14, k)), ("(3, 7, 2^10) x (7, 2^10)", (3, 7, 1024), (7, 1024)),
+                  ("(1001,) x (1001,)", (1001,), (1001,)), ("(70000, 2) x (2,)", (70000, 2), (2,)),
+                  ("(2, 2^20) x (2, 1), a column", (2, 1 << 20), (2, 1)),
+                  ("(70000, 2) x (70000, 1), a column", (70000, 2), (70000, 1)))
+    cases = 0
+
+    def check(label, got_fn, want):
+        nonlocal cases
+        for _ in range(2):
+            got = got_fn()
+            if max_abs_err(got, torch.broadcast_to(want, got.shape)) != 0:
+                raise AssertionError(f"{arith} {label}: kernel disagrees with its plain version")
+            cases += 1
+
+    for name, sa, sb in base_cases:
+        a, b = rnd(F, *sa), rnd(F, *sb)
+        for op in ("add", "sub", "mul"):
+            fn, plain = getattr(F, op), getattr(F, op + "_plain")
+            check(f"{op} {name}", lambda: fn(a, b), plain(a, b))
+            check(f"{op} {name} (operands swapped)", lambda: fn(b, a), plain(b, a))
+        small = a.reshape(-1)[:4096].reshape(-1)
+        check(f"neg {name}", lambda: F.neg(a), F.neg_plain(a))
+        check(f"inv {name}", lambda: F.inv(small), F.inv_plain(small))
+        check(f"pow {name}", lambda: F.pow(small, 0xDEADBEEF12345), F.pow_plain(small, 0xDEADBEEF12345))
+        ea, eb = rnd(F, D, *sa), rnd(F, D, *sb)
+        eb_al = eb.reshape((D,) + (1,) * (len(sa) - len(sb)) + tuple(sb))
+        for op in ("add", "sub", "mul"):
+            fn, plain = getattr(E, op), getattr(E, op + "_plain")
+            check(f"ext {op} {name}", lambda: fn(ea, eb), plain(ea, eb_al))
+        check(f"ext scale {name}", lambda: E.scale(ea, b), E.scale_plain(ea, b))
+        esmall = ea.reshape(D, -1)[:, :2048]
+        check(f"ext inv {name}", lambda: E.inv(esmall), E.inv_plain(esmall))
+    odd = big[1, 1:]  # a view 8 bytes past a 16-byte boundary
+    row = rnd(F, k)
+    check("mul of a view off 16 bytes", lambda: F.mul(odd, row), F.mul_plain(odd, row))
+    torch.cuda.synchronize()
+    say("kernels", f"{arith}: {cases} cases (every op, each launched twice, at {len(base_cases)} period and column "
+        "shapes and a view off 16 bytes) bit-equal to the plain versions")
+
+    rows_w, n = 14, 1 << 18  # the coset product of the stage-1 trace: (14, 2^18) x its scale table
+    mat, tab = rnd(F, rows_w, n), rnd(F, n)
+    compare(f"{arith} coset product (14, 2^18) x (2^18,)", lambda: F.mul(mat, tab), lambda: F.mul_plain(mat, tab),
+            (8 * (2 * rows_w * n + n), mul_ops * rows_w * n), device=True)
+
+    for count in range(1, 301):
+        alpha = rnd(F, D)
+        want = E.powers_plain(alpha, count)
+        for _ in range(2):
+            if max_abs_err(E.powers(alpha, count), want) != 0:
+                raise AssertionError(f"{arith} powers count={count}: kernel disagrees with the sequential product")
+    say("kernels", f"{arith} powers: counts 1 to 300, each launched twice, bit-equal to the sequential product")
+
+    x = rnd(F, D)
+    if not torch.equal(E.chain(x, 64), E.chain(x.cpu(), 64).to(x.device)):
+        raise AssertionError(f"{arith}: 64 chained squarings disagree with the plain version")
+    t_n, t_0 = cuda_ms(lambda: E.chain(x, 4096), 3), cuda_ms(lambda: E.chain(x, 0), 3)
+    lat_us = 1e3 * (t_n - t_0) / 4096
+    EXT_LATENCY_US[F.name] = lat_us
+    say("kernels", f"{arith} {E.name} product latency: {lat_us:.4f} us (a one-thread chain of 4096 squarings, "
+        f"{t_n:.4f} ms, less an empty chain {t_0:.4f} ms; equal to the plain chain at 64)")
+    for count in (28, 42, 100, 300):
+        alpha = rnd(F, D)
+        bits = (count - 1).bit_length()
+        compare(f"{arith} powers count={count}: latency floor {bits} x {lat_us:.4f} us = {bits * lat_us / 1e3:.4f} ms",
+                lambda: E.powers(alpha, count), lambda: E.powers_plain(alpha, count),
+                (8 * D * (count + 1), count * (bits + 1) * ext_muls * mul_ops), device=True)
+        say("kernels", f"{arith} powers count={count}: the parent's doubling loop ({2 * bits - 1} launches of "
+            f"{arith}, {bits} concatenations): {cuda_ms(lambda: parent_powers(E, alpha, count), 5):.4f} ms, "
+            f"device_ms={device_ms(lambda: parent_powers(E, alpha, count)):.4f}")
+
+
+def check_fri_leaves(F, rnd, compare) -> None:
+    """K3's FRI entry against its plain version (the PyTorch layout copy,
+    then the rows' digests) at every FRI level of the 2^18 prove (2^20 down
+    to 2^3 positions) for arity 2, 4 and 16, GL2 values, each launched
+    twice; the 2^20-position round timed beside the parent's structure (the
+    copy, then hash_rows), and the prove's 18 levels in a row both ways."""
+    import torch
+
+    from multistark_tpu_torch.hash import blake3 as b3
+    from multistark_tpu_torch.utils import fold_rows
+
+    cases = 0
+    for log_n in range(20, 2, -1):
+        vec = rnd(F, 2, 1 << log_n)
+        for a_bits in (1, 2, 4):
+            if a_bits > log_n:
+                continue
+            want = torch.cat([t.reshape(-1).to(torch.int64) for t in b3.fri_leaves_plain(vec, a_bits)])
+            for _ in range(2):
+                got = torch.cat([t.reshape(-1).to(torch.int64) for t in b3.fri_leaves(vec, a_bits)])
+                if max_abs_err(got, want) != 0:
+                    raise AssertionError(f"blake3_merkle fri_leaves 2^{log_n} positions a_bits={a_bits}: "
+                                         "kernel disagrees with its plain version")
+                cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"blake3_merkle fri_leaves: {cases} cases (2^20 down to 2^3 positions; arity 2, 4, 16; each "
+        "launched twice) bit-equal to the plain version")
+
+    def flat(fn):
+        return lambda: torch.cat([t.reshape(-1).to(torch.int64) for t in fn()])
+
+    N = 1 << 20
+    vec = rnd(F, 2, N)
+    M = N // 2
+    compare("blake3_merkle fri_leaves (2, 2^20), arity 2: the first FRI level's matrix and 2^19 leaves",
+            flat(lambda: b3.fri_leaves(vec, 1)), flat(lambda: b3.fri_leaves_plain(vec, 1)),
+            (16 * 2 * N + 32 * M, M * OPS_PER_BLAKE3), name="blake3_merkle", time_fn=lambda: b3.fri_leaves(vec, 1),
+            device=True)
+
+    def pair():
+        return b3.hash_rows([fold_rows(vec, 1)])
+
+    say("kernels", f"blake3_merkle the parent's structure on the same level (PyTorch's layout copy, then hash_rows): "
+        f"{cuda_ms(pair, 5):.4f} ms, device_ms={device_ms(pair):.4f}")
+    levels = [rnd(F, 2, 1 << k) for k in range(20, 2, -1)]
+
+    def rounds_new():
+        return [b3.fri_leaves(v, 1) for v in levels]
+
+    def rounds_parent():
+        return [b3.hash_rows([fold_rows(v, 1)]) for v in levels]
+
+    say("kernels", f"blake3_merkle the 2^18 prove's 18 FRI levels in a row (2^20 down to 2^3 positions): fri_leaves "
+        f"{cuda_ms(rounds_new, 5):.4f} ms, device_ms={device_ms(rounds_new):.4f}; the parent's copy + hash_rows "
+        f"pairs {cuda_ms(rounds_parent, 5):.4f} ms, device_ms={device_ms(rounds_parent):.4f}")
 
 
 def bench_opened(dev, first: bool, log_n: int = 18) -> dict:
@@ -1001,13 +1178,15 @@ def ptxas_kernels(path: str, names) -> str:
             if m:
                 mangled = m.group(1)
                 name = next((n for n in names if n in mangled), None)
-                args = re.findall(r"(Goldilocks|BabyBear|Blake3Hasher|Poseidon2TreeHasher|Poseidon2Hasher)|Li(\d+)E",
-                                  mangled[mangled.find(name) + len(name):] if name else "")
-                label = f"{name}<{','.join(a or b for a, b in args)}>" if name else None
+                args = re.findall(
+                    r"(Goldilocks|BabyBear|Blake3Hasher|Poseidon2TreeHasher|Poseidon2Hasher)|Li(\d+)E|Lb(\d)E",
+                    mangled[mangled.find(name) + len(name):] if name else "")
+                label = (f"{name}<{','.join(a or b or ('true' if c == '1' else 'false') for a, b, c in args)}>"
+                         if name else None)
             regs = re.search(r"Used (\d+) registers", line)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if label and spill:
-                out.append([label, f"spills {spill.group(1)}/{spill.group(2)} B"])
+                out.append([label, f"stack {spill.group(1)} B, spills {spill.group(2)}/{spill.group(3)} B"])
             if label and regs and out and out[-1][0] == label:
                 out[-1].append(f"{regs.group(1)} registers")
     return "; ".join(" ".join(o) for o in out) or "no report"
@@ -1128,7 +1307,12 @@ def prove_sizes(dev, path: str):
         if device_transcript:
             sync_checks.append((log_n, witness, claims))
     counts = kernels.launch_counts()  # the path's proves, and nothing else
-    say("prove", f"{path} kernel launches over the path: {counts}; fallbacks {dict(dt.FALLBACKS)}")
+    copies = dict(kernels.COPIES)
+    say("prove", f"{path} kernel launches over the path: {counts}; fallbacks {dict(dt.FALLBACKS)}; layout copies "
+        f"{copies}")
+    if config_name == "goldilocks_blake3" and copies.get("fold_rows", 0):
+        raise AssertionError(f"{path}: the BLAKE3 FRI rounds made {copies['fold_rows']} PyTorch layout copies; K3's "
+                             "FRI entry writes each level's matrix itself")
     for log_n, witness, claims in sync_checks:
         # the device transcript's path up to its global fetch once more, with
         # every op that waits for the device raising (after the read above:
@@ -1283,7 +1467,10 @@ def main() -> int:
     secs = kernels.build(force=True)
     kernels.library()
     say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
-    for k, names in ((kernels.GL_SCAN, ("batch_inv_kernel", "stage2_chain_kernel", "cumsum_kernel", "sum_kernel")),
+    for k, names in ((kernels.GL_ARITH, ("arith_kernel", "powers_kernel")),
+                     (kernels.BB_ARITH, ("arith_kernel", "powers_kernel")),
+                     (kernels.BLAKE3_MERKLE, kernels.BLAKE3_MERKLE.functions),
+                     (kernels.GL_SCAN, ("batch_inv_kernel", "stage2_chain_kernel", "cumsum_kernel", "sum_kernel")),
                      (kernels.MERKLE_LEVELS, kernels.MERKLE_LEVELS.functions),
                      (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions),
                      (kernels.BARY_EVAL, kernels.BARY_EVAL.functions),

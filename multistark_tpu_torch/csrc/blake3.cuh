@@ -106,6 +106,25 @@ __device__ __forceinline__ void chunk_cv(Src& src, int64_t chunk_words, uint64_t
   }
 }
 
+// Full BLAKE3 of a message of WORDS u32 words (at most one 1024-byte chunk)
+// held in registers: straight-line compressions, no chunk-tree stack.
+template <int WORDS>
+__device__ __forceinline__ void hash_chunk(const uint32_t (&m)[WORDS], uint32_t out[8]) {
+  static_assert(WORDS > 0 && WORDS <= CHUNK_WORDS, "one chunk");
+  constexpr int BLOCKS = (WORDS + 15) / 16;
+#pragma unroll
+  for (int i = 0; i < 8; i++) out[i] = IV[i];
+#pragma unroll
+  for (int b = 0; b < BLOCKS; b++) {
+    constexpr int LAST = WORDS - 16 * (BLOCKS - 1);
+    uint32_t block[16];
+#pragma unroll
+    for (int i = 0; i < 16; i++) block[i] = 16 * b + i < WORDS ? m[16 * b + i < WORDS ? 16 * b + i : 0] : 0u;
+    const uint32_t flags = (b == 0 ? CHUNK_START : 0u) | (b == BLOCKS - 1 ? CHUNK_END | ROOT : 0u);
+    compress(out, block, 0, b == BLOCKS - 1 ? 4 * LAST : 64, flags);
+  }
+}
+
 // Full BLAKE3 of a message of `total_words` u32 words pulled in order from
 // src.next().
 template <class Src>

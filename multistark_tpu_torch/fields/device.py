@@ -111,14 +111,16 @@ _ADD, _SUB, _NEG, _MUL, _POW, _INV = 0, 1, 2, 3, 4, 5
 _EXT_ADD, _EXT_SUB, _EXT_MUL, _EXT_SCALE, _EXT_INV = 10, 11, 13, 14, 15
 
 
-def _period(shape: Tuple[int, ...], out: Tuple[int, ...]) -> int:
-    """Elements of an operand of `shape` broadcast to `out` by period."""
+def _period(shape: Tuple[int, ...], out: Tuple[int, ...]) -> Tuple[int, bool]:
+    """Elements of an operand of `shape` broadcast to `out` by period, and
+    whether it is a column: one element per row of out's last axis, as a
+    (k, 1) operand against (..., k, P)."""
     n = int(np.prod(shape, dtype=np.int64))
-    trimmed = list(shape)
-    while trimmed and trimmed[0] == 1:
-        trimmed.pop(0)
-    if n == 1 or tuple(trimmed) == tuple(out[len(out) - len(trimmed):]):
-        return n
+    trimmed = tuple(shape[next((i for i, s in enumerate(shape) if s != 1), len(shape)):])
+    if n == 1 or trimmed == tuple(out[len(out) - len(trimmed):]):
+        return n, False
+    if len(trimmed) >= 2 and trimmed[-1] == 1 and trimmed[:-1] == tuple(out[len(out) - len(trimmed):-1]):
+        return n, True
     raise ValueError(f"operand of shape {shape} does not broadcast by period to {out}")
 
 
@@ -157,9 +159,8 @@ class FieldOps:
         sa = _elem_shape(a, D)
         sb = None if b is None else _elem_shape(b, D if b_ext else 0)
         out_shape = tuple(torch.broadcast_shapes(sa, sb)) if sb is not None else sa
-        _period(sa, out_shape)
-        if sb is not None:
-            _period(sb, out_shape)
+        na, a_col = _period(sa, out_shape)
+        nb, b_col = (0, False) if sb is None else _period(sb, out_shape)
         if b is not None and b.device != a.device:
             raise ValueError(f"operands on {a.device} and {b.device}")
         if a.dtype != torch.int64 or (b is not None and b.dtype != torch.int64):
@@ -177,13 +178,13 @@ class FieldOps:
         kernels.check_cuda(a, *(() if b is None else (b,)))
         n = int(np.prod(out_shape, dtype=np.int64))
         out = torch.empty(((D,) if D else ()) + tuple(out_shape), dtype=torch.int64, device=a.device)
-        na = a.numel() // max(D, 1)
-        if b is None:
-            bp, nb, cb = None, 1, 0
-        else:
-            nb = b.numel() // (D if b_ext else 1)
-            bp, cb = kernels.ptr(b), nb
-        coords = max(D, 1)
+        if n == 0:
+            return out
+        # the output as reps rows of P elements: P its last axis if an
+        # operand is a column, else the smallest period above 1
+        P = out_shape[-1] if a_col or b_col else min([k for k in (na, nb) if k > 1] or [n])
+        if P >= 1 << 31 or n // P >= 1 << 31:
+            raise ValueError(f"{self.kernel.name} takes at most 2^31 - 1 rows of at most 2^31 - 1 elements")
         n_bytes = 8 * (a.numel() + (0 if b is None else b.numel()) + out.numel())
         mul_ops = kernels.OPS_PER_MUL[self.field_id]
         if code in (_POW, _INV, _EXT_INV):  # square-and-multiply, then for an extension the norm map
@@ -193,8 +194,8 @@ class FieldOps:
         else:
             ops = 0
         self.kernel.launch(
-            self.kernel.name, code, kernels.ptr(a), na, na, bp, nb, cb, kernels.ptr(out), n, e % (1 << 64),
-            cost=(n_bytes, ops),
+            self.kernel.name, code, kernels.ptr(a), na, na, None if b is None else kernels.ptr(b), max(nb, 1),
+            nb, a_col | b_col << 1, kernels.ptr(out), P, n // P, e % (1 << 64), cost=(n_bytes, ops),
         )
         return out
 
@@ -333,6 +334,60 @@ class ExtOps:
 
     def inv(self, a):
         return self.base._apply(_EXT_INV, self.inv_plain, a, D=self.D)
+
+    def powers_plain(self, alpha, count: int) -> torch.Tensor:
+        """The sequential product α^i = α^(i-1)·α on the host field, as a
+        (D, count) tensor on α's device."""
+        a = tuple(int(c) for c in FieldOps.to_np(alpha.reshape(self.D)))
+        pows = [self.host.one]
+        for _ in range(1, count):
+            pows.append(self.host.mul(pows[-1], a))
+        arr = np.asarray(pows[:count], np.uint64).reshape(count, self.D)
+        return self.base.from_np(np.ascontiguousarray(arr.T), alpha.device)
+
+    def powers(self, alpha, count: int) -> torch.Tensor:
+        """[α^0, ..., α^(count-1)] of an extension scalar α ((D,) or (D, 1))
+        as a (D, count) tensor.  On a CUDA tensor one launch of the field's
+        kernel, α never leaving the device: each thread raises α to its own
+        index, its longest chain ceil(log2 count) dependent products; on a
+        CPU tensor the plain version."""
+        if alpha.numel() != self.D or alpha.dtype != torch.int64:
+            raise ValueError(f"powers takes an int64 extension scalar of {self.D} coordinates")
+        if not kernels.use_kernel(alpha):
+            return self.powers_plain(alpha, count)
+        alpha = alpha.reshape(self.D).contiguous()
+        kernels.check_cuda(alpha)
+        out = torch.empty((self.D, count), dtype=torch.int64, device=alpha.device)
+        if count == 0:
+            return out
+        F, bits = self.base, (count - 1).bit_length()
+        products = count * (bits + 1) * (self.D * self.D + self.D)  # at most two extension products per bit
+        F.kernel.launch(
+            F.kernel.name.replace("arith", "powers"), kernels.ptr(alpha), kernels.ptr(out), count,
+            cost=(8 * self.D * (count + 1), products * kernels.OPS_PER_MUL[F.field_id],
+                  bits * kernels.EXT_MUL_LATENCY_MS[F.field_id]),
+        )
+        return out
+
+    def chain(self, x, n: int) -> torch.Tensor:
+        """x ((D,)) squared n times in a row in one thread on the card: n
+        dependent extension products' latency (a measurement, not a launch
+        of the field's kernel: not counted).  The plain version on a CPU
+        tensor."""
+        if x.numel() != self.D or n < 0:
+            raise ValueError(f"chain takes {self.D} coordinates and n >= 0")
+        x = x.reshape(self.D)
+        if not kernels.use_kernel(x):
+            for _ in range(n):
+                x = self.mul_plain(x.reshape(self.D, 1), x.reshape(self.D, 1)).reshape(self.D)
+            return x
+        out = x.clone()
+        kernels.check_cuda(out)
+        entry = self.base.kernel.name.replace("arith", "ext_chain")
+        rc = getattr(kernels.library(), entry)(kernels.ptr(out), n, kernels.current_stream())
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed with cudaError_t {rc}")
+        return out
 
     # -- host boundary ---------------------------------------------------------
     def const(self, coords: Sequence[int], device) -> torch.Tensor:

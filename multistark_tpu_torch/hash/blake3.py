@@ -1,8 +1,10 @@
 """BLAKE3 over tensors: kernel K3 (blake3_merkle).
 
 `hash_rows` is the full BLAKE3 of each row's u64-LE serialization across
-several same-height (w_j, n) matrices (the Merkle leaf).  Digests are (n, 8)
-int32 tensors holding the u32 words.  The Merkle 2-to-1, blake3(left ||
+several same-height (w_j, n) matrices (the Merkle leaf).  `fri_leaves`
+lays a FRI round's fold vector out as the matrix its level commits and
+hashes that matrix's rows, in one launch.  Digests are (n, 8) int32
+tensors holding the u32 words.  The Merkle 2-to-1, blake3(left ||
 right), runs on the card inside K14 and K15 (commit_tile.py);
 `compress_pairs_plain` is its plain version.
 
@@ -19,10 +21,12 @@ from typing import List, Sequence
 import torch
 
 from .. import kernels
+from ..utils import fold_rows
 from .blake3_host import BLOCK_LEN, CHUNK_END, CHUNK_LEN, CHUNK_START, IV, MSG_PERM, PARENT, ROOT, _left_len
 
 _M32 = 0xFFFFFFFF
 _MAX_MATS = 16  # MAX_MATS in csrc/blake3_merkle.cu
+_FRI_DEGREE = 2  # the extension degree b3_fri_leaves is built for (GoldilocksBlake3's GL2; a_bits 1..4)
 
 
 # --- plain PyTorch version (any device) -----------------------------------------
@@ -142,3 +146,40 @@ def hash_rows(mats: Sequence[torch.Tensor]) -> torch.Tensor:
         cost=((row_bytes + 32) * n, n * max(1, -(-row_bytes // 64)) * kernels.OPS_PER_BLAKE3),
     )
     return out
+
+
+def fri_leaves_plain(vec: torch.Tensor, a_bits: int):
+    """Plain version of `fri_leaves`: the PyTorch layout copy, then the
+    rows' digests."""
+    mat = fold_rows(vec, a_bits)
+    return mat, hash_rows_plain([mat])
+
+
+def fri_leaves(vec: torch.Tensor, a_bits: int):
+    """A FRI round's fold vector, a coordinate-major (D, N) int64 tensor, as
+    the (A·D, N/A) matrix its level commits (row j·D + d holds coordinate d
+    of vec[j::A], A = 2^a_bits; utils.fold_rows) and that matrix's (N/A, 8)
+    int32 row digests.  On a CUDA tensor one launch writes both: a thread
+    per leaf loads its A·D values, stores them into the matrix and hashes
+    them as one BLAKE3 chunk (at most 1024 bytes) in straight-line code."""
+    D, N = vec.shape
+    A = 1 << a_bits
+    if not kernels.use_kernel(vec):
+        return fri_leaves_plain(vec, a_bits)
+    if vec.dtype != torch.int64 or not 1 <= a_bits <= 4 or D != _FRI_DEGREE or N % A:
+        raise ValueError(f"fri_leaves takes a ({_FRI_DEGREE}, N) int64 vector and 1 <= a_bits <= 4, A | N; got "
+                         f"{tuple(vec.shape)}, a_bits={a_bits}")
+    vec = vec.contiguous()
+    if vec.data_ptr() % 16:
+        vec = vec.clone()
+    kernels.check_cuda(vec)
+    M = N // A
+    mat = torch.empty((A * D, M), dtype=torch.int64, device=vec.device)
+    leaves = torch.empty((M, 8), dtype=torch.int32, device=vec.device)
+    if M:
+        row_bytes = 8 * A * D
+        kernels.BLAKE3_MERKLE.launch(
+            "b3_fri_leaves", kernels.ptr(vec), D, a_bits, M, kernels.ptr(mat), kernels.ptr(leaves),
+            cost=(16 * D * N + 32 * M, M * -(-row_bytes // 64) * kernels.OPS_PER_BLAKE3),
+        )
+    return mat, leaves

@@ -31,7 +31,9 @@ import ctypes
 import glob
 import os
 import subprocess
+import sys
 import time
+from collections import defaultdict
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -64,6 +66,11 @@ OPS_PER_HASH = (OPS_PER_BLAKE3, OPS_PER_POSEIDON2)  # by hasher kernel_id
 # 80GB HBM3 at 700 W.  A chain of k dependent compressions takes at least k
 # times this.
 BLAKE3_LATENCY_MS = 0.7484e-3
+# One extension product's latency on one thread (ms) by field id (GL2, BB4):
+# chip_smoke.py's chain of 4096 dependent squarings (ExtOps.chain) on an
+# NVIDIA H100 80GB HBM3 at 700 W.  The powers entry's floor is
+# ceil(log2 count) times this.
+EXT_MUL_LATENCY_MS = (0.1907e-3, 0.4940e-3)
 
 
 def least_ms(n_bytes: float, ops: float = 0, latency_ms: float = 0) -> float:
@@ -73,10 +80,15 @@ def least_ms(n_bytes: float, ops: float = 0, latency_ms: float = 0) -> float:
 
 # C entry point -> argument types (the stream is always the last c_void_p)
 _SIGNATURES = {
-    "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
-    "bb_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _vp, _i64, _u64, _vp],
+    "gl_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _i32, _vp, _i64, _i64, _u64, _vp],
+    "bb_arith": [_i32, _vp, _i64, _i64, _vp, _i64, _i64, _i32, _vp, _i64, _i64, _u64, _vp],
+    "gl_powers": [_vp, _vp, _i64, _vp],
+    "bb_powers": [_vp, _vp, _i64, _vp],
+    "gl_ext_chain": [_vp, _i32, _vp],
+    "bb_ext_chain": [_vp, _i32, _vp],
     "ntt_pass": [_i32, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
+    "b3_fri_leaves": [_vp, _i32, _i32, _i64, _vp, _vp, _vp],
     "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
     "gls_batch_inv": [_i32, _i32, _vp, _vp, _i64, _i64, _vp],
     "gls_inv_sum": [_i32, _i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp],
@@ -153,6 +165,7 @@ def _build(force: bool) -> float:
         for src, proc in zip(sources(), procs):
             out, err = proc.communicate(timeout=900)
             if proc.returncode != 0:
+                sys.stderr.write(f"nvcc failed on {src}:\n{out}{err}")
                 raise subprocess.CalledProcessError(proc.returncode, proc.args, output=out, stderr=err)
             with open(ptxas_log(src), "w") as f:
                 f.write(out + err)
@@ -235,7 +248,7 @@ class CudaKernel:
 GL_ARITH = CudaKernel(
     "gl_arith", "multistark_tpu_torch/csrc/gl_arith.cu",
     "multistark_tpu/fields/device.py:129",
-    ("arith_kernel<Goldilocks>",),
+    ("arith_kernel<Goldilocks", "powers_kernel<Goldilocks"),
 )
 NTT_STAGE = CudaKernel(
     "ntt_stage", "multistark_tpu_torch/csrc/ntt_stage.cu",
@@ -245,7 +258,7 @@ NTT_STAGE = CudaKernel(
 BLAKE3_MERKLE = CudaKernel(
     "blake3_merkle", "multistark_tpu_torch/csrc/blake3_merkle.cu",
     "multistark_tpu/hash/blake3.py:222",
-    ("b3_hash_rows_kernel",),
+    ("b3_hash_rows_kernel", "b3_fri_leaves_kernel"),
 )
 GL_SCAN = CudaKernel(
     "gl_scan", "multistark_tpu_torch/csrc/gl_scan.cu",
@@ -255,7 +268,7 @@ GL_SCAN = CudaKernel(
 BB_ARITH = CudaKernel(
     "bb_arith", "multistark_tpu_torch/csrc/bb_arith.cu",
     "multistark_tpu/fields/device.py:208",
-    ("arith_kernel<BabyBear>",),
+    ("arith_kernel<BabyBear", "powers_kernel<BabyBear"),
 )
 POSEIDON2_MERKLE = CudaKernel(
     "poseidon2_merkle", "multistark_tpu_torch/csrc/poseidon2_merkle.cu",
@@ -311,6 +324,13 @@ KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERK
            FRI_FOLD, EXPR_SWEEP, BARY_EVAL, REDUCED_OPEN, LDE_TILE, MERKLE_LEVELS)
 
 
+# Layout copies that a kernel could have made itself, by name, counted where
+# they run beside the kernels' launches: "fold_rows" is a FRI level's
+# (A·D, N/A) matrix built by PyTorch (utils.fold_rows) and not by K3's FRI
+# entry.
+COPIES: Dict[str, int] = defaultdict(int)
+
+
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
@@ -320,8 +340,10 @@ def bounds_ms() -> Dict[str, float]:
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's launches, and the layout copies, to 0."""
     for k in KERNELS:
         k.launches = 0
+    COPIES.clear()
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -28,6 +28,7 @@ import torch
 
 from .commit_tile import merkle_levels
 from .hash import blake3, poseidon2
+from .utils import fold_rows
 
 
 class Blake3FieldHasher:
@@ -41,6 +42,11 @@ class Blake3FieldHasher:
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
         return blake3.hash_rows(mats)
+
+    def fri_leaves(self, vec: torch.Tensor, a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A FRI level's committed matrix and its leaf digests, in one K3
+        launch (blake3.fri_leaves)."""
+        return blake3.fri_leaves(vec, a_bits)
 
     def consts(self, device) -> None:
         return None
@@ -58,6 +64,12 @@ class Poseidon2FieldHasher:
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
         return poseidon2.hash_rows(mats)
+
+    def fri_leaves(self, vec: torch.Tensor, a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A FRI level's committed matrix (the PyTorch layout copy) and its
+        leaf digests (K6)."""
+        mat = fold_rows(vec, a_bits)
+        return mat, self.hash_matrices([mat])
 
     def consts(self, device) -> torch.Tensor:
         """The round constants the kernels stage, on `device`."""
@@ -121,9 +133,23 @@ class MerkleMmcs:
         dims = [(int(m.shape[0]), int(m.shape[1])) for m in mats]
         heights = self.check_heights([h for _, h in dims])
         by_height: Dict[int, list] = {h: [m for m, (_, mh) in zip(mats, dims) if mh == h] for h in heights}
-        leaves = self.hasher.hash_matrices(by_height[heights[0]])
         log_max = heights[0].bit_length() - 1
         inject = {log_max - h.bit_length() + 1: self.hasher.hash_matrices(by_height[h]) for h in heights[1:]}
+        return self._tree(mats, dims, self.hasher.hash_matrices(by_height[heights[0]]), inject)
+
+    def commit_leaves(self, mats: Sequence[torch.Tensor], leaves: torch.Tensor) -> Tuple[torch.Tensor,
+                                                                                         MerkleProverData]:
+        """`commit_device` of same-height matrices whose (n, 8) leaf digests
+        are already hashed (a FRI level's, hasher.fri_leaves): K15 folds the
+        levels, and the data keeps the matrices for the openings."""
+        dims = [(int(m.shape[0]), int(m.shape[1])) for m in mats]
+        heights = self.check_heights([h for _, h in dims])
+        if len(heights) != 1 or tuple(leaves.shape) != (heights[0], 8):
+            raise ValueError(f"commit_leaves takes same-height matrices and their ({heights[0]}, 8) leaf digests")
+        return self._tree(mats, dims, leaves, {})
+
+    def _tree(self, mats, dims, leaves, inject) -> Tuple[torch.Tensor, MerkleProverData]:
+        log_max = leaves.shape[0].bit_length() - 1
         layers = [leaves] + merkle_levels(self.hasher, leaves, log_max - self.cap_height, inject)
         return layers[-1], MerkleProverData(mats=list(mats), dims=dims, layers=layers, log_max=log_max)
 

@@ -76,8 +76,8 @@ from .fields.host import HostExtField, HostField
 from .fields.npref import np_mul, np_powers
 from .merkle import BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np
 from .ntt import NttEngine
-from .utils import (batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, reverse_bits, scratch,
-                    to_device)
+from .utils import (batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, fold_rows, reverse_bits,
+                    scratch, to_device)
 
 ExtVal = Tuple[int, ...]  # host extension element
 
@@ -449,7 +449,7 @@ class TwoAdicFriPcs:
             return
         if x is None:
             x = self.x_table_storage(log_n, self.hf.generator)
-        inv = batch_inv(torch.stack([_ext_minus_base(F, E, z, x) for _, z in todo], dim=1), E)  # (D, P, n)
+        inv = batch_inv(_ext_minus_base(F, E, torch.stack([z for _, z in todo], dim=1), x), E)  # (D, P, n)
         inv = inv.transpose(0, 1).contiguous()  # (P, D, n): each point's rows contiguous
         for i, (key, _) in enumerate(todo):
             cache[log_n, key] = inv[i]
@@ -622,12 +622,15 @@ class TwoAdicFriPcs:
         return parallel.gather_blocks(pm, current, "fri")
 
     def _fri_tree(self, current, a_bits: int, log_size: int):
-        """The tree of a FRI round's level (device cap, data): sharded when
+        """The tree of a FRI round's level (device cap, data): the hasher
+        lays out the level's (A·D, N/A) matrix and hashes its leaves (K3's
+        FRI entry: both in one launch), K15 folds the levels; sharded when
         the vector is a block."""
-        mat = _fold_rows(current, a_bits)
         if current.shape[-1] != 1 << log_size:
+            mat = fold_rows(current, a_bits)
             return parallel.sharded_mmcs_commit(self.mmcs, parallel.current_mesh(), [mat], [1 << (log_size - a_bits)])
-        return self.mmcs.commit_device([mat])
+        mat, leaves = self.mmcs.hasher.fri_leaves(current, a_bits)
+        return self.mmcs.commit_leaves([mat], leaves)
 
     def _fold_multi(self, current, beta: torch.Tensor, log_size: int, a_bits: int, log_max_ro: int, absorb=None):
         """One arity-2^a fold round with the device β (K10), plus `absorb`
@@ -704,7 +707,11 @@ class TwoAdicFriPcs:
 
 
 def _ext_minus_base(F: FieldOps, E: ExtOps, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Device ext scalar z ((D,)) minus a base vector x -> (D, n) ext tensor."""
+    """A device ext scalar z ((D,)) or points z ((D, P)) minus a base vector
+    x ((n,)) -> the (D, n) or (D, P, n) ext tensor z - x_i: one launch of
+    the field's kernel, the points a column against x."""
+    if z.dim() == 2:
+        z = z.reshape(E.D, -1, 1)
     c0 = F.sub(z[0], x)
     return torch.stack([c0] + [z[d].expand_as(c0) for d in range(1, E.D)])
 
@@ -972,10 +979,3 @@ def fri_fold(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables,
         cost=(8 * current.numel() + 8 * sum(t.numel() for t in tables) + 8 * out.numel() * (2 if extra else 1), 0),
     )
     return out
-
-
-def _fold_rows(vec: torch.Tensor, a_bits: int) -> torch.Tensor:
-    """A (D, N) ext vector as the (A·D, N/A) base matrix a fold level
-    commits: row (j·D + d) = coordinate d of vec[j::A] (flatten_to_base)."""
-    A, D = 1 << a_bits, vec.shape[0]
-    return vec.reshape(D, -1, A).permute(2, 0, 1).reshape(D * A, -1).contiguous()

@@ -164,9 +164,8 @@ def instrument(config, spans: Spans):
                        ("commit_from_coeffs_device", "quotient commit"), ("commit_from_coeffs", "quotient commit"),
                        ("_claimed_evaluations", "claimed evaluations"), ("_reduced_openings", "reduced openings"),
                        ("_commit_phase", "FRI commit phase"), ("_commit_phase_device_core", "FRI commit phase"),
-                       ("_query_phase", "query phase")):
+                       ("_fri_tree", "FRI round trees"), ("_query_phase", "query phase")):
         setattr(pcs, attr, spans.wrap(name, getattr(pcs, attr)))
-    pcs.mmcs.commit_device = spans.wrap("FRI round trees", pcs.mmcs.commit_device)
     for cls, methods, name in ((DuplexChallenger, _CHALLENGER_METHODS, "host duplex"),
                                (SerializingChallenger64, _CHALLENGER_METHODS, "host duplex"),
                                (DeviceDuplex, _DUPLEX_METHODS, "device duplex")):

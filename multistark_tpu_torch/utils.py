@@ -80,16 +80,18 @@ def ext_pack_device(vals) -> torch.Tensor:
 
 def ext_powers_device(E: ExtOps, alpha: torch.Tensor, count: int) -> torch.Tensor:
     """[α^0, ..., α^(count-1)] of a device ext scalar α as a (D, count)
-    tensor, by doubling: the table so far times α^m, then α^m squared, so
-    2·log2(count) launches of the field kernel instead of count."""
-    pows = torch.zeros((E.D, 1), dtype=torch.int64, device=alpha.device)
-    pows[0] = 1
-    step = alpha.reshape(E.D, 1)
-    while pows.shape[1] < count:
-        pows = torch.cat([pows, E.mul(pows, step)], dim=1)
-        if pows.shape[1] < count:
-            step = E.square(step)
-    return pows[:, :count]
+    tensor: one launch of the field's kernel (ExtOps.powers)."""
+    return E.powers(alpha, count)
+
+
+def fold_rows(vec: torch.Tensor, a_bits: int) -> torch.Tensor:
+    """A (D, N) ext vector as the (A·D, N/A) base matrix a FRI level
+    commits: row (j·D + d) = coordinate d of vec[j::A] (flatten_to_base).
+    A PyTorch copy, counted in kernels.COPIES["fold_rows"]: K3's FRI entry
+    (hash/blake3.fri_leaves) writes this matrix itself."""
+    kernels.COPIES["fold_rows"] += 1
+    A, D = 1 << a_bits, vec.shape[0]
+    return vec.reshape(D, -1, A).permute(2, 0, 1).reshape(D * A, -1).contiguous()
 
 
 # --- plain PyTorch versions (any device) ---------------------------------------

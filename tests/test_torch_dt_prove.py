@@ -159,3 +159,65 @@ def test_ragged_claims_fall_back():
 def test_babybear_keeps_the_host_transcript():
     cfg = BabyBearPoseidon2Config(CommitmentParameters(log_blowup=2), FriParameters.standard_fast(), device="cpu")
     assert not dt_prover.eligible(cfg)
+
+
+def _lookup_inputs(ex, cls, with_z: bool):
+    """tests/test_e2e_lookups.py's system (a preprocessed square table, a
+    circuit pushing (1, x, x^2) and pulling the claims (2, x, x^2), a circuit
+    left empty), plus, if with_z, a circuit pulling the claims (3, z)."""
+    table = np.asarray([[x, x * x] for x in range(8)], np.uint64)
+    inputs = [
+        cls(main_width=1, constraints=[], ext_constraints=[],
+            lookups=[ex.Lookup.pull(ex.main(0), [ex.Const(1), ex.preprocessed(0), ex.preprocessed(1)])],
+            preprocessed=table),
+        cls(main_width=2, constraints=[], ext_constraints=[],
+            lookups=[ex.Lookup.push(ex.Const(1), [ex.Const(1), ex.main(0), ex.main(1)]),
+                     ex.Lookup.pull(ex.Const(1), [ex.Const(2), ex.main(0), ex.main(1)])]),
+        cls(main_width=1, constraints=[ex.main(0) * ex.main(0) - ex.main(0)], ext_constraints=[], lookups=[]),
+    ]
+    if with_z:
+        inputs.append(cls(main_width=1, constraints=[], ext_constraints=[],
+                          lookups=[ex.Lookup.pull(ex.Const(1), [ex.Const(3), ex.main(0)])]))
+    return inputs
+
+
+def _lookup_witness(xs, zs):
+    mult = np.zeros((8, 1), np.uint64)
+    for x in xs:
+        mult[x] += 1
+    traces = [mult, np.asarray([[x, x * x] for x in xs], np.uint64), np.zeros((0, 1), np.uint64)]
+    claims = [[2, x, x * x] for x in xs]
+    if zs:
+        traces.append(np.asarray([[z] for z in zs], np.uint64))
+        claims += [[3, z] for z in zs]
+    return traces, claims
+
+
+@pytest.mark.parametrize("case", ["sparse activation", "ragged claims"])
+def test_lookup_system_bytes_match_jax_and_verify(case):
+    """The sparse-activation case of tests/test_e2e_lookups.py (an empty
+    trace; rectangular claims) and the same system with a circuit pulling
+    (3, z) (ragged claims: (2, x, x^2) x 4 and (3, z) x 2), the claims given
+    through witness_from_numpy: the port's two transcripts give the JAX
+    package's bytes, the proof marks the empty circuit inactive, and the JAX
+    verifier accepts it.  Ragged claims take the host transcript (one
+    counted fallback of the device transcript)."""
+    ragged = case == "ragged claims"
+    traces, claims = _lookup_witness((3, 5, 2, 3), (11, 1 << 40) if ragged else ())
+    fri = dict(SMALL_FRI, max_log_arity=1, num_queries=6)
+    jcfg = JaxConfig(JaxCommit(log_blowup=2, cap_height=0), JaxFri(**fri))
+    jsys, jkey = JaxSystem.new(jcfg, _lookup_inputs(jex, JaxInputs, ragged))
+    want = jax_prove(jsys, jkey, JaxWitness.from_stage_1(traces, jsys, jkey), claims).to_bytes(jcfg)
+    tcfg = GoldilocksBlake3Config(CommitmentParameters(log_blowup=2, cap_height=0), FriParameters(**fri),
+                                  device="cpu")
+    tsys, tkey = System.new(tcfg, _lookup_inputs(tex, CircuitInputs, ragged))
+    ttraces, tclaims = mt.witness_from_numpy(traces, claims, "cpu")
+    assert isinstance(tclaims, list) == ragged
+    witness = SystemWitness.from_stage_1(ttraces, tsys, tkey)
+    dt.FALLBACKS.clear()
+    proof = prove_multiple_claims(tsys, tkey, witness, tclaims)
+    assert dict(dt.FALLBACKS) == ({"ragged claims": 1} if ragged else {})
+    assert proof.active == [True, True, False] + ([True] if ragged else [])
+    assert proof.to_bytes() == want
+    assert prove_host_transcript(tsys, tkey, witness, tclaims).to_bytes() == want
+    jax_verify(jsys, claims, JaxProof.from_bytes(want, jsys))

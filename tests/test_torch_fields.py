@@ -6,6 +6,7 @@ and 2^32-1."""
 import os
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -97,8 +98,12 @@ def test_ext_scalar_broadcasts_by_period():
     got = _ne(TGL2.mul(_te(a), z))
     want = GL2_OPS.to_np(GL2_OPS.mul(GL2_OPS.from_np(a), GL2_OPS.from_np(np.broadcast_to(b[0], a.shape))))
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError):  # column broadcasts are not a period
-        TGL.mul(torch.zeros((3, 4), dtype=torch.int64), torch.zeros((3, 1), dtype=torch.int64))
+    # a (3, 1) column broadcasts (one element per row); a middle axis does not
+    col = np.arange(1, 4, dtype=np.uint64).reshape(3, 1)
+    mat = np.arange(12, dtype=np.uint64).reshape(3, 4)
+    np.testing.assert_array_equal(TGL.to_np(TGL.mul(_t(mat), _t(col))), mat * col)
+    with pytest.raises(ValueError):
+        TGL.mul(torch.zeros((2, 3, 4), dtype=torch.int64), torch.zeros((2, 1, 1), dtype=torch.int64))
 
 
 def test_unsupported_device_raises():
@@ -114,3 +119,60 @@ def test_import_leaves_jax_out():
     )
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=repo)
+
+
+def _k1_cases():
+    powers = [("powers", f, c) for f in ("GL2", "BB4") for c in (1, 2, 3, 7, 64, 100, 257)]
+    periods = [("period", f, s) for f in ("GL", "BB") for s in ("matrix x row", "scalar", "full", "column")]
+    return powers + periods
+
+
+@pytest.mark.parametrize("kind, field, arg", _k1_cases(), ids=lambda v: str(v).replace(" ", "_"))
+def test_k1_powers_and_period_broadcasts_match_jax(kind, field, arg):
+    """K1 / K5 on CPU tensors (the plain versions): ExtOps.powers against the
+    JAX package's `_host_ext_powers` (pcs.py:1327), and every base and
+    extension op at the period shapes the prove uses ((w, n) x (n,), a
+    scalar, two full operands, a (w, 1) column: the opening points against
+    the coset's x) against the JAX package's field ops."""
+    from multistark_tpu.config import CommitmentParameters as JaxCommit, FriParameters as JaxFri
+    from multistark_tpu.configs import BabyBearPoseidon2Config as JaxBB, GoldilocksBlake3Config as JaxGL
+    from multistark_tpu.fields.device import BB4_OPS as JBB4, BB_OPS as JBB
+    from multistark_tpu_torch.fields.device import BB4_OPS as TBB4, BB_OPS as TBB
+
+    gl = field.startswith("GL")
+    TF, TE, JF, JE = (TGL, TGL2, GL_OPS, GL2_OPS) if gl else (TBB, TBB4, JBB, JBB4)
+    rng = np.random.default_rng(zlib.crc32(f"{kind} {field} {arg}".encode()))
+    if kind == "powers":
+        fri = JaxFri(log_final_poly_len=0, max_log_arity=1, num_queries=4, commit_proof_of_work_bits=1,
+                     query_proof_of_work_bits=1)
+        jpcs = (JaxGL if gl else JaxBB)(JaxCommit(log_blowup=1), fri).pcs
+        alpha = tuple(int(v) for v in rng.integers(0, TF.p, TE.D, dtype=np.uint64))
+        want = np.asarray(jpcs._host_ext_powers(alpha, arg), np.uint64).reshape(arg, TE.D)
+        got = TE.powers(TE.const(alpha, "cpu"), arg)
+        assert tuple(got.shape) == (TE.D, arg)
+        np.testing.assert_array_equal(fd.to_np(got).T, want)
+        return
+    w, n = 3, 16
+    out_shape = (w, n)
+    shape_b = {"matrix x row": (n,), "scalar": (), "full": (w, n), "column": (w, 1)}[arg]
+    a = rng.integers(0, TF.p, out_shape, dtype=np.uint64)
+    b = rng.integers(0, TF.p, shape_b, dtype=np.uint64)
+    bb = np.ascontiguousarray(np.broadcast_to(b, out_shape))
+    ja, jb = JF.from_np(a), JF.from_np(bb)
+    for op in ("add", "sub", "mul"):
+        want = JF.to_np(getattr(JF, op)(ja, jb))
+        np.testing.assert_array_equal(fd.to_np(getattr(TF, op)(TF.from_np(a, "cpu"), TF.from_np(b, "cpu"))), want)
+    np.testing.assert_array_equal(fd.to_np(TF.neg(TF.from_np(a, "cpu"))), JF.to_np(JF.neg(ja)))
+    np.testing.assert_array_equal(fd.to_np(TF.inv(TF.from_np(a, "cpu"))), JF.to_np(JF.inv(ja)))
+    D = TE.D
+    ea = rng.integers(0, TF.p, out_shape + (D,), dtype=np.uint64)  # JAX: coordinates last
+    eb = rng.integers(0, TF.p, shape_b + (D,), dtype=np.uint64)
+    jea, jeb = JE.from_np(ea), JE.from_np(np.ascontiguousarray(np.broadcast_to(eb, out_shape + (D,))))
+    tea = TF.from_np(np.ascontiguousarray(np.moveaxis(ea, -1, 0)), "cpu")
+    teb = TF.from_np(np.ascontiguousarray(np.moveaxis(eb, -1, 0)), "cpu")
+    for op in ("add", "sub", "mul"):
+        got = np.moveaxis(fd.to_np(getattr(TE, op)(tea, teb)), 0, -1)
+        np.testing.assert_array_equal(got, JE.to_np(getattr(JE, op)(jea, jeb)))
+    got = np.moveaxis(fd.to_np(TE.scale(tea, TF.from_np(b, "cpu"))), 0, -1)
+    np.testing.assert_array_equal(got, JE.to_np(JE.scale(jea, jb)))
+    np.testing.assert_array_equal(np.moveaxis(fd.to_np(TE.inv(tea)), 0, -1), JE.to_np(JE.inv(jea)))
