@@ -15,8 +15,8 @@ without printing a result:
                 and 2^18), generated from the template csrc/expr_sweep.cu,
                 one nvcc per program, all at once; prints each program's
                 build seconds and the registers, stack frames and spills
-                of K1's and K5's, K3's, gl_scan.cu's, K15's, K13's, K12's
-                and K8's kernels
+                of K1's and K5's, K3's, gl_scan.cu's, K15's, K13's, K12's,
+                K8's, K10's and K9's kernels
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K1 / K5 every op at the shapes the prove broadcasts by
@@ -50,10 +50,20 @@ without printing a result:
                 767 words around every edge of its prefix at 0, 1, 10 and
                 16 bits and D = 1..3, each launched twice, and on an input
                 whose least witness lies past the first wave, then 18
-                chained rounds; outputs must be bit-equal (all arithmetic
+                chained rounds; K10 on a FRI round of 2^20 positions into
+                the next level's matrix and leaves (arity 2 into 2, 4 into
+                16, 16 into 4, with and without the absorb, the last round,
+                from the level's matrix and from its vector, both fields,
+                BabyBear's first-level layout; each launched twice), its
+                18 chained rounds beside the parent's structure (the fold
+                vector, then K3's FRI entry); K9 on row-major claims from 1
+                to 2^21 + 5 (widths 0 to 4, a zero message, a view off 16
+                bytes), one extension inversion's latency, and the
+                accumulator from the host array beside the parent's
+                transpose and upload; outputs must be bit-equal (all arithmetic
                 is exact mod p, all hashing exact); warm CUDA-event times of
-                both, and for K4, K7, K8, K11, K12, K13 and K15 the device
-                time (the calls queued behind a spin kernel, so that the
+                both, and for K4, K7, K8, K9, K10, K11, K12, K13 and K15
+                the device time (the calls queued behind a spin kernel, so that the
                 host's launch path is hidden, between two CUDA events)
   4. prove   -- the bench workload (U32Add + preprocessed ByteTable,
                 blowup 4, 100 queries, arity 2, PoW 10+10, bench.py's
@@ -67,9 +77,9 @@ without printing a result:
                 launch counts are set to 0 before each path and read right
                 after its proves; every kernel of that path must have
                 launched, K14 and K15 on every path, no kernel entry
-                point compresses Merkle pairs outside K14 / K15, and the
-                GoldilocksBlake3 paths make no PyTorch layout copy of a FRI
-                level (kernels.COPIES: K3's FRI entry writes the matrix).  After that
+                point compresses Merkle pairs outside K14 / K15, and no
+                path makes a PyTorch layout copy of a FRI level
+                (kernels.COPIES: K3's FRI entry or K10 writes the matrix).  After that
                 read, the device transcript's path up to its one global
                 fetch runs once more per size under
                 torch.cuda.set_sync_debug_mode("error") (any op there that
@@ -233,7 +243,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
 
-    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, lookup as lk, pcs, utils
+    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, utils
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from multistark_tpu_torch.hash import blake3 as b3, poseidon2 as p2
     from multistark_tpu_torch.merkle import Blake3FieldHasher, MerkleMmcs, Poseidon2FieldHasher
@@ -393,31 +403,9 @@ def check_kernels(dev):
         # K14 and K15: the bench commits' tiles and tree levels
         check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first=F is GL_OPS)
 
-        # K10: one arity-2 fold round of a (D, 2^20) vector, as the device
-        # FRI rounds and the host loop run it; and arity 4 with an absorb
-        hf = F.host
-        cur, beta = rnd(F, D, m), rnd(F, D)
-        tabs = [rnd(F, m >> s) for s in range(2)]
-        fold_ops = D + D + 1 + ext_muls  # the two scales, the x product, the β product
-        compare(f"fri_fold {E.name} arity 2 ({D}, 2^20)",
-                lambda: pcs.fri_fold(E, cur, beta, tabs[:1], hf.inv(2)),
-                lambda: pcs.fri_fold_plain(E, cur, beta, tabs[:1], hf.inv(2)),
-                (8 * D * m + 8 * (m // 2) + 8 * D * (m // 2), fold_ops * mul_ops * (m // 2)),
-                name="fri_fold" if F is GL_OPS else None)
-        absorb = rnd(F, D, m // 4)
-        compare(f"fri_fold {E.name} arity 4 + absorb ({D}, 2^20)",
-                lambda: pcs.fri_fold(E, cur, beta, tabs, hf.inv(2), absorb),
-                lambda: pcs.fri_fold_plain(E, cur, beta, tabs, hf.inv(2), absorb),
-                (8 * D * m + 8 * (m // 2 + m // 8) + 16 * D * (m // 4), fold_ops * mul_ops * (m // 2 + m // 4)))
-
-        # K9: the messages of 2^18 claims of the bench's width
-        n_claims = 1 << 18
-        cols, g, b = rnd(F, CLAIM_WIDTH, n_claims), rnd(F, D), rnd(F, D)
-        compare(f"claims_fp {E.name} ({CLAIM_WIDTH}, 2^18)", lambda: lk.claims_fp(E, cols, b, g),
-                lambda: lk.claims_fp_plain(E, cols, b, g),
-                (8 * CLAIM_WIDTH * n_claims + 8 * D * n_claims + 16 * D,
-                 CLAIM_WIDTH * ext_muls * mul_ops * n_claims),
-                name="claims_fp" if F is GL_OPS else None)
+        # K10: the FRI rounds' fold into the next level; K9: the claims accumulator
+        check_fri_fold(F, E, rnd, compare, mul_ops, ext_muls, first=F is GL_OPS)
+        check_claims_acc(F, E, rnd, compare, mul_ops, ext_muls, first=F is GL_OPS)
 
         # K11: the three programs of U32Add at 2^18 rows (the quotient on its
         # stored LDEs, the witness's lookup values, the stage-2 messages)
@@ -610,6 +598,177 @@ def check_fri_leaves(F, rnd, compare) -> None:
     say("kernels", f"blake3_merkle the 2^18 prove's 18 FRI levels in a row (2^20 down to 2^3 positions): fri_leaves "
         f"{cuda_ms(rounds_new, 5):.4f} ms, device_ms={device_ms(rounds_new):.4f}; the parent's copy + hash_rows "
         f"pairs {cuda_ms(rounds_parent, 5):.4f} ms, device_ms={device_ms(rounds_parent):.4f}")
+
+
+def check_fri_fold(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None:
+    """K10 (`pcs.fri_fold_level`) against its plain version (the vector's
+    fold, the next level's layout, the plain leaf hash) at the prove's shapes,
+    each launched twice, from the level's matrix and from its vector: a round
+    of 2^20 positions at arity 2 into a next level of arity 2 and at arity 4
+    into arity 16, with and without the absorb, the last round (the final
+    vector), arity 16 into 4, and small levels; GL2 with the BLAKE3 leaves,
+    BB4 the matrix alone (K6 hashes it), and BabyBear's first-level layout
+    (a = 0).  The 2^20-position round timed; for GoldilocksBlake3 the 2^18
+    prove's 18 chained rounds (K3's first level, then 2^20 down to 2^2
+    positions) beside the parent's structure on the same levels (the fold
+    vector, then K3's FRI entry for each level)."""
+    import torch
+
+    from multistark_tpu_torch import pcs
+    from multistark_tpu_torch.hash import blake3 as b3
+    from multistark_tpu_torch.merkle import Blake3FieldHasher
+    from multistark_tpu_torch.utils import fold_rows
+
+    D, half = E.D, F.host.inv(2)
+    hasher = Blake3FieldHasher() if first else None
+
+    def flat(out):
+        mat, leaves = out
+        return torch.cat([mat.reshape(-1)] + ([] if leaves is None else [leaves.reshape(-1).to(torch.int64)]))
+
+    N = 1 << 20
+    vec, beta = rnd(F, D, N), rnd(F, D)
+    cases = 0
+    # (a_bits, next_a_bits, log2 positions, absorb)
+    for a, na, log_n, absorb in ((1, 1, 20, False), (1, 1, 20, True), (2, 4, 20, False), (2, 4, 20, True),
+                                 (4, 2, 14, True), (1, 0, 3, True), (1, 0, 3, False), (1, 1, 3, True),
+                                 (3, 1, 9, False)):
+        n = 1 << log_n
+        v = vec[:, :n].contiguous()
+        ix, ab = rnd(F, n // 2), (rnd(F, D, n >> a) if absorb else None)
+        h = hasher if na else None
+        for src in (fold_rows(v, a), v):
+            want = flat(pcs.fri_fold_level_plain(E, src, beta, ix, half, a, na, ab, h))
+            for _ in range(2):
+                if max_abs_err(flat(pcs.fri_fold_level(E, src, beta, ix, half, a, na, ab, hasher=h)), want) != 0:
+                    raise AssertionError(f"fri_fold {E.name} 2^{log_n} positions a_bits={a} next_a_bits={na} "
+                                         f"absorb={absorb} from a {tuple(src.shape)} input: kernel disagrees with "
+                                         "its plain version")
+                cases += 1
+    if not first:
+        for na in (1, 2, 4):  # BabyBear's first level: the vector laid out as its matrix
+            want = pcs.fri_fold_level_plain(E, vec, None, None, 0, 0, na)[0]
+            for _ in range(2):
+                if max_abs_err(pcs.fri_fold_level(E, vec, None, None, 0, 0, na)[0], want) != 0:
+                    raise AssertionError(f"fri_fold {E.name} layout (a_bits=0) next_a_bits={na}: kernel disagrees")
+                cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"fri_fold {E.name}: {cases} cases (2^20 down to 2^3 positions; arity 2 into 2, 4 into 16, 16 "
+        "into 4, 8 into 2, the last round; with and without the absorb; from the level's matrix and from its "
+        f"vector; {'the BLAKE3 leaves' if first else 'the matrix alone, and the first level laid out'}; each "
+        "launched twice) bit-equal to the plain version")
+
+    M, M2 = N // 2, N // 4
+    level = fold_rows(vec, 1)  # the first level's (2D, 2^19) matrix
+    ix = rnd(F, N // 2)
+    leaf_ops = M2 * -(-(16 * D) // 64) * OPS_PER_BLAKE3 if first else 0
+    compare(f"fri_fold {E.name} a round of 2^20 positions, arity 2, into the next level's ({2 * D}, 2^18) matrix"
+            + (" and its 2^18 leaves" if first else ""),
+            lambda: flat(pcs.fri_fold_level(E, level, beta, ix, half, 1, 1, hasher=hasher)),
+            lambda: flat(pcs.fri_fold_level_plain(E, level, beta, ix, half, 1, 1, None, hasher)),
+            (8 * D * N + 4 * N + 8 * D * M + (32 * M2 if first else 0), M * (1 + 2 * D + ext_muls) * mul_ops + leaf_ops),
+            name="fri_fold" if first else None, time_fn=lambda: pcs.fri_fold_level(E, level, beta, ix, half, 1, 1,
+                                                                                   hasher=hasher), device=True)
+    if not first:
+        return
+    tables = [rnd(F, 1 << (19 - r)) for r in range(18)]  # round r folds 2^(20 - r) positions
+
+    def rounds_new():
+        lvl, _ = b3.fri_leaves(vec, 1)
+        for r in range(18):
+            lvl, _ = pcs.fri_fold_level(E, lvl, beta, tables[r], half, 1, int(r < 17), hasher=hasher)
+        return lvl
+
+    def rounds_parent():
+        v = vec
+        b3.fri_leaves(v, 1)
+        for r in range(18):
+            v = pcs.fri_fold(E, v, beta, tables[r], half, 1)
+            if r < 17:
+                b3.fri_leaves(v, 1)
+        return v
+
+    if max_abs_err(rounds_new(), rounds_parent()) != 0:
+        raise AssertionError("fri_fold: the 18 chained rounds end in another final vector than the parent's structure")
+    say("kernels", f"fri_fold the 2^18 prove's 18 chained rounds (K3's first level, then 2^20 down to 2^2 positions, "
+        f"arity 2): K10 into each next level {cuda_ms(rounds_new, 5):.4f} ms, device_ms={device_ms(rounds_new):.4f}; "
+        f"the parent's structure (K10's vector fold, then K3's FRI entry) {cuda_ms(rounds_parent, 5):.4f} ms, "
+        f"device_ms={device_ms(rounds_parent):.4f}; the same final vector")
+
+
+def check_claims_acc(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None:
+    """K9 (`lookup.claims_acc`) against its plain version (the messages by
+    Horner, then the batch inverse's sum) on row-major claims, each launched
+    twice: the bench's (2^18, 4), counts around the block (128 claims), the
+    tile (512) and the grid's cap (4096 tiles, past which blocks loop),
+    widths 0 to 4, a view off 16 bytes, and a zero message (β =
+    -fingerprint(claim 3), which must contribute zero); then one extension
+    inversion's latency (a one-thread chain) and K9's latency floor; the
+    (2^18, 4) accumulator timed, and from the host array beside the
+    parent's host transpose and upload and K4's sum of inverses."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import lookup as lk, utils
+
+    D, he = E.D, E.host
+    cases = 0
+    shapes = [(n, CLAIM_WIDTH) for n in (1, 31, 127, 128, 129, 511, 512, 513, 1025, 4097, 1 << 18)]
+    shapes += [(300, 0), (1000, 1), (777, 3), ((1 << 21) + 5, 1)]
+    for n, L in shapes:
+        claims, b, g = rnd(F, n, L), rnd(F, D), rnd(F, D)
+        variants = [("", claims, b)]
+        if n > 3:
+            fp = lk.fingerprint(he, tuple(int(c) for c in F.to_np(g)), [int(v) for v in F.to_np(claims[3])])
+            variants.append((" with claim 3's message zero", claims, E.const(he.neg(fp), claims.device)))
+        if L % 2 == 0 and n < 5000:
+            view = torch.empty(claims.numel() + 1, dtype=torch.int64, device=claims.device)
+            view[1:] = claims.reshape(-1)
+            variants.append((" as a view off 16 bytes", view[1:].reshape(n, L), b))
+        for label, cl, bb in variants:
+            want = lk.claims_acc_plain(E, cl, bb, g)
+            for _ in range(2):
+                if max_abs_err(lk.claims_acc(E, cl, bb, g), want) != 0:
+                    raise AssertionError(f"claims_fp {E.name} claims_acc ({n}, {L}){label}: kernel disagrees with "
+                                         "its plain version")
+                cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"claims_fp {E.name} claims_acc: {cases} cases (n = 1 to 2^21 + 5, widths 0 to 4, a zero message, "
+        "a view off 16 bytes; each launched twice) bit-equal to the plain version")
+
+    x = rnd(F, D)
+    if not torch.equal(lk.ext_inv_chain(E, x, 16), lk.ext_inv_chain(E, x.cpu(), 16).to(x.device)):
+        raise AssertionError(f"claims_fp {E.name}: 16 chained inversions disagree with the plain version")
+    t_n, t_0 = cuda_ms(lambda: lk.ext_inv_chain(E, x, 1024), 3), cuda_ms(lambda: lk.ext_inv_chain(E, x, 0), 3)
+    inv_us = 1e3 * (t_n - t_0) / 1024
+    n, L = 1 << 18, CLAIM_WIDTH
+    floor_ms = inv_us / 1e3
+    say("kernels", f"claims_fp {E.name} inversion latency: {inv_us:.4f} us (a one-thread chain of 1024 inversions, "
+        f"{t_n:.4f} ms, less an empty chain {t_0:.4f} ms; equal to the plain chain at 16): K9's latency floor")
+
+    claims, b, g = rnd(F, n, L), rnd(F, D), rnd(F, D)
+    compare(f"claims_fp {E.name} claims_acc ({n}, {L}) row-major: the whole accumulator, latency floor "
+            f"{floor_ms:.4f} ms", lambda: lk.claims_acc(E, claims, b, g), lambda: lk.claims_acc_plain(E, claims, b, g),
+            (8 * claims.numel() + 24 * D, n * ((L - 1) * D + 2 * ext_muls) * mul_ops), name="claims_fp" if first else None,
+            device=True)
+    host = F.to_np(claims)
+    msgs = rnd(F, D, n)
+
+    def host_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    new_ms = host_ms(lambda: lk.claims_accumulator_device(F, E, host, b, g))
+    upload_ms = host_ms(lambda: F.from_np(np.ascontiguousarray(host.T), claims.device))
+    say("kernels", f"claims_fp {E.name} from the host (n, {L}) array, synchronised: upload + claims_acc "
+        f"{new_ms:.4f} ms; the parent's host transpose + upload of the columns {upload_ms:.4f} ms, then its K9 "
+        f"messages (not in this tree) and K4's sum of inverses ({D}, 2^18) "
+        f"device_ms={device_ms(lambda: utils.inv_sum(msgs, E)):.4f}")
 
 
 def bench_opened(dev, first: bool, log_n: int = 18) -> dict:
@@ -1310,9 +1469,9 @@ def prove_sizes(dev, path: str):
     copies = dict(kernels.COPIES)
     say("prove", f"{path} kernel launches over the path: {counts}; fallbacks {dict(dt.FALLBACKS)}; layout copies "
         f"{copies}")
-    if config_name == "goldilocks_blake3" and copies.get("fold_rows", 0):
-        raise AssertionError(f"{path}: the BLAKE3 FRI rounds made {copies['fold_rows']} PyTorch layout copies; K3's "
-                             "FRI entry writes each level's matrix itself")
+    if copies.get("fold_rows", 0):
+        raise AssertionError(f"{path}: the FRI rounds made {copies['fold_rows']} PyTorch layout copies; K3's FRI "
+                             "entry or K10 writes each level's matrix itself")
     for log_n, witness, claims in sync_checks:
         # the device transcript's path up to its global fetch once more, with
         # every op that waits for the device raising (after the read above:
@@ -1474,7 +1633,9 @@ def main() -> int:
                      (kernels.MERKLE_LEVELS, kernels.MERKLE_LEVELS.functions),
                      (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions),
                      (kernels.BARY_EVAL, kernels.BARY_EVAL.functions),
-                     (kernels.FRI_GRIND, kernels.FRI_GRIND.functions)):
+                     (kernels.FRI_GRIND, kernels.FRI_GRIND.functions),
+                     (kernels.FRI_FOLD, kernels.FRI_FOLD.functions),
+                     (kernels.CLAIMS_FP, kernels.CLAIMS_FP.functions)):
         say("build", f"{os.path.basename(k.source)} ptxas ({k.name}): {ptxas_kernels(kernels.ptxas_log(k.source), names)}")
     build_programs(dev)
 

@@ -71,6 +71,11 @@ BLAKE3_LATENCY_MS = 0.7484e-3
 # NVIDIA H100 80GB HBM3 at 700 W.  The powers entry's floor is
 # ceil(log2 count) times this.
 EXT_MUL_LATENCY_MS = (0.1907e-3, 0.4940e-3)
+# One extension inversion's latency on one thread (ms) by field id (GL2,
+# BB4): chip_smoke.py's chain of 1024 dependent inversions
+# (lookup.ext_inv_chain) on an NVIDIA H100 80GB HBM3 at 700 W: K9's
+# latency floor.
+EXT_INV_LATENCY_MS = (6.2193e-3, 3.3828e-3)
 
 
 def least_ms(n_bytes: float, ops: float = 0, latency_ms: float = 0) -> float:
@@ -97,8 +102,9 @@ _SIGNATURES = {
     "gls_stage2_chain": [_i32, _vp, _i64, _i32, _vp, _vp, _vp, _vp, _u64, _u64, _vp],
     "dt_flush": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp],
     "fri_grind": [_vp, _i64, _i32, _i32, _vp, _vp, _vp, _vp],
-    "claims_fp": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp],
-    "fri_fold": [_i32, _vp, _i64, _i32, _vp, _vp, _u64, _vp, _vp, _vp],
+    "claims_acc": [_i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp, _vp, _vp],
+    "claims_inv_chain": [_i32, _vp, _i32, _vp],
+    "fri_fold_level": [_i32, _vp, _i64, _i64, _i64, _i32, _i32, _i64, _vp, _vp, _u64, _vp, _vp, _vp, _vp],
     "bary_height": [_i32, _vp, _vp, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _u64, _u64,
                     _vp, _vp, _vp],
     "ro_scalars": [_i32, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _i64, _vp, _vp],
@@ -109,7 +115,7 @@ _SIGNATURES = {
 }
 
 # host helpers of the library that launch nothing: (argument types, return type)
-_HELPERS = {"gls_tiles": ([_i32, _i32, _i32, _i64], _i64)}
+_HELPERS = {"gls_tiles": ([_i32, _i32, _i32, _i64], _i64), "claims_acc_blocks": ([_i64], _i64)}
 # K11's template: every recorded program builds its own kernel from it (program.py), not the library
 PROGRAM_TEMPLATE = os.path.join(CSRC_DIR, "expr_sweep.cu")
 
@@ -288,12 +294,12 @@ FRI_GRIND = CudaKernel(
 CLAIMS_FP = CudaKernel(
     "claims_fp", "multistark_tpu_torch/csrc/claims_fp.cu",
     "multistark_tpu/lookup.py:507",
-    ("claims_fp_kernel",),
+    ("claims_acc_kernel",),
 )
 FRI_FOLD = CudaKernel(
     "fri_fold", "multistark_tpu_torch/csrc/fri_fold.cu",
-    "multistark_tpu/pcs.py:1393",
-    ("fri_fold_kernel",),
+    "multistark_tpu/pcs.py:1379",
+    ("fri_fold_level_kernel",),
 )
 EXPR_SWEEP = CudaKernel(
     "expr_sweep", "multistark_tpu_torch/csrc/expr_sweep.cu",
@@ -327,7 +333,7 @@ KERNELS = (GL_ARITH, NTT_STAGE, BLAKE3_MERKLE, GL_SCAN, BB_ARITH, POSEIDON2_MERK
 # Layout copies that a kernel could have made itself, by name, counted where
 # they run beside the kernels' launches: "fold_rows" is a FRI level's
 # (A·D, N/A) matrix built by PyTorch (utils.fold_rows) and not by K3's FRI
-# entry.
+# entry or K10.
 COPIES: Dict[str, int] = defaultdict(int)
 
 

@@ -19,8 +19,9 @@ circuit's stage-2 program on kernel K11 (program.py), then the whole chain
 (inverses, terms, prefix sum, accumulator, column layout) in one launch of
 K4's stage-2 chain (`utils.stage2_chain`).  The claims accumulator of both
 transcripts and both fields runs on the device with β and γ device
-scalars: the messages in kernel K9 (csrc/claims_fp.cu, `claims_fp` below),
-the sum of their inverses in one K4 launch (`utils.inv_sum`).
+scalars, in one launch of kernel K9 (csrc/claims_fp.cu, `claims_acc`
+below) from the claims as uploaded: the messages and the sum of their
+inverses.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from .fields.device import ExtOps, FieldOps
 from .fields.host import ExtensionParams, HostExtField, HostField
 from .graph import ConstraintGraph
 from .program import Operands, Program, Recorder, expr_sweep
-from .utils import ext_pack_device, inv_sum, stage2_chain
+from .utils import ext_pack_device, inv_sum_plain, scratch, stage2_chain
 
 ExtVal = Tuple[int, ...]
 
@@ -101,39 +102,69 @@ def claims_matrix(claims, p: int) -> Optional[np.ndarray]:
     return np.asarray([[int(v) % p for v in c] for c in claims], np.uint64).reshape(len(claims), lens.pop())
 
 
-# --- the device claims accumulator (kernel K9, then K4) ------------------------
+# --- the device claims accumulator (kernel K9) ------------------------------------
 
-def claims_fp_plain(E: ExtOps, cols: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-    """Plain version of K9: (L, n) claim columns -> the (D, n) messages
-    β + Σ_j γ^j·v_j, by Horner over the claim positions."""
-    L, n = cols.shape
+def claims_acc_plain(E: ExtOps, claims: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: the messages β + Σ_j γ^j·v_j of (n, L) claims by
+    Horner over the claim positions, then the sum of their inverses (zeros
+    contributing zero: utils.inv_sum_plain), as a (D,) tensor."""
+    n, L = claims.shape
     g, b = gamma.reshape(E.D, 1), beta.reshape(E.D, 1)
-    m = torch.zeros((E.D, n), dtype=torch.int64, device=cols.device)
+    m = torch.zeros((E.D, n), dtype=torch.int64, device=claims.device)
     for j in range(L - 1, -1, -1):
         m = E.mul_plain(m, g)
-        m[0] = E.base.add_plain(m[0], cols[j])
-    return E.add_plain(m, b)
+        m[0] = E.base.add_plain(m[0], claims[:, j])
+    return inv_sum_plain(E.add_plain(m, b), E)
 
 
-def claims_fp(E: ExtOps, cols: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-    """The logUp messages of a batch of claims: cols (L, n) canonical
-    values, β and γ (D,) device scalars -> (D, n).  K9 on a CUDA tensor, the
-    plain version on a CPU one."""
-    if cols.dim() != 2 or cols.dtype != torch.int64:
-        raise ValueError("claims_fp takes (L, n) int64 claim columns")
-    if not kernels.use_kernel(cols):
-        return claims_fp_plain(E, cols, beta, gamma)
-    cols = cols.contiguous()
+def claims_acc(E: ExtOps, claims: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """acc_0 = Σ_i (β + Σ_j γ^j·claims[i, j])^-1 of (n, L) canonical claims
+    (row-major, as uploaded), β and γ (D,) device scalars, as a (D,) device
+    scalar; a zero message contributes zero.  On a CUDA tensor one K9
+    launch (no sync), the plain version on a CPU one."""
+    if claims.dim() != 2 or claims.dtype != torch.int64:
+        raise ValueError("claims_acc takes (n, L) int64 claims")
+    if not kernels.use_kernel(claims):
+        return claims_acc_plain(E, claims, beta, gamma)
+    claims = claims.contiguous()
     beta, gamma = beta.reshape(-1).contiguous(), gamma.reshape(-1).contiguous()
     if beta.shape[0] != E.D or gamma.shape[0] != E.D:
-        raise ValueError("claims_fp: β and γ must have D coordinates")
-    kernels.check_cuda(cols, beta, gamma)
-    L, n = cols.shape
-    out = torch.empty((E.D, n), dtype=torch.int64, device=cols.device)
+        raise ValueError("claims_acc: β and γ must have D coordinates")
+    kernels.check_cuda(claims, beta, gamma)
+    n, L = claims.shape
+    if n == 0:
+        return torch.zeros(E.D, dtype=torch.int64, device=claims.device)
+    out = torch.empty(E.D, dtype=torch.int64, device=claims.device)
+    fid = E.base.field_id
+    blocks = kernels.library().claims_acc_blocks(n)
+    done, partials = scratch(claims).take_sums(claims, 1, E.D * blocks)
+    ext_muls = E.D * E.D + E.D * (E.D - 1) // 2
     kernels.CLAIMS_FP.launch(
-        "claims_fp", E.base.field_id, kernels.ptr(cols), L, n, kernels.ptr(beta), kernels.ptr(gamma),
-        kernels.ptr(out), cost=(8 * cols.numel() + 8 * out.numel() + 16 * E.D, 0),
+        "claims_acc", fid, kernels.ptr(claims), L, n, kernels.ptr(beta), kernels.ptr(gamma), kernels.ptr(done),
+        kernels.ptr(partials), kernels.ptr(out),
+        # the claims read once; per claim L - 1 base scales and two extension products; one inversion's latency
+        cost=(8 * claims.numel() + 24 * E.D, n * (max(L - 1, 0) * E.D + 2 * ext_muls) * kernels.OPS_PER_MUL[fid],
+              kernels.EXT_INV_LATENCY_MS[fid]),
     )
+    return out
+
+
+def ext_inv_chain(E: ExtOps, x: torch.Tensor, n: int) -> torch.Tensor:
+    """x ((D,)) inverted n times in a row in one thread on the card: n
+    dependent extension inversions' latency, K9's floor (a measurement, not
+    a launch of K9: not counted).  The plain version on a CPU tensor."""
+    if x.numel() != E.D or n < 0:
+        raise ValueError(f"ext_inv_chain takes {E.D} coordinates and n >= 0")
+    x = x.reshape(E.D, 1)
+    if not kernels.use_kernel(x):
+        for _ in range(n):
+            x = E.inv_plain(x)
+        return x.reshape(E.D)
+    out = x.reshape(E.D).clone()
+    kernels.check_cuda(out)
+    rc = kernels.library().claims_inv_chain(E.base.field_id, kernels.ptr(out), n, kernels.current_stream())
+    if rc != 0:
+        raise RuntimeError(f"claims_inv_chain failed with cudaError_t {rc}")
     return out
 
 
@@ -141,12 +172,11 @@ def claims_accumulator_device(F: FieldOps, E: ExtOps, claims_arr: np.ndarray, be
                               gamma: torch.Tensor) -> torch.Tensor:
     """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 over an (n, L)
     canonical-uint64 claims array, with β and γ device scalars: one upload
-    (not waited for), the messages (K9), the sum of their inverses (K4).
-    Returns a (D,) device scalar.  A zero message maps to zero (the scalar
+    of the claims as they are (not waited for), one K9 launch.  Returns a
+    (D,) device scalar.  A zero message maps to zero (the scalar
     `claims_accumulator` raises instead; either is a ~2^-128 event for
     Goldilocks^2, ~2^-124 for BabyBear^4)."""
-    cols = F.from_np(np.ascontiguousarray(claims_arr.T), beta.device)  # (L, n)
-    return inv_sum(claims_fp(E, cols, beta, gamma), E)
+    return claims_acc(E, F.from_np(claims_arr, beta.device), beta, gamma)
 
 
 # --- generic ext-coordinate arithmetic over a working algebra ----------------

@@ -28,7 +28,6 @@ import torch
 
 from .commit_tile import merkle_levels
 from .hash import blake3, poseidon2
-from .utils import fold_rows
 
 
 class Blake3FieldHasher:
@@ -36,6 +35,7 @@ class Blake3FieldHasher:
     (p3 SerializingHasher convention)."""
 
     kernel_id = 0  # the hasher's number in csrc/commit_tile.cu
+    hashes_fri_levels = True  # K3's FRI entry and K10 hash a FRI level's leaves as they write its matrix
     hash_plain = staticmethod(blake3.hash_rows_plain)
     compress_plain = staticmethod(blake3.compress_pairs_plain)
 
@@ -58,18 +58,13 @@ class Poseidon2FieldHasher:
     field elements."""
 
     kernel_id = 1
+    hashes_fri_levels = False  # a FRI level's matrix (K10) is hashed after it is written (hash_matrices)
     hash_plain = staticmethod(poseidon2.hash_rows_plain)
     compress_plain = staticmethod(poseidon2.compress_pairs_plain)
 
     def hash_matrices(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Same-height (w, n) matrices -> (n, 8) int32 row digests."""
         return poseidon2.hash_rows(mats)
-
-    def fri_leaves(self, vec: torch.Tensor, a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A FRI level's committed matrix (the PyTorch layout copy) and its
-        leaf digests (K6)."""
-        mat = fold_rows(vec, a_bits)
-        return mat, self.hash_matrices([mat])
 
     def consts(self, device) -> torch.Tensor:
         """The round constants the kernels stage, on `device`."""

@@ -33,14 +33,18 @@ K12 per trace height (`bary_eval_height` below) and the reduced openings
 K13 per LDE height (`reduced_open_height`), each for all of the height's
 matrices and points, both in
 csrc/open_reduce.cu, and each fold round K10 (csrc/fri_fold.cu,
-`fri_fold`); slicing, stacking and gathers are plain
+`fri_fold_level`: the fold written straight into the next level's matrix
+and, for BLAKE3, its leaves); slicing, stacking and gathers are plain
 tensor indexing.  Opening points and α are device extension scalars ((D,)
 tensors), whether they came from the host challenger or the device duplex,
 so the same code serves both transcripts.
 
-With a Goldilocks/BLAKE3 byte challenger the FRI commit phase runs its
-rounds on the device (K8 grinds and samples β from the duplex digest, K10
-folds with it, K3 commits the next level) and syncs once at the end; the
+A FRI level's tree: the first level's matrix and leaves by K3's FRI entry
+(BLAKE3) or K10's layout and K6 (Poseidon2), every later level's by the
+round's K10 launch, the levels above the leaves by K15.  With a
+Goldilocks/BLAKE3 byte challenger the FRI commit phase runs its rounds on
+the device (K8 grinds and samples β from the duplex digest, K10 folds with
+it into the next level, K15 commits it) and syncs once at the end; the
 host challenger then replays the rounds from the fetched caps, witnesses and
 βs and stays the authority (`replay_commit_phase_host`).  Other challengers
 take the host loop, one β per round.
@@ -187,16 +191,27 @@ class TwoAdicFriPcs:
         return TwoAdicCoset(self.hf, degree.bit_length() - 1, 1)
 
     # -- x tables ---------------------------------------------------------
-    def x_table_storage(self, log_n: int, shift: int, inverse: bool = False) -> torch.Tensor:
-        """Coset points shift·G^rev(i) in storage (bit-reversed) order, or
-        their inverses; host-built once, cached on the device."""
-        key = (log_n, shift % self.hf.p, inverse)
+    def x_table_storage(self, log_n: int, shift: int) -> torch.Tensor:
+        """Coset points shift·G^rev(i) in storage (bit-reversed) order;
+        host-built once, cached on the device."""
+        key = (log_n, shift % self.hf.p)
         if key not in self._x_tables:
             g = self.hf.two_adic_generator(log_n)
-            s = shift
-            if inverse:
-                g, s = self.hf.inv(g), self.hf.inv(shift)
-            tab = np_mul(self.hf, np_powers(self.hf, g, 1 << log_n), s)[bit_reverse_indices(log_n)]
+            tab = np_mul(self.hf, np_powers(self.hf, g, 1 << log_n), shift)[bit_reverse_indices(log_n)]
+            self._x_tables[key] = self.F.from_np(tab, self.device)
+        return self._x_tables[key]
+
+    def inv_x_even(self, log_n: int, shift: int) -> torch.Tensor:
+        """The inverses of the even entries of x_table_storage(log_n, shift),
+        1/x_2m for m < 2^(log_n - 1): what a FRI fold's first step reads (K10
+        squares them for the later steps, x_{s+1}[m] = x_s[2m]²).  Entry 2m
+        of the bit-reversed table is G^rev(m) over log_n - 1 bits.
+        Host-built once, cached on the device."""
+        key = (log_n, shift % self.hf.p, "inverse even")
+        if key not in self._x_tables:
+            hf = self.hf
+            g_inv, s_inv = hf.inv(hf.two_adic_generator(log_n)), hf.inv(shift)
+            tab = np_mul(hf, np_powers(hf, g_inv, 1 << (log_n - 1)), s_inv)[bit_reverse_indices(log_n - 1)]
             self._x_tables[key] = self.F.from_np(tab, self.device)
         return self._x_tables[key]
 
@@ -491,25 +506,27 @@ class TwoAdicFriPcs:
         return caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro
 
     def _commit_phase_host(self, ro, schedule, log_max_ro, challenger):
-        """One host-transcript round per fold: commit the level, observe its
-        cap, grind, sample β, fold."""
+        """One host-transcript round per fold: observe the level's cap, grind,
+        sample β, fold into the next level and commit it."""
         caps: List[np.ndarray] = []
         commit_datas: List[MerkleProverData] = []
         commit_pows: List[int] = []
-        current = ro[log_max_ro]
         log_size = log_max_ro
-        for a_bits in schedule:
-            current = self._fri_layout(current, log_size, a_bits)
-            cap_d, mdata = self._fri_tree(current, a_bits, log_size)
+        if not schedule:
+            return caps, commit_datas, commit_pows, ro[log_max_ro], log_size
+        level, cap_d, mdata = self._fri_level(ro[log_max_ro], log_size, schedule[0])
+        for r, a_bits in enumerate(schedule):
             cap = digest_layer_to_np(cap_d)
             caps.append(cap)
             commit_datas.append(mdata)
             challenger.observe_commitment(cap)
             commit_pows.append(challenger.grind(self.fri.commit_proof_of_work_bits))
             beta = self.E.const(challenger.sample_ext(), self.device)
-            current = self._fold_multi(current, beta, log_size, a_bits, log_max_ro, ro.get(log_size - a_bits))
+            next_a = schedule[r + 1] if r + 1 < len(schedule) else 0
+            level, cap_d, mdata = self._fri_round(level, beta, log_size, a_bits, next_a, log_max_ro,
+                                                  ro.get(log_size - a_bits))
             log_size -= a_bits
-        return caps, commit_datas, commit_pows, current, log_size
+        return caps, commit_datas, commit_pows, level, log_size
 
     def _device_transcript_eligible(self, challenger) -> bool:
         """The device rounds replicate the BLAKE3 byte duplex of a
@@ -546,13 +563,13 @@ class TwoAdicFriPcs:
     def _commit_phase_device_core(self, ro, schedule, log_max_ro, chain: torch.Tensor):
         """The FRI rounds on the device, with no sync and no replay (the
         caller owns both): per round, K8 grinds over chain ‖ cap and gives β,
-        K10 folds with it (adding the next height's reduced opening), and
-        the next level's tree is committed.  chain: the duplex input buffer
-        as int32 words.  Returns (caps, witnesses, βs, ok flags, commit
-        datas, the last fold, its log size)."""
+        K10 folds with it (adding the next height's reduced opening) into the
+        next level's matrix and leaves, and K15 commits them.  chain: the
+        duplex input buffer as int32 words.  Returns (caps, witnesses, βs, ok
+        flags, commit datas, the last fold, its log size)."""
         bits = self.fri.commit_proof_of_work_bits
-        current, log_size = self._fri_layout(ro[log_max_ro], log_max_ro, schedule[0]), log_max_ro
-        cap, mdata = self._fri_tree(current, schedule[0], log_size)
+        log_size = log_max_ro
+        level, cap, mdata = self._fri_level(ro[log_max_ro], log_size, schedule[0])
         caps, commit_datas = [cap], [mdata]
         ws, betas, oks = [], [], []
         for r, a_bits in enumerate(schedule):
@@ -560,14 +577,14 @@ class TwoAdicFriPcs:
             ws.append(w)
             betas.append(beta)
             oks.append(ok)
-            current = self._fold_multi(current, beta, log_size, a_bits, log_max_ro, ro.get(log_size - a_bits))
+            next_a = schedule[r + 1] if r + 1 < len(schedule) else 0
+            level, cap, mdata = self._fri_round(level, beta, log_size, a_bits, next_a, log_max_ro,
+                                                ro.get(log_size - a_bits))
             log_size -= a_bits
-            if r + 1 < len(schedule):
-                current = self._fri_layout(current, log_size, schedule[r + 1])
-                cap, mdata = self._fri_tree(current, schedule[r + 1], log_size)
+            if cap is not None:
                 caps.append(cap)
                 commit_datas.append(mdata)
-        return caps, ws, betas, oks, commit_datas, current, log_size
+        return caps, ws, betas, oks, commit_datas, level, log_size
 
     def replay_commit_phase_host(self, challenger, schedule, caps_np, ws_np, betas_np, oks_np):
         """The authoritative host replay of the device rounds from their
@@ -621,31 +638,55 @@ class TwoAdicFriPcs:
             return current
         return parallel.gather_blocks(pm, current, "fri")
 
-    def _fri_tree(self, current, a_bits: int, log_size: int):
-        """The tree of a FRI round's level (device cap, data): the hasher
-        lays out the level's (A·D, N/A) matrix and hashes its leaves (K3's
-        FRI entry: both in one launch), K15 folds the levels; sharded when
-        the vector is a block."""
-        if current.shape[-1] != 1 << log_size:
-            mat = fold_rows(current, a_bits)
-            return parallel.sharded_mmcs_commit(self.mmcs, parallel.current_mesh(), [mat], [1 << (log_size - a_bits)])
-        mat, leaves = self.mmcs.hasher.fri_leaves(current, a_bits)
-        return self.mmcs.commit_leaves([mat], leaves)
+    def _fri_level(self, vec, log_size: int, a_bits: int):
+        """A FRI level from its fold vector (2^log_size positions), committed
+        for a round of arity 2^a_bits: (what its round folds, the device cap,
+        the tree data).  Whole: the level's (A·D, N/A) matrix and its leaves,
+        by K3's FRI entry in one launch (BLAKE3) or by K10 laying the vector
+        out and the hasher hashing it (Poseidon2, K6); K15 folds the levels.
+        Under a mesh the vector takes `_fri_layout` first, and a block is laid
+        out by PyTorch and committed sharded; its round folds the block."""
+        vec = self._fri_layout(vec, log_size, a_bits)
+        if vec.shape[-1] != 1 << log_size:
+            mat = fold_rows(vec, a_bits)
+            cap, mdata = parallel.sharded_mmcs_commit(self.mmcs, parallel.current_mesh(), [mat],
+                                                      [1 << (log_size - a_bits)])
+            return vec, cap, mdata
+        hasher = self.mmcs.hasher
+        if hasher.hashes_fri_levels:
+            mat, leaves = hasher.fri_leaves(vec, a_bits)
+        else:
+            mat, leaves = fri_fold_level(self.E, vec, None, None, 0, 0, a_bits, hasher=hasher)
+        cap, mdata = self.mmcs.commit_leaves([mat], leaves)
+        return mat, cap, mdata
 
-    def _fold_multi(self, current, beta: torch.Tensor, log_size: int, a_bits: int, log_max_ro: int, absorb=None):
-        """One arity-2^a fold round with the device β (K10), plus `absorb`
-        (the next height's reduced opening) when given.  A block-sharded
-        vector folds with the blocks of its inverse-x tables, and a sharded
-        absorb into a whole vector is gathered first."""
-        shift = self._shift_at(log_max_ro, log_size)
-        tables = [self.x_table_storage(log_size - s, self.hf.exp_power_of_2(shift, s), inverse=True)
-                  for s in range(a_bits)]
-        pm = parallel.current_mesh()
-        if current.shape[-1] != 1 << log_size:
-            tables = [parallel.shard_rows(pm, t) for t in tables]
-        elif absorb is not None and absorb.shape[-1] != 1 << (log_size - a_bits):
+    def _fri_round(self, level, beta: torch.Tensor, log_size: int, a_bits: int, next_a: int, log_max_ro: int,
+                   absorb=None):
+        """One arity-2^a_bits fold round of a level (2^log_size positions)
+        with the device β, plus `absorb` (the next height's reduced opening)
+        when given, into the next level committed for a round of arity
+        2^next_a: (what the next round folds, its device cap, its tree data).
+        A level's matrix folds in one K10 launch that writes the next
+        level's matrix and (BLAKE3) its leaves; K15 commits them.  With
+        next_a = 0 (the last round) the result is the final (D, M) vector
+        and no tree.  A whole level's (D, N) vector folds the same way.  A
+        block of the level's vector (under a mesh) folds with the block of
+        the inverse-x table and the next level takes `_fri_level`; a sharded
+        absorb into a whole level is gathered first."""
+        E, pm = self.E, parallel.current_mesh()
+        inv_x = self.inv_x_even(log_size, self._shift_at(log_max_ro, log_size))
+        log_next = log_size - a_bits
+        if level.shape[0] == E.D and level.shape[-1] != 1 << log_size:  # a block of the level's vector
+            folded = fri_fold(E, level, beta, parallel.shard_rows(pm, inv_x), self.hf.inv(2), a_bits, absorb)
+            return (folded, None, None) if not next_a else self._fri_level(folded, log_next, next_a)
+        if absorb is not None and absorb.shape[-1] != 1 << log_next:
             absorb = parallel.gather_blocks(pm, absorb, "fri")
-        return fri_fold(self.E, current, beta, tables, self.hf.inv(2), absorb)
+        mat, leaves = fri_fold_level(E, level, beta, inv_x, self.hf.inv(2), a_bits, next_a, absorb,
+                                     hasher=self.mmcs.hasher if next_a else None)
+        if not next_a:
+            return mat, None, None
+        cap, mdata = self.mmcs.commit_leaves([mat], leaves)
+        return mat, cap, mdata
 
     def _final_poly_host(self, evals, log_size: int, log_max_ro: int) -> List[ExtVal]:
         """Host iDFT of the remaining (tiny) fold vector -> coefficients.
@@ -932,50 +973,117 @@ def reduced_open_height(E: ExtOps, mats, apows: torch.Tensor, openings, invs, ro
     return ro
 
 
-# --- K10: one FRI fold round -----------------------------------------------------
+# --- K10: one FRI fold round into the next level ------------------------------------
 
-def fri_fold_plain(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables, half_inv: int, absorb=None):
-    """Plain version of K10: the chain of pair steps with β, β², β⁴, ...
-    Each step: (v_even + v_odd)/2 + β_s·(v_even - v_odd)/(2x)."""
+def fri_fold_plain(E: ExtOps, vec: torch.Tensor, beta: torch.Tensor, inv_x_even: torch.Tensor, half_inv: int,
+                   a_bits: int, absorb=None):
+    """Plain version of K10's fold of a (D, N) vector: the chain of pair
+    steps with β, β², β⁴, ..., each (v_even + v_odd)/2 + β_s·(v_even -
+    v_odd)/(2x); step 0 reads inv_x_even (TwoAdicFriPcs.inv_x_even) and step
+    s + 1 the squares of step s's even entries.  Adds `absorb` when given."""
     F = E.base
-    half = torch.full((), half_inv, dtype=torch.int64, device=current.device)
-    beta_s = beta.reshape(E.D, 1)
-    for inv_x in inv_x_tables:
-        a, b = current[:, 0::2], current[:, 1::2]
+    half = torch.full((), half_inv, dtype=torch.int64, device=vec.device)
+    beta_s, inv_x = beta.reshape(E.D, 1), inv_x_even
+    for _ in range(a_bits):
+        a, b = vec[:, 0::2], vec[:, 1::2]
         sm = E.scale_plain(E.add_plain(a, b), half)
-        df = E.scale_plain(E.sub_plain(a, b), F.mul_plain(inv_x[0::2], half))
-        current = E.add_plain(sm, E.mul_plain(df, beta_s))
+        df = E.scale_plain(E.sub_plain(a, b), F.mul_plain(inv_x, half))
+        vec = E.add_plain(sm, E.mul_plain(df, beta_s))
         beta_s = E.mul_plain(beta_s, beta_s)
+        inv_x = F.mul_plain(inv_x[0::2], inv_x[0::2])
     if absorb is not None:
-        current = E.add_plain(current, absorb)
-    return current
+        vec = E.add_plain(vec, absorb)
+    return vec
 
 
-def fri_fold(E: ExtOps, current: torch.Tensor, beta: torch.Tensor, inv_x_tables, half_inv: int, absorb=None):
-    """Fold a (D, N) storage-order vector by 2^a (a = len(inv_x_tables)) with
-    the device β ((D,)): step s reads the inverse-x table of its domain
-    (pcs.x_table_storage, length N >> s).  Adds `absorb` ((D, N >> a)) when
-    given.  K10 on a CUDA tensor, the plain version on a CPU one."""
-    if not kernels.use_kernel(current):
-        return fri_fold_plain(E, current, beta, inv_x_tables, half_inv, absorb)
-    a = len(inv_x_tables)
-    current = current.contiguous()
-    beta = beta.reshape(-1).contiguous()
-    tables = [t.contiguous() for t in inv_x_tables]
-    n_in = current.shape[-1]
-    if not 1 <= a <= 4 or current.shape[0] != E.D or n_in >> a == 0:
-        raise ValueError(f"fri_fold takes a (D, N) vector and 1 to 4 tables, got {tuple(current.shape)}, {a}")
-    if any(t.shape[0] != n_in >> s for s, t in enumerate(tables)):
-        raise ValueError("fri_fold: inverse-x table s must have N >> s entries")
-    if beta.shape[0] != E.D or (absorb is not None and tuple(absorb.shape) != (E.D, n_in >> a)):
-        raise ValueError("fri_fold: β must have D coordinates and absorb the folded shape")
-    extra = () if absorb is None else (absorb.contiguous(),)
-    kernels.check_cuda(current, beta, *tables, *extra)
-    out = torch.empty((E.D, n_in >> a), dtype=torch.int64, device=current.device)
-    ptrs = (ctypes.c_void_p * a)(*[t.data_ptr() for t in tables])
+def _level_vector(E: ExtOps, src: torch.Tensor, a_bits: int) -> torch.Tensor:
+    """A level's (D, N) vector from itself or from its (A·D, N/A) matrix
+    (row k·D + d = coordinate d of vec[k::A])."""
+    if src.shape[0] == E.D:
+        return src
+    return src.reshape(1 << a_bits, E.D, -1).permute(1, 2, 0).reshape(E.D, -1)
+
+
+def fri_fold_level_plain(E: ExtOps, src: torch.Tensor, beta, inv_x_even, half_inv: int, a_bits: int,
+                         next_a_bits: int, absorb=None, hasher=None):
+    """Plain version of `fri_fold_level`: the fold of the level's vector
+    (`fri_fold_plain`), the next level's matrix (utils.fold_rows' layout)
+    and the hasher's plain row hash."""
+    vec = _level_vector(E, src, a_bits)
+    if a_bits:
+        vec = fri_fold_plain(E, vec, beta, inv_x_even, half_inv, a_bits, absorb)
+    mat = fold_rows(vec, next_a_bits)
+    return mat, (hasher.hash_plain([mat]) if hasher is not None and next_a_bits else None)
+
+
+def fri_fold_level(E: ExtOps, src: torch.Tensor, beta, inv_x_even, half_inv: int, a_bits: int, next_a_bits: int,
+                   absorb=None, hasher=None):
+    """One FRI fold round of arity A = 2^a_bits with the device β ((D,)),
+    written as the next level: (its (A2·D, M/A2) matrix, A2 = 2^next_a_bits,
+    row j·D + d = coordinate d of folded[j::A2]; its (M/A2, 8) int32 leaf
+    digests by `hasher`, or None).  src: the level's (A·D, N/A) matrix (row
+    k·D + d = coordinate d of vec[k::A]) or its (D, N) vector; inv_x_even:
+    the level's TwoAdicFriPcs.inv_x_even, (N/2,); `absorb` ((D, M)), the
+    next height's reduced opening, is added to the M = N/A folded values.
+    With next_a_bits = 0 the matrix is the (D, M) folded vector and there
+    are no leaves; with a_bits = 0 nothing is folded (β, inv_x_even and
+    absorb unused): the vector is laid out as its level's matrix.  On a CUDA
+    tensor one K10 launch writes the matrix, and for a BLAKE3 hasher
+    (`hashes_fri_levels`) the leaves too; another hasher (K6) hashes the
+    matrix after it.  The folded vector is never stored.  On a CPU tensor
+    the plain version."""
+    D, A = E.D, 1 << a_bits
+    vector = src.dim() == 2 and src.shape[0] == D
+    if src.dim() != 2 or not (vector or src.shape[0] == A * D) or not 0 <= a_bits <= 4 or not 0 <= next_a_bits <= 4:
+        raise ValueError(f"fri_fold_level takes a ({D}, N) vector or an ({A * D}, N/{A}) matrix and arities 2^0 to "
+                         f"2^4, got {tuple(src.shape)}, {a_bits}, {next_a_bits}")
+    N = src.shape[1] if vector else src.shape[1] * A
+    M = N >> a_bits
+    M2 = M >> next_a_bits
+    if M2 == 0 or M2 << next_a_bits != M or M << a_bits != N:
+        raise ValueError(f"fri_fold_level: 2^{a_bits}·2^{next_a_bits} must divide the level's {N} positions")
+    if a_bits and (beta is None or beta.numel() != D or inv_x_even is None or inv_x_even.shape != (N // 2,)):
+        raise ValueError("fri_fold_level: β must have D coordinates and inv_x_even N/2 entries")
+    if absorb is not None and (not a_bits or tuple(absorb.shape) != (D, M)):
+        raise ValueError("fri_fold_level: absorb must have the folded shape (D, M) and a fold to add to")
+    if not kernels.use_kernel(src):
+        return fri_fold_level_plain(E, src, beta, inv_x_even, half_inv, a_bits, next_a_bits, absorb, hasher)
+    src = src.contiguous()
+    ops = [src]
+    if a_bits:
+        beta, inv_x_even = beta.reshape(D).contiguous(), inv_x_even.contiguous()
+        ops += [beta, inv_x_even]
+    if absorb is not None:
+        absorb = absorb.contiguous()
+        ops.append(absorb)
+    kernels.check_cuda(*ops)
+    fused = hasher is not None and next_a_bits and hasher.hashes_fri_levels
+    mat = torch.empty((D << next_a_bits, M2), dtype=torch.int64, device=src.device)
+    leaves = torch.empty((M2, 8), dtype=torch.int32, device=src.device) if fused else None
+    strides = (N, 1, A) if vector else (N // A, D * N // A, 1)  # coordinate, partner, output
+    # products: per pair step (M·(A - 1) in all) the x scale, two scales and the β product; the table's squares
+    fold_muls = M * ((A - 1) * (1 + 2 * D + D * D + D * (D - 1) // 2) + A // 2 - 1) if a_bits else 0
+    blocks = -(-(8 * D << next_a_bits) // 64)  # BLAKE3 blocks of a leaf
+    p = kernels.ptr
     kernels.FRI_FOLD.launch(
-        "fri_fold", E.base.field_id, kernels.ptr(current), n_in, a, ctypes.cast(ptrs, ctypes.c_void_p),
-        kernels.ptr(beta), half_inv, kernels.ptr(extra[0]) if extra else None, kernels.ptr(out),
-        cost=(8 * current.numel() + 8 * sum(t.numel() for t in tables) + 8 * out.numel() * (2 if extra else 1), 0),
+        "fri_fold_level", E.base.field_id, p(src), *strides, a_bits, next_a_bits, M2,
+        p(inv_x_even) if a_bits else None, p(beta) if a_bits else None, half_inv,
+        p(absorb) if absorb is not None else None, p(mat), p(leaves) if fused else None,
+        # the level and half of step 0's table read, the next matrix (and the absorb) and the leaves
+        cost=(8 * D * N + (4 * N if a_bits else 0) + 8 * D * M * (2 if absorb is not None else 1)
+              + (32 * M2 if fused else 0),
+              fold_muls * kernels.OPS_PER_MUL[E.base.field_id] + (M2 * blocks * kernels.OPS_PER_BLAKE3 if fused
+                                                                   else 0)),
     )
-    return out
+    if hasher is not None and next_a_bits and not fused:
+        leaves = hasher.hash_matrices([mat])
+    return mat, leaves
+
+
+def fri_fold(E: ExtOps, vec: torch.Tensor, beta: torch.Tensor, inv_x_even: torch.Tensor, half_inv: int,
+             a_bits: int, absorb=None) -> torch.Tensor:
+    """Fold a (D, N) storage-order vector (or a rank's block of one) by
+    2^a_bits with the device β ((D,)), adding `absorb` ((D, N >> a_bits))
+    when given: `fri_fold_level` with next_a_bits = 0 (one K10 launch on a
+    CUDA tensor, the plain version on a CPU one)."""
+    return fri_fold_level(E, vec, beta, inv_x_even, half_inv, a_bits, 0, absorb)[0]

@@ -27,7 +27,9 @@ and prints the last one's spans.  Needs a CUDA device.
 
 Spans nest: a stage or quotient commit holds its LDEs and its whole tree
 (K14 hashes and folds inside the LDE's last stages); the FRI commit phase
-contains the level trees ("FRI round trees") and the PoW grinds; "host
+contains the first level's tree and the fold rounds (K10 writing each next
+level, K15 its tree; "FRI round trees" in trees before the fold wrote the
+next level) and the PoW grinds; "host
 duplex" is every other host challenger call (observe, sample), counted
 once where they nest, "device duplex" every DeviceDuplex call; the
 device transcript's "global fetch + host replay" contains the replay's
@@ -112,7 +114,9 @@ def program_bytes(system, witness) -> dict:
     lookup-values sweep of the witness build, stage 2, the quotient sweep,
     the three commits (LDE and tree) and, of those, the LDE transforms and
     their bit reversals, the claimed evaluations, the reduced openings, the
-    FRI rounds (fold, and each level's tree) and the query gathers (opened
+    FRI rounds (the first level's matrix and tree; each fold reading its
+    level and half an inverse-x table and writing the next level and its
+    tree) and the query gathers (opened
     rows and Merkle paths).  A lower bound on their time is bytes / HBM
     rate."""
     config = system.config
@@ -140,8 +144,12 @@ def program_bytes(system, witness) -> dict:
     out["commits (LDE + tree)"] += 3 * 64 * B * n_max  # leaves and inner nodes of three trees
     out["reduced openings"] += 8 * D * B * n_max  # the output at the tallest height
     log_final = log_b + config.pcs.fri.log_final_poly_len
-    for k in range((n_max * B).bit_length() - 1, log_final, -1):  # arity 2: fold 2^k -> 2^(k-1), commit it
-        out["FRI rounds"] += 8 * D * (1 << k) + 2 * 8 * D * (1 << (k - 1)) + 64 * (1 << (k - 1))
+    log_top = (n_max * B).bit_length() - 1
+    out["FRI rounds"] += 16 * D * (1 << log_top) + 64 * (1 << (log_top - 1))  # the first level: matrix, tree
+    for k in range(log_top, log_final, -1):  # arity 2: fold 2^k -> 2^(k-1) into the next level, commit it
+        out["FRI rounds"] += 8 * D * (1 << k) + 4 * (1 << k) + 8 * D * (1 << (k - 1))
+        if k - 1 > log_final:
+            out["FRI rounds"] += 64 * (1 << (k - 2))  # the next level's leaves and nodes
         depths.append((2 * D, k - 1))
     out["query gathers"] += config.pcs.fri.num_queries * sum(8 * w + 32 * depth for w, depth in depths)
     return dict(out)
@@ -164,8 +172,10 @@ def instrument(config, spans: Spans):
                        ("commit_from_coeffs_device", "quotient commit"), ("commit_from_coeffs", "quotient commit"),
                        ("_claimed_evaluations", "claimed evaluations"), ("_reduced_openings", "reduced openings"),
                        ("_commit_phase", "FRI commit phase"), ("_commit_phase_device_core", "FRI commit phase"),
+                       ("_fri_level", "FRI first level (K3 + K15)"), ("_fri_round", "FRI fold rounds (K10 + K15)"),
                        ("_fri_tree", "FRI round trees"), ("_query_phase", "query phase")):
-        setattr(pcs, attr, spans.wrap(name, getattr(pcs, attr)))
+        if hasattr(pcs, attr):  # compare_trees.sh runs this file in trees with other stages too
+            setattr(pcs, attr, spans.wrap(name, getattr(pcs, attr)))
     for cls, methods, name in ((DuplexChallenger, _CHALLENGER_METHODS, "host duplex"),
                                (SerializingChallenger64, _CHALLENGER_METHODS, "host duplex"),
                                (DeviceDuplex, _DUPLEX_METHODS, "device duplex")):

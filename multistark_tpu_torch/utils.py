@@ -87,8 +87,9 @@ def ext_powers_device(E: ExtOps, alpha: torch.Tensor, count: int) -> torch.Tenso
 def fold_rows(vec: torch.Tensor, a_bits: int) -> torch.Tensor:
     """A (D, N) ext vector as the (A·D, N/A) base matrix a FRI level
     commits: row (j·D + d) = coordinate d of vec[j::A] (flatten_to_base).
-    A PyTorch copy, counted in kernels.COPIES["fold_rows"]: K3's FRI entry
-    (hash/blake3.fri_leaves) writes this matrix itself."""
+    A PyTorch copy, counted in kernels.COPIES["fold_rows"]: on one device
+    K3's FRI entry (hash/blake3.fri_leaves) and K10 (pcs.fri_fold_level)
+    write this matrix themselves; a block of a sharded level takes it."""
     kernels.COPIES["fold_rows"] += 1
     A, D = 1 << a_bits, vec.shape[0]
     return vec.reshape(D, -1, A).permute(2, 0, 1).reshape(D * A, -1).contiguous()
@@ -303,7 +304,8 @@ def field_sum(x: torch.Tensor, ops) -> torch.Tensor:
 
 def inv_sum(x: torch.Tensor, ops) -> torch.Tensor:
     """The sum of the inverses of the elements along the last axis (zeros
-    contributing zero): `field_sum(batch_inv(x))` in one launch."""
+    contributing zero): `field_sum(batch_inv(x))` in one launch.  Not on
+    the prove's path: the claims accumulator is K9's one launch."""
     x = x.contiguous()
     if not kernels.use_kernel(x):
         return inv_sum_plain(x, ops)

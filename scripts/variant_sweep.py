@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time variants of K12 (bary_eval) and K8 (fri_grind) on one CUDA card.
+"""Time variants of K12 (bary_eval), K8 (fri_grind) and K9 (claims_fp) on
+one CUDA card.
 
     python3 scripts/variant_sweep.py
 
@@ -8,7 +9,8 @@ into its own shared library (under build/variants/, with its `-Xptxas -v`
 report), which stands in for the kernel library while that kernel runs:
 K12 on the bench's 2^18 trace height (U32Add's stage-1, stage-2 and
 quotient matrices, both fields), K8 on one round and on 18 chained rounds
-at 10 bits over a 16-word chain ‖ cap.  Every variant's output must equal
+at 10 bits over a 16-word chain ‖ cap, K9 on the claims accumulator of 2^14
+and 2^18 claims of 4 values, both fields.  Every variant's output must equal
 the built library's.  Times: the profiler's device ms of the kernel's
 functions (the sessions' kernel events counted against the launches), two
 turns.  A substitution that no longer matches the source raises.
@@ -28,6 +30,8 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 _K12_LOADS = "constexpr int BARY_UNROLL = 16;"
 _K12_BOUNDS = "template <class F, int P>\n__global__ void __launch_bounds__(THREADS, 2)\n    bary_height_kernel"
 _K8_FIRST = "const int64_t first = (int64_t)16 << bits < n ? (int64_t)16 << bits : n;"
+_K9_ITEMS = "constexpr int ITEMS = 4;"
+_K9_THREADS = "constexpr int THREADS = 128;"
 # kernel name -> (source, {variant: [(text, replacement)]})
 VARIANTS = {
     "bary_eval": ("open_reduce.cu", {
@@ -43,6 +47,13 @@ VARIANTS = {
         "no early exit (every candidate hashed)": [
             ("    if (w != first && ~*least < w) break;  // a smaller candidate passed (the first is hashed regardless)\n",
              "")],
+    }),
+    "claims_fp": ("claims_fp.cu", {
+        "as built: 4 claims a thread, 128 threads a block": [],
+        "2 claims a thread": [(_K9_ITEMS, "constexpr int ITEMS = 2;")],
+        "8 claims a thread": [(_K9_ITEMS, "constexpr int ITEMS = 8;")],
+        "16 claims a thread": [(_K9_ITEMS, "constexpr int ITEMS = 16;")],
+        "256 threads a block": [(_K9_THREADS, "constexpr int THREADS = 256;")],
     }),
 }
 
@@ -82,7 +93,7 @@ def main() -> int:
     import torch
 
     import chip_smoke
-    from multistark_tpu_torch import device_transcript as dt, kernels, pcs
+    from multistark_tpu_torch import device_transcript as dt, kernels, lookup as lk, pcs
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
     from tile_sweep import device_ms
 
@@ -111,6 +122,12 @@ def main() -> int:
             f"{F.name} trace height 2^18, matrices (14, 2), ({13 * D}, 2), ({D}, 1)",
             lambda E=E, mats=mats, zs=zs, invs=invs, x=x, s_n=s_n, inv_ns=inv_ns: pcs.bary_eval_height(
                 E, mats, 18, [[0, 1], [0, 1], [0]], zs, invs, x, s_n, inv_ns), kernels.BARY_EVAL))
+        b, g = (F.from_np(rng.integers(0, F.p, D, dtype=np.uint64), dev) for _ in range(2))
+        for log_c in (14, 18):
+            claims = F.from_np(rng.integers(0, F.p, (1 << log_c, 4), dtype=np.uint64), dev)
+            cases.setdefault("claims_fp", []).append((
+                f"{F.name} 2^{log_c} claims of 4 values",
+                lambda E=E, claims=claims, b=b, g=g: lk.claims_acc(E, claims, b, g), kernels.CLAIMS_FP))
     inp = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 16).astype(np.int32)).to(dev)
 
     def rounds():
@@ -133,10 +150,14 @@ def main() -> int:
                 if k != kname:
                     continue
                 lib = ctypes.CDLL(path)
-                for entry in ("bary_height", "fri_grind"):
+                for entry in ("bary_height", "fri_grind", "claims_acc"):
                     if hasattr(lib, entry):
                         getattr(lib, entry).argtypes = kernels._SIGNATURES[entry]
                         getattr(lib, entry).restype = ctypes.c_int
+                for entry, (argtypes, restype) in kernels._HELPERS.items():
+                    if hasattr(lib, entry):
+                        getattr(lib, entry).argtypes = argtypes
+                        getattr(lib, entry).restype = restype
                 kernels._LIB = lib
                 try:
                     for (label, fn, kernel), want in zip(runs, wants):

@@ -258,19 +258,19 @@ def test_fold_matches_jax_fold_absorb_np(field, a_bits, absorb):
     ab = rng.integers(0, hf.p, (1 << (log_size - a_bits), D), dtype=np.uint64) if absorb else None
     shift = tcfg.pcs._shift_at(log_max, log_size)
 
-    got = tcfg.pcs._fold_multi(
-        E.base.from_np(cur.T, "cpu"), E.base.from_np(beta, "cpu"), log_size, a_bits, log_max,
+    got = tcfg.pcs._fri_round(
+        E.base.from_np(cur.T, "cpu"), E.base.from_np(beta, "cpu"), log_size, a_bits, 0, log_max,
         None if ab is None else E.base.from_np(ab.T, "cpu"),
-    )
+    )[0]
     jpcs, jE = jcfg.pcs, jcfg.ext
     want = jpcs._fold_absorb_np(
         jE.from_np(cur), tuple(jE.base.from_np(np.uint64(c)) for c in beta),
         None if ab is None else jE.from_np(ab), log_size, a_bits, shift,
     )
     assert np.array_equal(GL_OPS.to_np(got).T, np.asarray(jE.to_np(want), np.uint64))
-    # the kernel's plain version, called directly with the port's tables
-    tabs = [tcfg.pcs.x_table_storage(log_size - s, hf.exp_power_of_2(shift, s), inverse=True) for s in range(a_bits)]
-    direct = tpcs.fri_fold(E, E.base.from_np(cur.T, "cpu"), E.base.from_np(beta, "cpu"), tabs, hf.inv(2),
+    # the kernel's plain version, called directly with the port's table
+    direct = tpcs.fri_fold(E, E.base.from_np(cur.T, "cpu"), E.base.from_np(beta, "cpu"),
+                           tcfg.pcs.inv_x_even(log_size, shift), hf.inv(2), a_bits,
                            None if ab is None else E.base.from_np(ab.T, "cpu"))
     assert torch.equal(direct, got)
 

@@ -2,8 +2,8 @@
 its leaf digests (`hash.blake3.fri_leaves`, on CPU tensors its plain
 version) against the JAX package's `_ext_slices_matrix` (pcs.py:1336) and
 `Blake3FieldHasher.hash_matrices` (merkle.py:44), bit-exact, for arity 2 to
-16 over GL2 vectors of 2^3 to 2^8 positions; and the round's cap
-(`TwoAdicFriPcs._fri_tree`) against the JAX commit of the same matrix."""
+16 over GL2 vectors of 2^3 to 2^8 positions; and the level's cap
+(`TwoAdicFriPcs._fri_level`) against the JAX commit of the same matrix."""
 
 import jax
 import numpy as np
@@ -54,6 +54,6 @@ def test_fri_round_cap_matches_jax_commit(a_bits, cap_height):
     jcap, _ = JaxMmcs(JaxHasher(GL_OPS), cap_height).commit([_jax_matrix(jcfg.pcs, vec, a_bits)])
     tcfg = GoldilocksBlake3Config(CommitmentParameters(log_blowup=1, cap_height=cap_height),
                                   FriParameters(**FRI), device="cpu")
-    cap, data = tcfg.pcs._fri_tree(TGL.from_np(np.ascontiguousarray(vec.T), "cpu"), a_bits, log_n)
+    _, cap, data = tcfg.pcs._fri_level(TGL.from_np(np.ascontiguousarray(vec.T), "cpu"), log_n, a_bits)
     np.testing.assert_array_equal(digest_layer_to_np(cap), np.asarray(jcap, np.uint32))
     assert data.dims == [(2 << a_bits, 1 << (log_n - a_bits))]
