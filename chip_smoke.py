@@ -13,10 +13,11 @@ without printing a result:
                 K12-K15 into the library; then K11's kernels, one per
                 recorded program of the bench proves (both configs, 2^14
                 and 2^18), generated from the template csrc/expr_sweep.cu,
-                one nvcc per program, all at once; prints each program's
-                build seconds and the registers, stack frames and spills
-                of K1's and K5's, K3's, gl_scan.cu's, K15's, K13's, K12's,
-                K8's, K10's and K9's kernels
+                one nvcc per program, all at once; prints each source's
+                and each program's build seconds and the registers, stack
+                frames and spills of K1's and K5's, K3's, K6's, K14's,
+                gl_scan.cu's, K15's, K13's, K12's, K8's, K10's and K9's
+                kernels
   3. kernels -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes, for Goldilocks and BabyBear
                 (K1 / K5 every op at the shapes the prove broadcasts by
@@ -26,7 +27,12 @@ without printing a result:
                 FRI entry at every FRI level of the 2^18 prove, arity 2, 4
                 and 16, each launched twice, timed beside the parent's
                 layout copy and hash_rows, and hash_rows at rows of 14, 26
-                and 520 elements; K2 one stage per launch and as multi-stage passes at every
+                and 520 elements; K6 at every FRI level of the BabyBear
+                2^14 and 2^18 proves, (14, 2^20), two and sixteen
+                matrices, a short last chunk, one row and both modes on
+                both sides of its four-lane threshold, each launched twice,
+                the 2^18 prove's levels in a row, and one permutation's
+                latency on a thread and on four lanes; K2 one stage per launch and as multi-stage passes at every
                 pass size, with the whole DIF and DIT through NttEngine; K4's
                 entries (batch inverse, cumsum, sum, sum of inverses, the
                 stage-2 chain) at the stage-2 shape and at edge cases around
@@ -377,7 +383,7 @@ def check_kernels(dev):
             hasher, mod, hname, per_hash = Poseidon2FieldHasher(), p2, "poseidon2_merkle", OPS_PER_POSEIDON2
             blocks = -(-lde_w // 8)
         compare(f"{hname} hash_rows (14, 2^20)", lambda: mod.hash_rows([lde]), lambda: mod.hash_rows_plain([lde]),
-                (8 * n_lde + 32 * (1 << lde_log), blocks * per_hash * (1 << lde_log)), name=hname)
+                (8 * n_lde + 32 * (1 << lde_log), blocks * per_hash * (1 << lde_log)), name=hname, device=True)
         if F is GL_OPS:
             s2 = rnd(F, 26, 1 << 20)
             compare("blake3_merkle hash_rows (26, 2^20)", lambda: b3.hash_rows([s2]), lambda: b3.hash_rows_plain([s2]),
@@ -387,6 +393,8 @@ def check_kernels(dev):
                     lambda: b3.hash_rows([wide]), lambda: b3.hash_rows_plain([wide]),
                     (8 * wide.numel() + 32 * (1 << 12), (65 + 4) * per_hash * (1 << 12)))
             check_fri_leaves(F, rnd, compare)
+        else:
+            check_poseidon2_rows(F, rnd, compare)
         leaves = mod.hash_rows([lde])
         mmcs = MerkleMmcs(hasher, 0)
         t0 = time.perf_counter()
@@ -598,6 +606,64 @@ def check_fri_leaves(F, rnd, compare) -> None:
     say("kernels", f"blake3_merkle the 2^18 prove's 18 FRI levels in a row (2^20 down to 2^3 positions): fri_leaves "
         f"{cuda_ms(rounds_new, 5):.4f} ms, device_ms={device_ms(rounds_new):.4f}; the parent's copy + hash_rows "
         f"pairs {cuda_ms(rounds_parent, 5):.4f} ms, device_ms={device_ms(rounds_parent):.4f}")
+
+
+def check_poseidon2_rows(F, rnd, compare) -> None:
+    """K6 against its plain version, each case launched twice: every FRI
+    level of the BabyBear 2^14 and 2^18 proves ((8, 2^2) to (8, 2^19):
+    arity 2, D = 4), the stage-1 LDE's width (14, 2^20), two and sixteen
+    same-height matrices, a short last chunk, one row, and the rows on both
+    sides of the four-lane threshold in both modes; then the 2^18 prove's 18
+    levels in a row (device ms) and one permutation's latency in each mode
+    (a chain of dependent permutations, as K15's node latency is taken)."""
+    import torch
+
+    from multistark_tpu_torch import kernels
+    from multistark_tpu_torch.hash import poseidon2 as p2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = p2.LANE_ROWS_PER_SM * sms
+    cases = [[(8, 1 << k)] for k in range(2, 20)] + [
+        [(14, 1 << 20)], [(14, 1 << 12), (2, 1 << 12)], [(w, 1 << 10) for w in range(1, 17)], [(13, 1 << 16)],
+        [(8, 1)], [(14, 1)], [(8, edge)], [(8, edge + 1)], [(14, edge - 1)], [(14, edge + 1)]]
+    launches = 0
+    for shapes in cases:
+        mats = [rnd(F, w, n) for w, n in shapes]
+        n = shapes[0][1]
+        want = p2.hash_rows_plain(mats)
+        plans = [p2.hash_rows_plan(n, sms)]
+        if abs(n - edge) <= 1:  # both modes at the threshold
+            plans.append(p2.hash_rows_plan(n, sms, 1 - plans[0].mode))
+        for plan in plans:
+            for _ in range(2):
+                if max_abs_err(p2.hash_rows(mats, plan=plan), want) != 0:
+                    raise AssertionError(f"poseidon2_merkle hash_rows {shapes}, plan {plan}: kernel disagrees with "
+                                         "its plain version")
+                launches += 1
+    torch.cuda.synchronize()
+    say("kernels", f"poseidon2_merkle: {len(cases)} cases, {launches} launches (FRI levels (8, 2^2) to (8, 2^19), "
+        f"(14, 2^20), 2 and 16 matrices, a short last chunk, one row, both modes at the threshold {edge} rows) "
+        "bit-equal to the plain version")
+    levels = [rnd(F, 8, 1 << k) for k in range(19, 1, -1)]
+    for mats in ([levels[0]], [levels[-6]]):  # the first FRI level and a short one
+        n = mats[0].shape[1]
+        compare(f"poseidon2_merkle hash_rows (8, 2^{n.bit_length() - 1}), plan {p2.hash_rows_plan(n, sms)}",
+                lambda mats=mats: p2.hash_rows(mats), lambda mats=mats: p2.hash_rows_plain(mats),
+                (8 * 8 * n + 32 * n, n * OPS_PER_POSEIDON2), device=True)
+    say("kernels", f"poseidon2_merkle the 2^18 prove's 18 FRI levels in a row ((8, 2^19) down to (8, 2^2)): "
+        f"device_ms={device_ms(lambda: [p2.hash_rows([m]) for m in levels]):.4f}; the 14 of the 2^14 prove: "
+        f"device_ms={device_ms(lambda: [p2.hash_rows([m]) for m in levels[4:]]):.4f}")
+    state = rnd(F, 1, 16).to(torch.int32)
+    for mode, label in ((p2.MODE_THREAD, "a thread"), (p2.MODE_LANES, "a group of four lanes")):
+        if not torch.equal(p2.permute_chain(state, 64, mode), p2.permute_chain_plain(state, 64)):
+            raise AssertionError(f"poseidon2_merkle: 64 chained permutations on {label} disagree with the plain "
+                                 "version")
+        n = 4096
+        t_n = cuda_ms(lambda: p2.permute_chain(state, n, mode), 3)
+        t_0 = cuda_ms(lambda: p2.permute_chain(state, 0, mode), 3)
+        say("kernels", f"poseidon2_merkle permutation latency on {label}: {1e3 * (t_n - t_0) / n:.4f} us (a chain "
+            f"of {n}, {t_n:.4f} ms, less an empty chain {t_0:.4f} ms; equal to the plain chain at 64; "
+            f"kernels.POSEIDON2_LATENCY_MS holds {1e3 * kernels.POSEIDON2_LATENCY_MS[mode]:.4f} us)")
 
 
 def check_fri_fold(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None:
@@ -1127,7 +1193,7 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
         scratch = x.clone()
         compare(f"lde_tile {F.name} {label} ({cols}, 2^{log_n}), {mode}, tile 2^{k}, {levels} levels",
                 run(ct.lde_tile), run(ct.lde_tile_plain), (n_bytes, ops), iters=3, name=name,
-                time_fn=lambda: ct.lde_tile(F, hasher, scratch, k, tw, levels, inject, hashed, dif))
+                time_fn=lambda: ct.lde_tile(F, hasher, scratch, k, tw, levels, inject, hashed, dif), device=hashed)
         return ct.lde_tile(F, hasher, x.clone(), k, tw, levels, inject, hashed, dif)
 
     byte_table = tile_case("ByteTable LDE", 1, 10, True, fold=False)[0]
@@ -1625,10 +1691,13 @@ def main() -> int:
 
     secs = kernels.build(force=True)
     kernels.library()
-    say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s")
+    say("build", f"nvcc built {len(kernels.sources())} sources in {secs:.1f} s (all at once; each source's seconds "
+        "from the start: " + ", ".join(f"{s} {t:.1f} s" for s, t in sorted(kernels.BUILD_SECONDS.items())) + ")")
     for k, names in ((kernels.GL_ARITH, ("arith_kernel", "powers_kernel")),
                      (kernels.BB_ARITH, ("arith_kernel", "powers_kernel")),
                      (kernels.BLAKE3_MERKLE, kernels.BLAKE3_MERKLE.functions),
+                     (kernels.POSEIDON2_MERKLE, kernels.POSEIDON2_MERKLE.functions + ("p2_chain_kernel",)),
+                     (kernels.LDE_TILE, kernels.LDE_TILE.functions),
                      (kernels.GL_SCAN, ("batch_inv_kernel", "stage2_chain_kernel", "cumsum_kernel", "sum_kernel")),
                      (kernels.MERKLE_LEVELS, kernels.MERKLE_LEVELS.functions),
                      (kernels.REDUCED_OPEN, kernels.REDUCED_OPEN.functions),

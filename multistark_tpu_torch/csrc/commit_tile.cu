@@ -46,9 +46,10 @@
 // depth: every level waits for the one below, so a tree costs at least its
 // levels times one compression's latency (about 240 levels per
 // GoldilocksBlake3 prove at 2^18), which tier 0's spread, the warp-level
-// narrow levels and the single launch attack; its Poseidon2 nodes run the
-// Montgomery-form permutation (32-bit products, unrolled rounds) instead of
-// the 64-bit Barrett steps of p2::permute.  K14's design: the host sizes
+// narrow levels and the single launch attack.  Poseidon2 (K14's BabyBear
+// leaves and nodes, K15's nodes) runs poseidon2.cuh's one permutation, in
+// Montgomery form (32-bit products, unrolled rounds), which K6 runs too.
+// K14's design: the host sizes
 // the tile (commit_tile.tile_log_for) so that at least three blocks share
 // an SM, with at most a row per thread when hashing (the GoldilocksBlake3
 // stage-1 tile, 2^8 rows of 14 columns, takes 37 KB), so one block's copies
@@ -83,6 +84,12 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 // then the leaf hash and the fold; a DIT's first k stages.
 constexpr int MODE_DIF = 0, MODE_HASHED = 1, MODE_DIT = 2;
 constexpr int PHASE_LOG = 4;  // the tile's stages run in phases of up to four, from bits 0, 4, 8, ...
+// K14's Poseidon2 leaf keeps its 13 partial rounds a loop (true) or unrolls
+// them as K6 and K15 do (false).  Rolled builds in 25.6 s against 34.0 s
+// for commit_tile.cu; scripts/variant_sweep.py timed it 0-4% faster on
+// BabyBear's stage tiles in most turns but not in every one (H100 80GB HBM3,
+// 700 W); neither spills.
+constexpr bool LEAF_ROLLED = true;
 
 // The digest layers a launch writes and the digests injected into them:
 // out[l] is level l counted from the launch's input (out[0] the leaves, for
@@ -168,6 +175,7 @@ struct Blake3Hasher {
   static constexpr int CONSTS = 0;
   static constexpr int LANES = 1;  // K15: lanes per node at the narrow levels
   static __device__ __forceinline__ void stage(uint32_t*, const int64_t*) {}
+  static __device__ __forceinline__ uint32_t constant(int64_t c) { return (uint32_t)c; }
   static __device__ __forceinline__ void leaf(const uint64_t* tile, int j, int T, int cols, uint32_t out[8],
                                               const uint32_t*) {
     TileWords words{tile, j, T, 0, 0};
@@ -186,8 +194,20 @@ struct Blake3Hasher {
   }
 };
 
+// Poseidon2 in Montgomery form (poseidon2.cuh, the body K6 runs too): K14's
+// leaf absorbs each tile value through to_mont; nodes, in K14's tile levels
+// and K15's wide levels a thread each and at K15's narrow levels a group of
+// four lanes each, convert their canonical digests in and out.  The
+// constants are converted as they are staged.
 struct Poseidon2Hasher {
   static constexpr int CONSTS = p2::N_CONST;
+  static constexpr int LANES = 4;  // K15: lanes per node at the narrow levels
+  static __device__ __forceinline__ void stage(uint32_t* sc, const int64_t* consts) {
+    p2::mont::stage_constants(sc, consts);
+  }
+  // K14's staging loop converts one constant at a time (the loop as
+  // stage_constants runs it; BLAKE3's instance keeps its code unchanged)
+  static __device__ __forceinline__ uint32_t constant(int64_t c) { return p2::mont::to_mont((uint32_t)c); }
   static __device__ __forceinline__ void leaf(const uint64_t* tile, int j, int T, int cols, uint32_t out[8],
                                               const uint32_t* sc) {
     uint32_t s[p2::WIDTH];
@@ -196,26 +216,11 @@ struct Poseidon2Hasher {
     for (int c0 = 0; c0 < cols; c0 += p2::RATE) {  // a short last chunk keeps lanes cols - c0 .. 15
 #pragma unroll
       for (int i = 0; i < p2::RATE; i++)
-        if (c0 + i < cols) s[i] = (uint32_t)tile[swz((c0 + i) * T + j)];
-      p2::permute(s, sc);
+        if (c0 + i < cols) s[i] = p2::mont::to_mont((uint32_t)tile[swz((c0 + i) * T + j)]);
+      p2::mont::permute<LEAF_ROLLED>(s, sc);
     }
 #pragma unroll
-    for (int i = 0; i < 8; i++) out[i] = s[i];
-  }
-  static __device__ __forceinline__ void node(const uint32_t l[8], const uint32_t r[8], uint32_t out[8],
-                                              const uint32_t* sc) {
-    p2::compress(l, r, out, sc);
-  }
-};
-
-// K15's Poseidon2: the Montgomery-form permutation of poseidon2.cuh on
-// 32-bit words (K14's tiles keep p2::permute), its constants converted as
-// they are staged.
-struct Poseidon2TreeHasher {
-  static constexpr int CONSTS = p2::N_CONST;
-  static constexpr int LANES = 4;
-  static __device__ __forceinline__ void stage(uint32_t* sc, const int64_t* consts) {
-    p2::mont::stage_constants(sc, consts);
+    for (int i = 0; i < 8; i++) out[i] = p2::mont::from_mont(s[i]);
   }
   static __device__ __forceinline__ void node(const uint32_t l[8], const uint32_t r[8], uint32_t out[8],
                                               const uint32_t* sc) {
@@ -320,8 +325,8 @@ __global__ void __launch_bounds__(TILE_THREADS) lde_tile_kernel(uint64_t* __rest
   uint32_t* dig = reinterpret_cast<uint32_t*>(smem);
   uint64_t* tile = reinterpret_cast<uint64_t*>(smem + (hash ? (size_t)T * 32 : 0));
   uint32_t* sc = reinterpret_cast<uint32_t*>(tile + tile_slots(cells));
-  if (hash)
-    for (int i = threadIdx.x; i < H::CONSTS; i += blockDim.x) sc[i] = (uint32_t)consts[i];
+  if (hash)  // read after the tile's first barrier
+    for (int i = threadIdx.x; i < H::CONSTS; i += blockDim.x) sc[i] = H::constant(consts[i]);
   // element e of the tile is column e >> k, position base + (e & (T - 1)),
   // at swz(e); two neighbours share a 16-byte copy when the strips are
   // 16-byte aligned
@@ -705,7 +710,7 @@ extern "C" int merkle_levels(int hasher, const uint32_t* in, int log_size, int l
   if (hasher == 0)
     merkle_tree_kernel<Blake3Hasher><<<(unsigned)blocks, threads, 0, stream>>>(in, tr, counters, consts);
   else if (hasher == 1)
-    merkle_tree_kernel<Poseidon2TreeHasher><<<(unsigned)blocks, threads, 0, stream>>>(in, tr, counters, consts);
+    merkle_tree_kernel<Poseidon2Hasher><<<(unsigned)blocks, threads, 0, stream>>>(in, tr, counters, consts);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -719,7 +724,7 @@ extern "C" int node_chain(int hasher, uint32_t* io, int n, const int64_t* consts
   if (hasher == 0)
     node_chain_kernel<Blake3Hasher><<<1, WARP, 0, stream>>>(io, n, consts);
   else if (hasher == 1)
-    node_chain_kernel<Poseidon2TreeHasher><<<1, WARP, 0, stream>>>(io, n, consts);
+    node_chain_kernel<Poseidon2Hasher><<<1, WARP, 0, stream>>>(io, n, consts);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

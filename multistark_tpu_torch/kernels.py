@@ -15,8 +15,8 @@ time one of its C entry points is launched, and only there; its
 (spans.py groups device time by them).  Each launch site states the bytes
 its launch must move (each operand read once, each output written once)
 and, where hashing, grinding or an inversion dominates, its 32-bit integer
-operations, and where a chain of dependent BLAKE3 compressions is longer
-than either, that chain's latency; `bound_ms` sums the least time those
+operations, and where a chain of dependent BLAKE3 compressions or
+Poseidon2 permutations is longer than either, that chain's latency; `bound_ms` sums the least time those
 take on one H100 over the kernel's launches (spans.py prints it per warm
 prove).  Launch sites that count bytes only give a bound that is still a
 least time.
@@ -76,6 +76,12 @@ EXT_MUL_LATENCY_MS = (0.1907e-3, 0.4940e-3)
 # (lookup.ext_inv_chain) on an NVIDIA H100 80GB HBM3 at 700 W: K9's
 # latency floor.
 EXT_INV_LATENCY_MS = (6.2193e-3, 3.3828e-3)
+# One Poseidon2 permutation's latency (ms) on one thread and on one group of
+# four lanes, K6's two modes (hash/poseidon2.MODE_THREAD, MODE_LANES):
+# chip_smoke.py's chains of 4096 dependent permutations
+# (hash/poseidon2.permute_chain) on an NVIDIA H100 80GB HBM3 at 700 W.  A
+# row of c chunks takes at least c times the lesser, whichever mode runs it.
+POSEIDON2_LATENCY_MS = (9.2161e-3, 3.7300e-3)
 
 
 def least_ms(n_bytes: float, ops: float = 0, latency_ms: float = 0) -> float:
@@ -94,7 +100,9 @@ _SIGNATURES = {
     "ntt_pass": [_i32, _vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp],
     "b3_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp],
     "b3_fri_leaves": [_vp, _i32, _i32, _i64, _vp, _vp, _vp],
-    "p2_hash_rows": [_vp, _vp, _i32, _i64, _vp, _vp, _vp],
+    "p2_hash_rows": [_vp, _vp, _i32, _i64, _i32, _i64, _i32, _vp, _vp, _vp],
+    "p2_load_constants": [_vp, _vp],
+    "p2_chain": [_i32, _vp, _i32, _vp, _vp],
     "gls_batch_inv": [_i32, _i32, _vp, _vp, _i64, _i64, _vp],
     "gls_inv_sum": [_i32, _i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp],
     "gls_sum": [_i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp],
@@ -120,6 +128,7 @@ _HELPERS = {"gls_tiles": ([_i32, _i32, _i32, _i64], _i64), "claims_acc_blocks": 
 PROGRAM_TEMPLATE = os.path.join(CSRC_DIR, "expr_sweep.cu")
 
 _LIB: Optional[ctypes.CDLL] = None
+BUILD_SECONDS: Dict[str, float] = {}  # source file name -> seconds from the build's start to its nvcc's end
 
 
 def sources() -> list:
@@ -150,8 +159,9 @@ def build(force: bool = False) -> float:
     """Compile csrc/*.cu into the shared library if it is missing or stale:
     one nvcc per source, all at once, then one link, under an exclusive
     flock on build/torch_kernels/ (native.build_lock).  Returns the seconds
-    spent (0 if nothing was built).  Raises CalledProcessError with nvcc's
-    output if a step fails."""
+    spent (0 if nothing was built); BUILD_SECONDS keeps when each source's
+    nvcc finished.  Raises CalledProcessError with nvcc's output if a step
+    fails."""
     with build_lock(BUILD_DIR):
         return _build(force)
 
@@ -161,30 +171,39 @@ def _build(force: bool) -> float:
         return 0.0
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
-    procs = [
-        subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for s, o in zip(sources(), objs)
-    ]
+    objs = {s: os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()}
+    logs = {s: open(ptxas_log(s), "w") for s in sources()}
+    procs = {s: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
+                                 stdout=logs[s], stderr=subprocess.STDOUT, text=True)
+             for s, o in objs.items()}
     try:
-        for src, proc in zip(sources(), procs):
-            out, err = proc.communicate(timeout=900)
-            if proc.returncode != 0:
-                sys.stderr.write(f"nvcc failed on {src}:\n{out}{err}")
-                raise subprocess.CalledProcessError(proc.returncode, proc.args, output=out, stderr=err)
-            with open(ptxas_log(src), "w") as f:
-                f.write(out + err)
+        pending = dict(procs)
+        while pending:
+            for src, proc in list(pending.items()):
+                if proc.poll() is None:
+                    continue
+                del pending[src]
+                BUILD_SECONDS[os.path.basename(src)] = time.perf_counter() - t0
+                logs[src].close()
+                if proc.returncode != 0:
+                    with open(ptxas_log(src)) as f:
+                        report = f.read()
+                    sys.stderr.write(f"nvcc failed on {src}:\n{report}")
+                    raise subprocess.CalledProcessError(proc.returncode, proc.args, output=report)
+            if pending and time.perf_counter() - t0 > 900:
+                raise subprocess.TimeoutExpired(next(iter(pending.values())).args, 900)
+            time.sleep(0.05)
         tmp = f"{LIB_PATH}.{tag}"
-        subprocess.run([nvcc_path(), "-shared", "-o", tmp, *objs], check=True, capture_output=True, text=True,
-                       timeout=900)
+        subprocess.run([nvcc_path(), "-shared", "-o", tmp, *objs.values()], check=True, capture_output=True,
+                       text=True, timeout=900)
         os.replace(tmp, LIB_PATH)
     finally:
-        for proc in procs:
+        for src, proc in procs.items():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for o in objs:
+            logs[src].close()
+        for o in objs.values():
             if os.path.exists(o):
                 os.remove(o)
     return time.perf_counter() - t0
@@ -279,7 +298,7 @@ BB_ARITH = CudaKernel(
 POSEIDON2_MERKLE = CudaKernel(
     "poseidon2_merkle", "multistark_tpu_torch/csrc/poseidon2_merkle.cu",
     "multistark_tpu/hash/poseidon2.py:295",
-    ("p2_hash_rows_kernel",),
+    ("p2_hash_rows_kernel", "p2_hash_rows4_kernel"),
 )
 DT_FLUSH = CudaKernel(
     "dt_flush", "multistark_tpu_torch/csrc/dt_blake3.cu",

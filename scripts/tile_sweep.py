@@ -7,11 +7,13 @@ the trees of a warm prove at 2^18 rows (the three stage trees above K14's
 levels, 2^17 nodes, and the FRI rounds' trees of 2^19 down to 2^2 leaves)
 and K13 (reduced_open) at the bench's two LDE heights; K12 (bary_eval) at
 the bench's two trace heights and K8 (fri_grind) on one round and on 18
-chained rounds; each by CUDA events and by the profiler's device time of
-the kernel's functions, with the device events the profiler reported and
-the launches the wrapper counted meanwhile.
+chained rounds; K6 (poseidon2_merkle) in both of its modes at every FRI
+level of the BabyBear 2^18 prove and around its four-lane threshold; each
+by CUDA events and by the profiler's device time of the kernel's
+functions, with the device events the profiler reported and the launches
+the wrapper counted meanwhile.
 
-    python3 scripts/tile_sweep.py [--tree DIR] [--only tiles|trees|openings]
+    python3 scripts/tile_sweep.py [--tree DIR] [--only tiles|trees|openings|rows]
 
 --tree points at a checkout of this repository whose multistark_tpu_torch
 is measured (default: this one), so that two checkouts can be swept in one
@@ -229,10 +231,40 @@ def evaluations_and_grind(dev) -> None:
               f"{count} launches", flush=True)
 
 
+def poseidon2_rows(dev) -> None:
+    """K6 (poseidon2_merkle) in both modes, each with its own grid
+    (hash_rows_plan with the mode forced), at every FRI level of the
+    BabyBear 2^18 prove ((8, 2^2) to (8, 2^19)) and at widths 14 and 52
+    (two and seven chunks a row) around the four-lane threshold: the
+    measurement LANE_ROWS_PER_SM is chosen from."""
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import kernels
+    from multistark_tpu_torch.fields.device import BB_OPS
+    from multistark_tpu_torch.hash import poseidon2 as p2
+
+    if not hasattr(p2, "hash_rows_plan"):
+        return
+    rng = np.random.default_rng(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for cols, logs in ((8, range(2, 20)), (14, range(8, 17)), (52, range(8, 17))):
+        for log_n in logs:
+            x = BB_OPS.from_np(rng.integers(0, BB_OPS.p, (cols, 1 << log_n), dtype=np.uint64), dev)
+            times = []
+            for mode in (p2.MODE_THREAD, p2.MODE_LANES):
+                plan = p2.hash_rows_plan(1 << log_n, sms, mode)
+                times.append(f"{'thread' if mode == p2.MODE_THREAD else 'four-lane'} {plan.blocks}x{plan.threads} "
+                             f"{device_ms(lambda: p2.hash_rows([x], plan=plan), kernels.POSEIDON2_MERKLE)} ms")
+            chosen = "four-lane" if p2.hash_rows_plan(1 << log_n, sms).mode == p2.MODE_LANES else "thread"
+            print(f"[rows] K6 ({cols}, 2^{log_n}): {'; '.join(times)}; the plan takes {chosen} "
+                  f"(LANE_ROWS_PER_SM {p2.LANE_ROWS_PER_SM})", flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
-    ap.add_argument("--only", choices=("tiles", "trees", "openings"))
+    ap.add_argument("--only", choices=("tiles", "trees", "openings", "rows"))
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -251,6 +283,8 @@ def main(argv) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[sweep] {kernels.__file__}; {smi}", flush=True)
     kernels.build()
+    if args.only in (None, "rows"):
+        poseidon2_rows(dev)
     if args.only in (None, "openings"):
         evaluations_and_grind(dev)
     if args.only in (None, "trees"):

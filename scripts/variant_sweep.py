@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of K12 (bary_eval), K8 (fri_grind) and K9 (claims_fp) on
-one CUDA card.
+"""Time variants of K12 (bary_eval), K8 (fri_grind), K9 (claims_fp), K6
+(poseidon2_merkle) and K14 (lde_tile) on one CUDA card.
 
-    python3 scripts/variant_sweep.py
+    python3 scripts/variant_sweep.py [KERNEL ...]
+
+(KERNEL: bary_eval, fri_grind, claims_fp, poseidon2_merkle, lde_tile; all
+of them by default.)
 
 A variant is a kernel source with text substitutions, built alone by nvcc
 into its own shared library (under build/variants/, with its `-Xptxas -v`
@@ -10,8 +13,12 @@ report), which stands in for the kernel library while that kernel runs:
 K12 on the bench's 2^18 trace height (U32Add's stage-1, stage-2 and
 quotient matrices, both fields), K8 on one round and on 18 chained rounds
 at 10 bits over a 16-word chain ‖ cap, K9 on the claims accumulator of 2^14
-and 2^18 claims of 4 values, both fields.  Every variant's output must equal
-the built library's.  Times: the profiler's device ms of the kernel's
+and 2^18 claims of 4 values, both fields, K6 on the first FRI level of the
+BabyBear 2^18 prove (8, 2^19), on the stage-1 width (14, 2^20) and on the
+prove's 18 levels in a row, K14 on BabyBear's stage-1 (14, 2^20) and
+stage-2 (52, 2^20) hashed tiles.  A variant may also set attributes of the
+kernel's Python module while it runs (K6's grid: RESIDENT).  Every
+variant's output must equal the built library's.  Times: the profiler's device ms of the kernel's
 functions (the sessions' kernel events counted against the launches), two
 turns.  A substitution that no longer matches the source raises.
 """
@@ -32,6 +39,13 @@ _K12_BOUNDS = "template <class F, int P>\n__global__ void __launch_bounds__(THRE
 _K8_FIRST = "const int64_t first = (int64_t)16 << bits < n ? (int64_t)16 << bits : n;"
 _K9_ITEMS = "constexpr int ITEMS = 4;"
 _K9_THREADS = "constexpr int THREADS = 128;"
+_K6_BANK = "  const uint32_t* c = MONT_CONSTS;\n"
+# K6's thread mode with its constants staged in shared memory per block
+_K6_STAGED = ("  __shared__ uint32_t c[N_CONST];\n"
+              "  for (int i = threadIdx.x; i < N_CONST; i += blockDim.x) c[i] = MONT_CONSTS[i];\n"
+              "  __syncthreads();\n")
+_K6_MIN = "constexpr int MIN_BLOCKS = 8;"
+_K14_ROLLED = "constexpr bool LEAF_ROLLED = true;"
 # kernel name -> (source, {variant: [(text, replacement)]})
 VARIANTS = {
     "bary_eval": ("open_reduce.cu", {
@@ -55,13 +69,31 @@ VARIANTS = {
         "16 claims a thread": [(_K9_ITEMS, "constexpr int ITEMS = 16;")],
         "256 threads a block": [(_K9_THREADS, "constexpr int THREADS = 256;")],
     }),
+    "poseidon2_merkle": ("poseidon2_merkle.cu", {
+        "as built: constants in constant memory, 8 blocks per SM (at most 64 registers)": [],
+        "constants staged in shared memory": [(_K6_BANK, _K6_STAGED)],
+        "4 blocks per SM (at most 128 registers)": [(_K6_MIN, "constexpr int MIN_BLOCKS = 4;")],
+        "16 blocks per SM (at most 32 registers)": [(_K6_MIN, "constexpr int MIN_BLOCKS = 16;")],
+    }),
+    "lde_tile": ("commit_tile.cu", {
+        "as built: the leaf's partial rounds rolled": [],
+        "the leaf's partial rounds unrolled": [(_K14_ROLLED, "constexpr bool LEAF_ROLLED = false;")],
+    }),
+}
+# (kernel, variant) -> {attribute of the kernel's Python module: value while the variant runs}
+OVERRIDES = {
+    ("poseidon2_merkle", "4 blocks per SM (at most 128 registers)"): {"RESIDENT": 4},
+    ("poseidon2_merkle", "16 blocks per SM (at most 32 registers)"): {"RESIDENT": 16},
 }
 
 
-def build_variants(kernels) -> dict:
-    """{(kernel, variant): library path}: one nvcc per variant, all at once."""
+def build_variants(kernels, only) -> dict:
+    """{(kernel, variant): library path}: one nvcc per variant of the
+    kernels `only`, all at once."""
     jobs = {}
     for kname, (source, variants) in VARIANTS.items():
+        if kname not in only:
+            continue
         text = open(os.path.join(kernels.CSRC_DIR, source)).read()
         for i, (vname, subs) in enumerate(variants.items()):
             out = text
@@ -88,13 +120,16 @@ def build_variants(kernels) -> dict:
     return libs
 
 
-def main() -> int:
+def main(argv) -> int:
     import numpy as np
     import torch
 
     import chip_smoke
-    from multistark_tpu_torch import device_transcript as dt, kernels, lookup as lk, pcs
+    from multistark_tpu_torch import commit_tile as ct, device_transcript as dt, kernels, lookup as lk, pcs
     from multistark_tpu_torch.fields.device import BB4_OPS, BB_OPS, GL2_OPS, GL_OPS
+    from multistark_tpu_torch.hash import poseidon2 as p2
+    from multistark_tpu_torch.merkle import Poseidon2FieldHasher
+    from multistark_tpu_torch.ntt import ntt as nt
     from tile_sweep import device_ms
 
     if not torch.cuda.is_available():
@@ -105,7 +140,11 @@ def main() -> int:
     kernels.library()
     built = kernels._LIB
     t0 = time.perf_counter()
-    libs = build_variants(kernels)
+    only = argv or list(VARIANTS)
+    unknown = set(only) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"variant_sweep: no variants of {sorted(unknown)}")
+    libs = build_variants(kernels, only)
     print(f"[variants] built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(5)
@@ -138,19 +177,40 @@ def main() -> int:
 
     cases["fri_grind"] = [("one round, L = 16, 10 bits", lambda: dt.fri_grind(inp, 10, 2), kernels.FRI_GRIND),
                           ("18 chained rounds", rounds, kernels.FRI_GRIND)]
+    levels = [BB_OPS.from_np(rng.integers(0, BB_OPS.p, (8, 1 << k), dtype=np.uint64), dev) for k in range(19, 1, -1)]
+    lde = BB_OPS.from_np(rng.integers(0, BB_OPS.p, (14, 1 << 20), dtype=np.uint64), dev)
+    cases["poseidon2_merkle"] = [
+        ("(8, 2^19), the first FRI level", lambda: p2.hash_rows([levels[0]]), kernels.POSEIDON2_MERKLE),
+        ("(14, 2^20)", lambda: p2.hash_rows([lde]), kernels.POSEIDON2_MERKLE),
+        ("the 2^18 prove's 18 FRI levels in a row", lambda: [p2.hash_rows([m]) for m in levels],
+         kernels.POSEIDON2_MERKLE)]
+    eng, hasher = nt.NttEngine(BB_OPS, BB_OPS.host, dev), Poseidon2FieldHasher()
+    cases["lde_tile"] = []
+    for cols in (14, 52):
+        x = BB_OPS.from_np(rng.integers(0, BB_OPS.p, (cols, 1 << 20), dtype=np.uint64), dev)
+        k = ct.tile_log_for(cols, 20, True)
+        levels_in = pcs.commit_plan([cols], [20], 0, 0)[0].levels
+        tw = eng.tail_table(k, False)
+        cases["lde_tile"].append((
+            f"BabyBear ({cols}, 2^20) hashed, tile 2^{k}, {levels_in} levels",
+            lambda x=x, k=k, tw=tw, levels_in=levels_in: ct.lde_tile(BB_OPS, hasher, x.clone(), k, tw, levels_in, {},
+                                                                     True), kernels.LDE_TILE))
 
     def flat(out):
         items = out if isinstance(out, (list, tuple)) else [out]
         return torch.cat([flat(t) if isinstance(t, (list, tuple)) else t.reshape(-1).to(torch.int64) for t in items])
 
     for kname, runs in cases.items():
+        if kname not in only:
+            continue
         wants = [flat(fn()) for _, fn, _ in runs]
         for turn in (1, 2):
             for (k, vname), path in libs.items():
                 if k != kname:
                     continue
                 lib = ctypes.CDLL(path)
-                for entry in ("bary_height", "fri_grind", "claims_acc"):
+                for entry in ("bary_height", "fri_grind", "claims_acc", "p2_hash_rows", "p2_load_constants", "p2_chain",
+                              "lde_tile"):
                     if hasattr(lib, entry):
                         getattr(lib, entry).argtypes = kernels._SIGNATURES[entry]
                         getattr(lib, entry).restype = ctypes.c_int
@@ -159,6 +219,10 @@ def main() -> int:
                         getattr(lib, entry).argtypes = argtypes
                         getattr(lib, entry).restype = restype
                 kernels._LIB = lib
+                p2._CONSTANT_BANK.clear()  # a library's constant memory is its own
+                saved = {a: getattr(p2, a) for a in OVERRIDES.get((kname, vname), {})}
+                for a, val in OVERRIDES.get((kname, vname), {}).items():
+                    setattr(p2, a, val)
                 try:
                     for (label, fn, kernel), want in zip(runs, wants):
                         if not torch.equal(flat(fn()), want):
@@ -167,6 +231,9 @@ def main() -> int:
                               flush=True)
                 finally:
                     kernels._LIB = built
+                    p2._CONSTANT_BANK.clear()
+                    for a, val in saved.items():
+                        setattr(p2, a, val)
         for (k, vname), path in libs.items():
             if k == kname:
                 report = chip_smoke.ptxas_kernels(os.path.join(os.path.dirname(path), "ptxas.log"),
@@ -176,4 +243,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

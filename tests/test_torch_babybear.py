@@ -203,6 +203,77 @@ def test_poseidon2_leaf_of_an_extension_matrix_matches_jax():
     np.testing.assert_array_equal(got, np.stack(want))
 
 
+# the widths K6 sees on the card: the FRI levels' 8 (arity 2 · D 4), 16 and 64
+# columns, the LDE's 14 (a short last chunk), two same-height matrices
+HASH_ROWS_CASES = [[(8, 8)], [(16, 16)], [(14, 64)], [(5, 32), (6, 32)], [(64, 8)]]
+
+
+@pytest.mark.parametrize("case", range(len(HASH_ROWS_CASES)))
+def test_poseidon2_hash_rows_matches_jax_hash_matrices(case):
+    """K6's plain version (and hash_rows on CPU tensors) against JAX
+    Poseidon2FieldHasher.hash_matrices; the 64-column case (8 permutations a
+    row, ~11 s eager) against the same hasher's host sponge."""
+    rng = np.random.default_rng(200 + case)
+    mats = [rng.integers(0, P, shape, dtype=np.uint64) for shape in HASH_ROWS_CASES[case]]
+    hasher = jax_p2.Poseidon2FieldHasher(BB_OPS)
+    if sum(m.shape[0] for m in mats) > 16:
+        want = np.stack([hasher.host_hash_rows([m[:, i] for m in mats]) for i in range(mats[0].shape[1])])
+    else:
+        want = np.asarray(hasher.hash_matrices([BB_OPS.from_np(m) for m in mats]), np.uint32).T
+    got = tp2.hash_rows_plain([_t(m) for m in mats]).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tp2.hash_rows([_t(m) for m in mats]).numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n,sms", [(1, 132), (4, 132), (1024, 132), (8449, 132), (16896, 132), (16897, 132),
+                                   (1 << 19, 132), (14 << 20, 132), (1, 1), (128, 1), (129, 1), (300, 4)])
+def test_poseidon2_hash_rows_plan(n, sms):
+    """K6's host plan: four lanes per row up to LANE_ROWS_PER_SM rows per SM,
+    else a thread per row; whole warps of at most THREADS; every row has its
+    lanes in one wave of at most RESIDENT blocks per SM (the rest by
+    striding); rows that do not fill every SM spread over as many SMs as
+    they have warps."""
+    plan = tp2.hash_rows_plan(n, sms)
+    lanes = tp2.LANES if n <= tp2.LANE_ROWS_PER_SM * sms else 1
+    assert plan.mode == (tp2.MODE_LANES if lanes > 1 else tp2.MODE_THREAD)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= tp2.THREADS
+    assert 1 <= plan.blocks <= tp2.RESIDENT * sms
+    if plan.blocks < tp2.RESIDENT * sms:  # no striding: a lane for every row's lanes
+        assert plan.blocks * plan.threads >= n * lanes > (plan.blocks - 1) * plan.threads
+    warps = -(-n * lanes // 32)
+    assert plan.blocks >= min(sms, warps) or plan.threads == tp2.THREADS
+    forced = tp2.hash_rows_plan(n, sms, 1 - plan.mode)
+    assert forced.mode == 1 - plan.mode
+    with pytest.raises(ValueError):
+        tp2.hash_rows_plan(0, sms)
+
+
+def test_one_poseidon2_permutation_serves_k6_k14_and_k15():
+    """No CUDA source of the port calls a canonical p2::permute or
+    p2::compress: poseidon2.cuh defines the permutation only in p2::mont,
+    which K6 (poseidon2_merkle.cu), K14 and K15 (commit_tile.cu) call."""
+    import re
+
+    csrc = os.path.join(ROOT, "multistark_tpu_torch", "csrc")
+    paths = sorted(glob.glob(os.path.join(csrc, "*.cu")) + glob.glob(os.path.join(csrc, "*.cuh")))
+    for path in paths:
+        text = open(path).read()
+        assert not re.search(r"p2::(permute|compress|stage_constants)\b", text), path
+        assert not re.search(r"using\s+p2::(permute|compress)\b", text), path
+    header = open(os.path.join(csrc, "poseidon2.cuh")).read()
+    start, end = header.index("namespace mont {"), header.index("}  // namespace mont")
+    outside = header[:start] + header[end:]
+    assert not re.search(r"\b(permute|compress|sbox|external_linear|internal_linear|stage_constants)\s*\(", outside)
+    for name in ("permute", "compress", "permute4", "compress4", "stage_constants"):
+        assert re.search(rf"\b{name}\s*\(", header[start:end]), name
+    for src, calls in (("poseidon2_merkle.cu", ("mont::permute(", "mont::permute4(", "mont::to_mont(",
+                                                "mont::from_mont(", "mont::stage_constants(")),
+                       ("commit_tile.cu", ("p2::mont::permute<", "p2::mont::compress(", "p2::mont::compress4(",
+                                           "p2::mont::to_mont(", "p2::mont::stage_constants("))):
+        text = open(os.path.join(csrc, src)).read()
+        assert all(c in text for c in calls), src
+
+
 # --- duplex challenger ------------------------------------------------------------
 
 def _transcripts():
