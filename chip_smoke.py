@@ -90,7 +90,19 @@ without printing a result:
                 fetch runs once more per size under
                 torch.cuda.set_sync_debug_mode("error") (any op there that
                 waits for the device raises), and the path must count no
-                fallback
+                fallback.  Each proof is also read back by Proof.from_bytes
+                (which must write the same bytes), accepted by the port's
+                verifier (host code: verifier.py, pcs.verify's batched walk,
+                the host C hashes), and two tampered copies rejected with a
+                VerificationError whose kind is printed: one opened value
+                of the first stage-1 matrix changed, and one claim changed
+                (the read and verify seconds on a "verify" line per path and
+                size).  On the H100 both copies of all six proofs are
+                rejected as InvalidOpeningArgument: what "verified on the
+                card" covers is the accepting path, the Fiat-Shamir replay
+                and the openings' check; the verifier's other kinds (shape,
+                counts, Merkle paths, PoW) are pinned against the JAX
+                verifier by the CPU tests (tests/test_torch_verifier.py)
   5. sharded -- the row-sharded prove (parallel.py) on torch.distributed,
                 ranks started with the spawn method from the package
                 (spmd_cases.chip_rank): NCCL at world = the largest power of
@@ -110,6 +122,20 @@ without printing a result:
                 function of row 27 must be counted and every kernel of the
                 config's path launched on every rank; the phase's launches
                 join the kernels line
+  6. examples -- NttEngine's natural-order transforms (dft_natural,
+                idft_natural, coset_eval_bitrev) on (4, 2^8 / 2^14 / 2^18)
+                tensors of both fields on the card, bit-equal to the same
+                calls on CPU tensors, the second call of each under
+                torch.cuda.set_sync_debug_mode("error") with its launches
+                counted (K2 and K14, and K1 / K5 for the scaled ones, from
+                2^14 up); then the four single-device examples
+                (multistark_tpu_torch/examples: simple_proof,
+                preprocessed_proof, lookup_proof, pcs_example) through
+                main(device="cuda"), each proving and verifying with the
+                port and printing its needle ("Proof size", "Wrong claim
+                rejected", "Opened value matches Horner evaluation").  Its
+                launches come after the counted paths and are not in the
+                kernels line
 
 Then a check that no process the script started is still running (the
 ranks, nvcc, and the resource tracker the spawn method starts beside the
@@ -1529,6 +1555,17 @@ def prove_sizes(dev, path: str):
         say("prove", f"{path} log_n={log_n}: launches of the warm prove {per_prove}")
         if got != golden[str(log_n)]:
             raise AssertionError(f"{path} log_n={log_n}: proof {got} != JAX golden {golden[str(log_n)]}")
+        t0 = time.perf_counter()
+        read = prover.Proof.from_bytes(data, system)
+        t_read = time.perf_counter() - t0
+        if read.to_bytes() != data:
+            raise AssertionError(f"{path} log_n={log_n}: Proof.from_bytes(data).to_bytes() != data")
+        t0 = time.perf_counter()
+        system.verify_multiple_claims(claims, read)
+        t_verify = time.perf_counter() - t0
+        rejected = tampered_kinds(system, claims, read)
+        say("verify", f"{path} log_n={log_n}: read back by Proof.from_bytes in {t_read:.4f} s (the same bytes), "
+            f"accepted by the port's verifier in {t_verify:.4f} s; tampered copies rejected: {rejected}")
         if device_transcript:
             sync_checks.append((log_n, witness, claims))
     counts = kernels.launch_counts()  # the path's proves, and nothing else
@@ -1560,6 +1597,34 @@ def prove_sizes(dev, path: str):
     say("prove", f"{path}: K14 lde_tile {counts['lde_tile']} and K15 merkle_levels {counts['merkle_levels']} "
         "launches; every tree's levels went through K15 (no compress_pairs entry point exists)")
     return counts
+
+
+def tampered_kinds(system, claims, proof) -> dict:
+    """The port's verifier on tampered copies of an accepted proof: one
+    opened value of the first stage-1 matrix changed (+1 in its first
+    coordinate), and one claim changed (a bit of its first value); each must
+    raise VerificationError.  Returns {copy: the error's kind}."""
+    import copy
+
+    import numpy as np
+
+    from multistark_tpu_torch.errors import VerificationError
+
+    p = system.config.host_field.p
+    bad_proof = copy.deepcopy(proof)
+    v = bad_proof.stage1_opened[0][0][0]
+    bad_proof.stage1_opened[0][0][0] = ((v[0] + 1) % p,) + tuple(v[1:])
+    bad_claims = np.array(claims, dtype=np.uint64, copy=True)
+    bad_claims[0, 1] ^= np.uint64(1)
+    kinds = {}
+    for label, (c, pr) in {"opened value": (claims, bad_proof), "claim": (bad_claims, proof)}.items():
+        try:
+            system.verify_multiple_claims(c, pr)
+        except VerificationError as e:
+            kinds[label] = e.kind
+        else:
+            raise AssertionError(f"the port's verifier accepted a proof with one {label} changed")
+    return kinds
 
 
 # phase 5: (backend, world, the ranks' device, [(config, sizes)], distributed_dft check or None)
@@ -1654,6 +1719,70 @@ def sharded_phase() -> dict:
     return launches
 
 
+# phase 6: the port's single-device examples and the needle each must print
+EXAMPLES = (("simple_proof", "Proof size"), ("preprocessed_proof", "Proof size"),
+            ("lookup_proof", "Wrong claim rejected"), ("pcs_example", "Opened value matches Horner evaluation"))
+TRANSFORM_SIZES = (8, 14, 18)  # log_n of NttEngine's natural-order transforms, (4, 2^log_n) per field
+
+
+def examples_phase(dev) -> None:
+    """Phase 6: NttEngine's natural-order transforms on the card against the
+    same calls on CPU tensors (bit-equal), each second call under
+    torch.cuda.set_sync_debug_mode("error") with its launches counted; then
+    the four single-device examples' main(device="cuda"), each of which must
+    print its needle."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from multistark_tpu_torch import kernels
+    from multistark_tpu_torch.fields.device import BB_OPS, GL_OPS, to_np
+    from multistark_tpu_torch.fields.host import BABYBEAR, GOLDILOCKS
+    from multistark_tpu_torch.ntt import NttEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+    for F, host, arith in ((GL_OPS, GOLDILOCKS, "gl_arith"), (BB_OPS, BABYBEAR, "bb_arith")):
+        card, cpu = NttEngine(F, host, dev), NttEngine(F, host, "cpu")
+        for log_n in TRANSFORM_SIZES:
+            m = rng.integers(0, host.p, (4, 1 << log_n), dtype=np.uint64)
+            x = F.from_np(m, dev)
+            for name, args, needed in (("dft_natural", (), ("ntt_stage", "lde_tile")),
+                                       ("idft_natural", (), ("ntt_stage", "lde_tile", arith)),
+                                       ("coset_eval_bitrev", (host.generator,), ("ntt_stage", "lde_tile", arith))):
+                fn = getattr(card, name)
+                fn(x, log_n, *args)  # the first call builds the engine's tables
+                torch.cuda.synchronize()
+                before = kernels.launch_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = fn(x, log_n, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                launched = {k: v - before[k] for k, v in kernels.launch_counts().items() if v != before[k]}
+                want = getattr(cpu, name)(F.from_np(m, "cpu"), log_n, *args)
+                if got.device != x.device or not np.array_equal(to_np(got), to_np(want)):
+                    raise AssertionError(f"{name} {F.name} 2^{log_n}: the card's output differs from the CPU's")
+                idle = [k for k in needed if log_n >= 14 and not launched.get(k)]
+                if idle:
+                    raise AssertionError(f"{name} {F.name} 2^{log_n} on the card launched {launched}, not {idle}")
+                say("examples", f"NttEngine.{name} {F.name} (4, 2^{log_n}) on the card equal to the CPU's, "
+                    f"no sync, launches {launched}, {cuda_ms(lambda: fn(x, log_n, *args), 3):.3f} ms")
+    for name, needle in EXAMPLES:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(f"multistark_tpu_torch.examples.{name}").main(device="cuda")
+        lines = out.getvalue().strip().splitlines()
+        if not any(needle in line for line in lines):
+            raise AssertionError(f"examples.{name} printed no {needle!r}: {lines}")
+        say("examples", f"{name} on cuda in {time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+    say("examples", f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def running_children() -> list:
     """Command lines of the processes still running whose parent is this one
     (/proc), so the script can show that it stopped every process it started."""
@@ -1715,6 +1844,7 @@ def main() -> int:
             launches[name] += count
     for name, count in sharded_phase().items():
         launches[name] += count
+    examples_phase(dev)  # after the counted paths: its launches are not the main path's
 
     rows = []
     for k in kernels.KERNELS:

@@ -105,3 +105,34 @@ uint64_t msp2_grind(const uint32_t *state, const uint32_t *in_buf, uint32_t in_l
     }
     return (uint64_t)-1;
 }
+
+/* The Merkle leaf hash of n rows of `width` canonical values each (row i at
+ * vals + i * width): the padding-free sponge (width 16, rate 8), each chunk
+ * of up to 8 values overwriting the first lanes before a permutation; out
+ * receives the first 8 lanes per row (an empty row hashes to zeros).  The
+ * verifier's batched Merkle walk (merkle.Poseidon2FieldHasher). */
+void msp2_hash_rows(const uint32_t *vals, uint64_t width, uint64_t n, uint32_t *out, const uint32_t *consts) {
+    for (uint64_t i = 0; i < n; i++) {
+        uint32_t s[WIDTH] = {0};
+        const uint32_t *row = vals + i * width;
+        for (uint64_t c = 0; c < width; c += RATE) {
+            uint64_t k = width - c < RATE ? width - c : RATE;
+            memcpy(s, row + c, k * sizeof(uint32_t));
+            msp2_permute(s, consts);
+        }
+        memcpy(out + 8 * i, s, 8 * sizeof(uint32_t));
+    }
+}
+
+/* The Merkle 2-to-1 compression of n digest pairs (left/right: n x 8
+ * canonical values): the truncated permutation of left || right. */
+void msp2_compress_pairs(const uint32_t *left, const uint32_t *right, uint64_t n, uint32_t *out,
+                         const uint32_t *consts) {
+    for (uint64_t i = 0; i < n; i++) {
+        uint32_t s[WIDTH];
+        memcpy(s, left + 8 * i, 8 * sizeof(uint32_t));
+        memcpy(s + 8, right + 8 * i, 8 * sizeof(uint32_t));
+        msp2_permute(s, consts);
+        memcpy(out + 8 * i, s, 8 * sizeof(uint32_t));
+    }
+}

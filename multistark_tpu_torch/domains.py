@@ -11,14 +11,16 @@ v = x/shift on the trace domain H of size n:
     inv_vanishing = 1 / Z_H
 
 The logUp boundary injection absorbs 1/(n·g), so these exact constants
-decide the proof; `prover._selectors_device` builds them on the device.
+decide the proof; `prover._selectors_device` builds them on the device, and
+the verifier takes them at one out-of-domain point (`selectors_at_point`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
-from .fields.host import HostField
+from .fields.host import HostExtField, HostField
 
 
 @dataclass(frozen=True)
@@ -35,9 +37,41 @@ class TwoAdicCoset:
     def gen(self) -> int:
         return self.field.two_adic_generator(self.log_n)
 
+    @property
+    def first_point(self) -> int:
+        return self.shift
+
+    def next_point_ext(self, ext: HostExtField, x: Tuple[int, ...]) -> Tuple[int, ...]:
+        return ext.scale(x, self.gen)
+
     def create_disjoint_domain(self, min_size: int) -> "TwoAdicCoset":
         """Coset disjoint from self (and from any other domain built this
         way from a same-shift domain): multiply the shift by the field
         generator (p3 convention, used for the quotient domain)."""
         log = (min_size - 1).bit_length()  # log2_ceil
         return TwoAdicCoset(self.field, log, self.field.mul(self.shift, self.field.generator))
+
+    def selectors_at_point(self, ext: HostExtField, zeta: Tuple[int, ...]) -> "LagrangeSelectorsAtPoint":
+        """The selectors at an out-of-domain extension point (the verifier's
+        out-of-domain check)."""
+        F = self.field
+        v = ext.scale(zeta, F.inv(self.shift))
+        vn = v
+        for _ in range(self.log_n):
+            vn = ext.square(vn)
+        z_h = ext.sub(vn, ext.one)
+        last_den = ext.sub(v, ext.from_base(F.inv(self.gen)))
+        return LagrangeSelectorsAtPoint(
+            is_first_row=ext.div(z_h, ext.sub(v, ext.one)),
+            is_last_row=ext.div(z_h, last_den),
+            is_transition=last_den,
+            inv_vanishing=ext.inv(z_h),
+        )
+
+
+@dataclass(frozen=True)
+class LagrangeSelectorsAtPoint:
+    is_first_row: Tuple[int, ...]
+    is_last_row: Tuple[int, ...]
+    is_transition: Tuple[int, ...]
+    inv_vanishing: Tuple[int, ...]

@@ -1,9 +1,10 @@
 """Graph evaluation: one dense forward sweep, generic over the working
 algebra (the counterpart of multistark_tpu/evaluator.py).
 
-The port sweeps with one algebra, `program.Recorder`, which turns the
-graph into a flat per-row program for kernel K11 (the JAX package's
-`DeviceAlgebra` made one whole-column op per node instead).
+The prover sweeps with `program.Recorder`, which turns the graph into a
+flat per-row program for kernel K11 (the JAX package's `DeviceAlgebra` made
+one whole-column op per node instead); the verifier with `HostExtAlgebra`,
+one scalar in the extension field per node at the out-of-domain point.
 """
 
 from __future__ import annotations
@@ -54,3 +55,45 @@ def constraint_values(graph: ConstraintGraph, buf: list) -> list:
 
 def lookup_values(graph: ConstraintGraph, buf: list) -> List[Tuple[object, tuple]]:
     return [(buf[m], tuple(buf[a] for a in args)) for m, args in graph.lookups]
+
+
+class HostExtAlgebra:
+    """Scalar evaluation in the extension field at the out-of-domain point ζ
+    (the verifier): publics are extension values, trace cells the opened
+    values."""
+
+    def __init__(self, he, var_provider, publics, selectors):
+        self.he = he
+        self._var = var_provider
+        self._publics = publics
+        self._sel = selectors
+
+    def const(self, v: int):
+        return self.he.from_base(v % self.he.base.p)
+
+    def var(self, source, column, offset):
+        return self._var(source, column, offset)
+
+    def public(self, index):
+        return self._publics[index]
+
+    def first(self):
+        return self._sel.is_first_row
+
+    def last(self):
+        return self._sel.is_last_row
+
+    def transition(self):
+        return self._sel.is_transition
+
+    def add(self, a, b):
+        return self.he.add(a, b)
+
+    def sub(self, a, b):
+        return self.he.sub(a, b)
+
+    def mul(self, a, b):
+        return self.he.mul(a, b)
+
+    def neg(self, a):
+        return self.he.neg(a)

@@ -3,8 +3,8 @@
 Goldilocks lives in ``uint64`` arrays (full 64x64→128 products via 32-bit
 limb splits, exact in uint64), BabyBear in ``uint64`` too (products of two
 31-bit values are exact).  Twiddle, coset and selector tables are
-precomputed here before being shipped to the device, and the BabyBear claims
-accumulator runs here (`NpField` / `NpExt`).
+precomputed here before being shipped to the device, and the verifier's
+arithmetic over all queries at once runs here (`NpField` / `NpExt`).
 """
 
 from __future__ import annotations
@@ -84,7 +84,8 @@ def gl_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def bb_add(a, b):
     s = np.asarray(a, np.uint64) + np.asarray(b, np.uint64)
-    return np.where(s >= _BB_P, s - _BB_P, s)
+    with np.errstate(over="ignore"):  # s - p of a scalar s < p, not taken
+        return np.where(s >= _BB_P, s - _BB_P, s)
 
 
 def bb_sub(a, b):
@@ -113,6 +114,21 @@ class NpField:
         else:
             raise KeyError(host.name)
 
+    def reduce(self, a: np.ndarray) -> np.ndarray:
+        """Exact mod p of arbitrary uint64 values."""
+        return np.asarray(a, np.uint64) % self.p
+
+    def pow_vec(self, base: int, exps: np.ndarray, max_bits: int) -> np.ndarray:
+        """base^exps with per-element exponents < 2^max_bits."""
+        exps = np.asarray(exps, np.uint64)
+        r = np.ones_like(exps)
+        sq = np.uint64(base % self.host.p)
+        for bit in range(max_bits):
+            take = ((exps >> np.uint64(bit)) & np.uint64(1)).astype(bool)
+            r = np.where(take, self.mul(r, sq), r)
+            sq = self.mul(sq, sq)
+        return r
+
     def sum_axis(self, a: np.ndarray, axis: int) -> np.ndarray:
         """Sum mod p along `axis` by pairwise halving (stays in uint64)."""
         a = np.moveaxis(np.asarray(a, np.uint64), axis, 0)
@@ -139,8 +155,20 @@ class NpExt:
         v = np.asarray([int(c) % self.nf.host.p for c in a], np.uint64)
         return np.broadcast_to(v, tuple(shape) + (self.D,)).copy()
 
+    def from_base_vec(self, b: np.ndarray) -> np.ndarray:
+        out = np.zeros(b.shape + (self.D,), np.uint64)
+        out[..., 0] = b
+        return out
+
     def add(self, a, b):
         return self.nf.add(a, b)
+
+    def sub(self, a, b):
+        return self.nf.sub(a, b)
+
+    def scale(self, a, b_base):
+        """(..., D) extension elements times (...,) base elements."""
+        return self.nf.mul(a, np.asarray(b_base, np.uint64)[..., None])
 
     def mul(self, a, b):
         """Schoolbook (..., D)x(..., D) with X^D = W wraparound."""
@@ -181,6 +209,15 @@ class NpExt:
             down[1::2] = self.mul(even, inv)
             inv = down[:n]
         return inv
+
+
+def reverse_bits_vec(x: np.ndarray, bits: int) -> np.ndarray:
+    """Bit-reverse each element within `bits` bits."""
+    x = np.asarray(x, np.uint64)
+    r = np.zeros_like(x)
+    for i in range(bits):
+        r |= ((x >> np.uint64(i)) & np.uint64(1)) << np.uint64(bits - 1 - i)
+    return r
 
 
 def np_mul(host, a, b) -> np.ndarray:

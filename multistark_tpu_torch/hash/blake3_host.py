@@ -57,3 +57,17 @@ def native_hash_words(words: np.ndarray):
         out.ctypes.data_as(u32p),
     )
     return out
+
+
+def native_compress_pairs(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """Merkle 2-to-1 compression of (B, 8) + (B, 8) uint32 digest rows ->
+    (B, 8), through the native C helper (one 64-byte single-chunk BLAKE3
+    message per pair)."""
+    left = np.ascontiguousarray(left, np.uint32)
+    right = np.ascontiguousarray(right, np.uint32)
+    out = np.empty((left.shape[0], 8), np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    _native_lib().msb3_compress_pairs(
+        left.ctypes.data_as(u32p), right.ctypes.data_as(u32p), left.shape[0], out.ctypes.data_as(u32p),
+    )
+    return out

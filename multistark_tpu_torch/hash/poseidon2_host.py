@@ -286,3 +286,26 @@ def native_permute(state: Sequence[int]) -> List[int]:
     assert s.shape == (WIDTH,)
     lib().msp2_permute(u32_ptr(s), u32_ptr(CONSTANTS_U32))
     return [int(x) for x in s]
+
+
+def native_hash_rows(rows: np.ndarray) -> np.ndarray:
+    """The padding-free sponge of each row of (B, W) values (reduced mod p
+    here) -> (B, 8) uint32 digests, through the host C helper."""
+    from ..native import lib
+
+    rows = np.ascontiguousarray(np.asarray(rows, np.uint64) % np.uint64(P), np.uint32)
+    out = np.empty((rows.shape[0], OUT), np.uint32)
+    lib().msp2_hash_rows(u32_ptr(rows), rows.shape[1], rows.shape[0], u32_ptr(out), u32_ptr(CONSTANTS_U32))
+    return out
+
+
+def native_compress_pairs(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """The truncated permutation of each (B, 8) + (B, 8) digest pair
+    (reduced mod p here) -> (B, 8) uint32, through the host C helper."""
+    from ..native import lib
+
+    left = np.ascontiguousarray(np.asarray(left, np.uint64) % np.uint64(P), np.uint32)
+    right = np.ascontiguousarray(np.asarray(right, np.uint64) % np.uint64(P), np.uint32)
+    out = np.empty((left.shape[0], OUT), np.uint32)
+    lib().msp2_compress_pairs(u32_ptr(left), u32_ptr(right), left.shape[0], u32_ptr(out), u32_ptr(CONSTANTS_U32))
+    return out

@@ -78,14 +78,36 @@ def fingerprint(he: HostExtField, gamma: ExtVal, vals: Sequence[int]) -> ExtVal:
 def claims_accumulator(
     he: HostExtField, beta: ExtVal, gamma: ExtVal, claims: Sequence[Sequence[int]]
 ) -> ExtVal:
-    """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 on the host, one
-    claim at a time: for ragged claims, which `claims_matrix` cannot stack.
-    Both transcripts take `claims_accumulator_device` for every other batch."""
-    acc = he.zero
-    for claim in claims:
-        fp = fingerprint(he, gamma, [int(v) for v in claim])
-        acc = he.add(acc, he.inv(he.add(beta, fp)))
-    return acc
+    """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 on the host (the
+    verifier's; the provers take `claims_accumulator_device` for every
+    batch `claims_matrix` stacks).  Claims of one length are vectorized:
+    Horner over the claim positions in NpExt and one batch inverse, a zero
+    message contributing zero as in K9; ragged claims go one at a time,
+    where a zero message raises ZeroDivisionError."""
+    from .fields.npref import NpExt, NpField
+
+    arr = claims_matrix(claims, he.base.p)
+    if arr is None:
+        acc = he.zero
+        for claim in claims:
+            fp = fingerprint(he, gamma, [int(v) for v in claim])
+            acc = he.add(acc, he.inv(he.add(beta, fp)))
+        return acc
+    if arr.shape[0] == 0:
+        return he.zero
+    nf = NpField(he.base)
+    ne = NpExt(nf, he)
+    g = ne.of_scalar(gamma)
+    msg = np.zeros((arr.shape[0], he.D), np.uint64)
+    for j in range(arr.shape[1] - 1, -1, -1):
+        msg = ne.mul(msg, g)
+        msg[:, 0] = nf.add(msg[:, 0], arr[:, j])
+    msg = ne.add(msg, ne.of_scalar(beta, (arr.shape[0],)))
+    zero = ~msg.any(axis=1)
+    msg[zero, 0] = 1
+    inv = ne.batch_inv(msg)
+    inv[zero] = 0
+    return tuple(int(c) for c in nf.sum_axis(inv, 0))
 
 
 def claims_matrix(claims, p: int) -> Optional[np.ndarray]:
@@ -173,8 +195,9 @@ def claims_accumulator_device(F: FieldOps, E: ExtOps, claims_arr: np.ndarray, be
     """acc_0 = Σ_claims (β + fingerprint(γ, claim))^-1 over an (n, L)
     canonical-uint64 claims array, with β and γ device scalars: one upload
     of the claims as they are (not waited for), one K9 launch.  Returns a
-    (D,) device scalar.  A zero message maps to zero (the scalar
-    `claims_accumulator` raises instead; either is a ~2^-128 event for
+    (D,) device scalar.  A zero message maps to zero, as in the host
+    `claims_accumulator` of stacked claims (its one-claim-at-a-time path for
+    ragged claims raises instead; either is a ~2^-128 event for
     Goldilocks^2, ~2^-124 for BabyBear^4)."""
     return claims_acc(E, F.from_np(claims_arr, beta.device), beta, gamma)
 

@@ -16,6 +16,11 @@ included, go through K15 (commit_tile.merkle_levels, one launch per tree),
 and the PCS's LDE
 commits hash their leaves and lowest levels in K14 (pcs.py).  Gathers for
 openings are plain tensor indexing.
+
+The verifier's side runs on the host: `MerkleMmcs.verify_batch` walks one
+opened index's path (the reference walk), `mmcs_verify_batch_queries` all
+queries of a tree at once; both hash through the host C helper
+(csrc/host/b3.c, csrc/host/poseidon2.c).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from .commit_tile import merkle_levels
-from .hash import blake3, poseidon2
+from .hash import blake3, blake3_host, poseidon2, poseidon2_host
 
 
 class Blake3FieldHasher:
@@ -51,6 +56,21 @@ class Blake3FieldHasher:
     def consts(self, device) -> None:
         return None
 
+    # -- host (the verifier): one path, or all queries of a tree at once --
+    def host_hash_rows(self, rows: Sequence[Sequence[int]]) -> np.ndarray:
+        """The leaf digest of one opened index's rows (u64-LE values)."""
+        return self.np_hash_rows_batch(np.asarray([[int(v) for row in rows for v in row]], np.uint64))[0]
+
+    def host_compress(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
+        return self.np_compress_batch(np.asarray(left)[None], np.asarray(right)[None])[0]
+
+    def np_hash_rows_batch(self, rows_u64: np.ndarray) -> np.ndarray:
+        """(B, total_w) uint64 -> (B, 8) uint32 digests of the u64-LE words."""
+        return blake3_host.native_hash_words(np.ascontiguousarray(rows_u64, np.uint64).view(np.uint32))
+
+    def np_compress_batch(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
+        return blake3_host.native_compress_pairs(left, right)
+
 
 class Poseidon2FieldHasher:
     """Hash BabyBear-matrix rows with the Poseidon2 padding-free sponge
@@ -69,6 +89,22 @@ class Poseidon2FieldHasher:
     def consts(self, device) -> torch.Tensor:
         """The round constants the kernels stage, on `device`."""
         return poseidon2.device_constants(device)
+
+    # -- host (the verifier): one path, or all queries of a tree at once --
+    def host_hash_rows(self, rows: Sequence[Sequence[int]]) -> np.ndarray:
+        """The leaf digest of one opened index's rows (values mod p)."""
+        return self.np_hash_rows_batch(np.asarray([[int(v) % poseidon2_host.P for row in rows for v in row]],
+                                                  np.uint64))[0]
+
+    def host_compress(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
+        return self.np_compress_batch(np.asarray(left)[None], np.asarray(right)[None])[0]
+
+    def np_hash_rows_batch(self, rows_u64: np.ndarray) -> np.ndarray:
+        """(B, total_w) uint64 -> (B, 8) uint32 digests."""
+        return poseidon2_host.native_hash_rows(rows_u64)
+
+    def np_compress_batch(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
+        return poseidon2_host.native_compress_pairs(left, right)
 
 
 def digest_layer_to_np(layer: torch.Tensor) -> np.ndarray:
@@ -229,3 +265,76 @@ class MerkleMmcs:
     def open_batch(self, data: MerkleProverData, indices) -> List[BatchOpening]:
         """Open all `indices` (leaf-level, < 2^log_max) in one pass."""
         return self.assemble(data, len(indices), self.gather_many([data], [indices])[0])
+
+    # -- verify (host) ----------------------------------------------------
+    def verify_batch(self, cap: np.ndarray, dims: Sequence[Tuple[int, int]], index: int, opening: BatchOpening,
+                     log_max: Optional[int] = None) -> bool:
+        """Recompute the path of one opened index and compare it to the cap
+        (the per-query reference walk)."""
+        if log_max is None:
+            log_max = max(h for _, h in dims).bit_length() - 1
+        heights = sorted({h for _, h in dims}, reverse=True)
+        if heights[-1] < (1 << self.cap_height):
+            return False  # sub-cap matrices are never bound (see check_heights)
+        by_height = {h: [opening.opened_rows[i] for i, (w, mh) in enumerate(dims) if mh == h] for h in heights}
+        for i, (w, h) in enumerate(dims):
+            if len(opening.opened_rows[i]) != w:
+                return False
+        max_h = heights[0]
+        if max_h != 1 << log_max:
+            return False
+        node = self.hasher.host_hash_rows(by_height[max_h])
+        size, idx = max_h, index
+        for l in range(log_max - self.cap_height):
+            sib = opening.path[l]
+            node = self.hasher.host_compress(sib, node) if idx & 1 else self.hasher.host_compress(node, sib)
+            size >>= 1
+            idx >>= 1
+            if size in by_height:
+                node = self.hasher.host_compress(node, self.hasher.host_hash_rows(by_height[size]))
+        return bool(np.array_equal(cap[idx], node))
+
+
+def mmcs_verify_batch_queries(mmcs: MerkleMmcs, cap: np.ndarray, dims: Sequence[Tuple[int, int]], indices,
+                              openings: Sequence[BatchOpening], log_max: Optional[int] = None) -> bool:
+    """Verify all query openings of one tree at once: a few batched host C
+    hash calls per level instead of one per query and node.  Ragged or
+    malformed openings are a failed check."""
+    try:
+        return _verify_batch_queries_impl(mmcs, cap, dims, indices, openings, log_max)
+    except (ValueError, TypeError):
+        return False
+
+
+def _verify_batch_queries_impl(mmcs, cap, dims, indices, openings, log_max) -> bool:
+    if log_max is None:
+        log_max = max(h for _, h in dims).bit_length() - 1
+    heights = sorted({h for _, h in dims}, reverse=True)
+    if heights[-1] < (1 << mmcs.cap_height):
+        return False  # sub-cap matrices are never bound (see check_heights)
+    if heights[0] != 1 << log_max:
+        return False
+    for op in openings:
+        for i, (w, h) in enumerate(dims):
+            if len(op.opened_rows[i]) != w:
+                return False
+    idx = np.asarray(indices, np.int64)
+    by_height = {
+        h: np.concatenate([np.stack([np.asarray(op.opened_rows[i], np.uint64) for op in openings])
+                           for i, (w, mh) in enumerate(dims) if mh == h], axis=1)
+        for h in heights
+    }
+    paths = np.stack([op.path for op in openings])  # (B, path_len, 8)
+    if paths.shape[1] != log_max - mmcs.cap_height:
+        return False
+    node = mmcs.hasher.np_hash_rows_batch(by_height[heights[0]])
+    size = heights[0]
+    for l in range(log_max - mmcs.cap_height):
+        sib = paths[:, l].astype(np.uint32)
+        bit = ((idx >> l) & 1).astype(bool)[:, None]
+        node = mmcs.hasher.np_compress_batch(np.where(bit, sib, node), np.where(bit, node, sib))
+        size >>= 1
+        if size in by_height:
+            node = mmcs.hasher.np_compress_batch(node, mmcs.hasher.np_hash_rows_batch(by_height[size]))
+    final_idx = idx >> (log_max - mmcs.cap_height)
+    return bool(np.array_equal(np.atleast_2d(cap)[final_idx], node))

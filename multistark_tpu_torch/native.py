@@ -1,13 +1,15 @@
-"""The port's host C helper: csrc/host/*.c (BLAKE3 with its grind and the
-chunk chaining values of a device-duplex flush; the Poseidon2 permutation
-with the duplex absorb and grind), built with `cc` into
+"""The port's host C helper: csrc/host/*.c (BLAKE3 with its grind, the
+chunk chaining values of a device-duplex flush and the verifier's batched
+row hashes and pair compressions; the Poseidon2 permutation with the duplex
+absorb and grind and the verifier's batched row hashes and compressions),
+built with `cc` into
 build/torch_kernels/libmshost.so at first use and again whenever a source
 is newer than the library, under an exclusive flock on that directory
 (`build_lock`, which kernels.py takes too).
 
-The Fiat-Shamir transcripts of both configs run on the host; at 2^18
-claims they are not worth running in pure Python, so a failed build
-raises.
+The Fiat-Shamir transcripts and the verifier of both configs run on the
+host; at 2^18 claims they are not worth running in pure Python, so a failed
+build raises (there is no Python fallback).
 """
 
 from __future__ import annotations
@@ -35,11 +37,14 @@ _SIGNATURES = {
     "msb3_hash": ([ctypes.c_char_p, _u64, ctypes.POINTER(ctypes.c_uint8)], None),
     "msb3_grind": ([ctypes.c_char_p, _u64, _u64, _u64, _u32, _u64], _u64),
     "msb3_hash_batch": ([ctypes.c_char_p, _u64, _u64, _u64, _u32p], None),
+    "msb3_compress_pairs": ([_u32p, _u32p, _u64, _u32p], None),
     "msb3_chunk_cvs": ([ctypes.c_char_p, _u64, _u32p], None),
     "msb3_parent_level": ([_u32p, _u64, _u32p], None),
     "msp2_permute": ([_u32p, _u32p], None),
     "msp2_absorb": ([_u32p, _u32p, _u32p, _u32p, _u64, _u32p], ctypes.c_int),
     "msp2_grind": ([_u32p, _u32p, _u32, _u32, _u64, _u32p], _u64),
+    "msp2_hash_rows": ([_u32p, _u64, _u64, _u32p, _u32p], None),
+    "msp2_compress_pairs": ([_u32p, _u32p, _u64, _u32p, _u32p], None),
 }
 
 

@@ -192,6 +192,25 @@ class NttEngine:
         return x.index_select(-1, self.brev(log_n))
 
     # -- public transforms ------------------------------------------------
+    def dft_natural(self, coeffs: torch.Tensor, log_n: int) -> torch.Tensor:
+        """natural coeffs -> natural evals on the subgroup H: the DIT of the
+        bit-reversed coefficients (K14's DIT head, then K2 passes)."""
+        return self._dit(self._unbrev(coeffs, log_n), log_n, inverse=False).reshape(coeffs.shape)
+
+    def idft_natural(self, evals: torch.Tensor, log_n: int) -> torch.Tensor:
+        """natural evals on H -> natural coeffs: the inverse DIT, then n^-1
+        (one K1/K5 product by a scalar)."""
+        out = self._dit(self._unbrev(evals, log_n), log_n, inverse=True)
+        n_inv = self.host.inv((1 << log_n) % self.host.p)
+        return self.F.mul(out, self.F.const(n_inv, out.device)).reshape(evals.shape)
+
+    def coset_eval_bitrev(self, coeffs: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
+        """natural coeffs -> evals on shift·H in bit-reversed order: the
+        coefficients times shift^i (K1/K5), then the DIF (K2 passes, K14's
+        tail)."""
+        c = self.F.mul(coeffs, self.scale_table(log_n, shift))
+        return self._dif(c, log_n, inverse=False).reshape(coeffs.shape)
+
     def icoset_from_natural(self, evals: torch.Tensor, log_n: int, shift: int) -> torch.Tensor:
         """natural evals on shift·H -> natural coeffs."""
         return self.icoset_from_bitrev(self._unbrev(evals, log_n), log_n, shift)

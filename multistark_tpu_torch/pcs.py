@@ -75,15 +75,19 @@ from .challenger import SerializingChallenger64
 from .commit_tile import WARP_LOG, lde_tile, merkle_levels, tile_log_for
 from .config import CommitmentParameters, FriParameters
 from .domains import TwoAdicCoset
+from .errors import VerificationError, ensure
 from .fields.device import ExtOps, FieldOps
 from .fields.host import HostExtField, HostField
-from .fields.npref import np_mul, np_powers
-from .merkle import BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np
+from .fields.npref import NpExt, NpField, np_mul, np_powers, reverse_bits_vec
+from .merkle import (BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np,
+                     mmcs_verify_batch_queries)
 from .ntt import NttEngine
 from .utils import (batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, fold_rows, reverse_bits,
                     scratch, to_device)
 
 ExtVal = Tuple[int, ...]  # host extension element
+# a verifier's opening round: (cap, [(log_n, width, [(point, opened values)]) per matrix])
+VerifyRound = Tuple[np.ndarray, List[Tuple[int, int, List[Tuple[ExtVal, List[ExtVal]]]]]]
 
 
 @dataclass
@@ -741,7 +745,287 @@ class TwoAdicFriPcs:
             for qi in range(nq)
         ]
 
+    # -- verify (host) ------------------------------------------------------
+    def verify(self, rounds: Sequence[VerifyRound], proof: FriProof, challenger, per_query: bool = False) -> None:
+        """Replay the opening's transcript on `challenger` and check every
+        query; raises VerificationError.  The default walk checks all
+        queries at once (each tree's Merkle paths in a few batched host C
+        hash calls, the arithmetic over (Q, ...) NumPy arrays); per_query
+        takes the reference walk, one query at a time (the tests pin the two
+        against each other)."""
+        he, fri = self.he, self.fri
+        for cap, mats in rounds:  # TranscriptProfile.fri_observe_claims_before_alpha
+            for _, _, pts in mats:
+                for _, vals in pts:
+                    for v in vals:
+                        challenger.observe_ext(v)
+        alpha = challenger.sample_ext()
+
+        log_max = max(log_n + self.log_blowup for _, mats in rounds for log_n, _, _ in mats)
+        heights = {log_n + self.log_blowup for _, mats in rounds for log_n, _, pts in mats if pts}
+        log_max_ro = max(heights)
+        schedule = self.fri_schedule(heights, log_max_ro)
+        ensure(len(proof.commit_caps) == len(schedule), "InvalidProofShape", "fold count")
+        ensure(len(proof.commit_pow_witnesses) == len(schedule), "InvalidProofShape", "pow count")
+        betas = []
+        for cap, pow_w in zip(proof.commit_caps, proof.commit_pow_witnesses):
+            challenger.observe_commitment(cap)
+            ensure(challenger.check_witness(fri.commit_proof_of_work_bits, pow_w), "InvalidOpeningArgument",
+                   "commit PoW")
+            betas.append(challenger.sample_ext())
+        ensure(len(proof.final_poly) == 1 << fri.log_final_poly_len, "InvalidProofShape", "final poly len")
+        for c in proof.final_poly:
+            challenger.observe_ext(c)
+        ensure(challenger.check_witness(fri.query_proof_of_work_bits, proof.query_pow_witness),
+               "InvalidOpeningArgument", "query PoW")
+        indices = [challenger.sample_bits(log_max) for _ in range(fri.num_queries)]
+        ensure(len(proof.query_proofs) == len(indices), "InvalidProofShape", "query count")
+
+        # a malformed proof that passes the shape checks (ragged rows, wrong
+        # dtypes, short paths) is a VerificationError, never a NumPy one
+        try:
+            if per_query:
+                for index, qp in zip(indices, proof.query_proofs):
+                    self._verify_query(rounds, alpha, betas, proof, index, qp, log_max, log_max_ro, schedule)
+            else:
+                self._verify_merkle_batched(rounds, proof, indices, log_max, log_max_ro, schedule)
+                self._verify_queries_batched(rounds, alpha, betas, proof, indices, log_max, log_max_ro, schedule)
+        except VerificationError:
+            raise
+        except (ValueError, TypeError, IndexError, KeyError, OverflowError) as e:
+            raise VerificationError("InvalidProofShape", f"malformed proof ({type(e).__name__})") from e
+
+    def _verify_merkle_batched(self, rounds, proof, indices, log_max, log_max_ro, schedule) -> None:
+        """Every input tree's and fold level's Merkle paths, all queries of a
+        tree at once."""
+        idx = np.asarray(indices, np.int64)
+        for qp in proof.query_proofs:
+            ensure(len(qp.input_openings) == len(rounds), "InvalidProofShape", "round count")
+            ensure(len(qp.commit_openings) == len(schedule), "InvalidProofShape", "level count")
+        for r, (cap, mats) in enumerate(rounds):
+            round_log_max = max(log_n for log_n, _, _ in mats) + self.log_blowup
+            dims = [(w, 1 << (log_n + self.log_blowup)) for log_n, w, _ in mats]
+            openings = [qp.input_openings[r] for qp in proof.query_proofs]
+            ensure(mmcs_verify_batch_queries(self.mmcs, cap, dims, idx >> (log_max - round_log_max), openings),
+                   "InvalidOpeningArgument", "input Merkle path")
+        D = self.he.D
+        log_size = log_max_ro
+        pos = idx >> (log_max - log_max_ro)
+        for l, a_bits in enumerate(schedule):
+            A = 1 << a_bits
+            for qp in proof.query_proofs:
+                ensure(len(qp.commit_openings[l][0]) == A * D, "InvalidProofShape", "fold row width")
+            openings = [BatchOpening(opened_rows=[np.asarray(qp.commit_openings[l][0], np.uint64)],
+                                     path=qp.commit_openings[l][1]) for qp in proof.query_proofs]
+            ensure(mmcs_verify_batch_queries(self.mmcs, proof.commit_caps[l], [(A * D, 1 << (log_size - a_bits))],
+                                             pos >> a_bits, openings),
+                   "InvalidOpeningArgument", "commit-phase Merkle path")
+            log_size -= a_bits
+            pos = pos >> a_bits
+
+    def _verify_queries_batched(self, rounds, alpha, betas, proof, indices, log_max, log_max_ro, schedule) -> None:
+        """`_verify_query`'s arithmetic (reduced openings, fold walk, final
+        polynomial) for all queries at once over (Q, ...) uint64 arrays: the
+        same checks and error kinds.  The Merkle paths are checked by
+        `_verify_merkle_batched`."""
+        he, hf = self.he, self.hf
+        nf = NpField(hf)
+        ne = NpExt(nf, he)
+        Q, D = len(indices), he.D
+        idx = np.asarray(indices, np.uint64)
+
+        def stack_rows(get, width, what):
+            try:
+                rows = np.stack([np.asarray(get(qp), np.uint64) for qp in proof.query_proofs])
+            except ValueError:
+                raise VerificationError("InvalidProofShape", what) from None
+            ensure(rows.ndim == 2 and rows.shape[1] == width, "InvalidProofShape", what)
+            return nf.reduce(rows)
+
+        def x_vec(log_size, shift, positions):  # host_x_at over all queries
+            g = hf.two_adic_generator(log_size)
+            return nf.mul(np.uint64(shift % hf.p), nf.pow_vec(g, reverse_bits_vec(positions, log_size), log_size))
+
+        for qp in proof.query_proofs:
+            ensure(len(qp.input_openings) == len(rounds), "InvalidProofShape", "round count")
+            ensure(len(qp.commit_openings) == len(betas), "InvalidProofShape", "level count")
+
+        # reduced openings: α-combined (row - opened values) / (x - z) per LDE height
+        apow_cache = [he.one]
+
+        def apows(lo, hi):
+            while len(apow_cache) < hi:
+                apow_cache.append(he.mul(apow_cache[-1], alpha))
+            return apow_cache[lo:hi]
+
+        ro: Dict[int, Optional[np.ndarray]] = {}
+        offsets: Dict[int, int] = {}
+        pending = []  # (log_lde, numerator (Q, D), denominator (Q, D))
+        for r, (cap, mats) in enumerate(rounds):
+            for m_idx, (log_n, w, pts) in enumerate(mats):
+                if not pts:
+                    continue
+                log_lde = log_n + self.log_blowup
+                rows = stack_rows(lambda qp: qp.input_openings[r].opened_rows[m_idx], w, "row width")
+                xb = x_vec(log_lde, hf.generator, idx >> np.uint64(log_max - log_lde))
+                off = offsets.get(log_lde, 0)
+                for z, vals in pts:
+                    ensure(len(vals) == w, "InvalidProofShape", "opened values width")
+                    ap = apows(off, off + w)
+                    amat = np.asarray([[int(c) % hf.p for c in a] for a in ap], np.uint64)  # (w, D)
+                    num = nf.sum_axis(nf.mul(rows[:, :, None], amat[None, :, :]), 1)
+                    cs = he.zero  # Σ_j α^(off+j)·vals_j
+                    for a_, v in zip(ap, vals):
+                        cs = he.add(cs, he.mul(a_, v))
+                    num = ne.sub(num, ne.of_scalar(cs, (Q,)))
+                    pending.append((log_lde, num, ne.sub(ne.from_base_vec(xb), ne.of_scalar(z, (Q,)))))
+                    off += w
+                offsets[log_lde] = off
+                ro.setdefault(log_lde, None)
+        if pending:
+            denoms = np.concatenate([d for _, _, d in pending])
+            ensure(not np.all(denoms == 0, axis=1).any(), "InvalidOpeningArgument", "OOD point on evaluation domain")
+            invs = ne.batch_inv(denoms)
+            for i, (log_lde, num, _) in enumerate(pending):
+                term = ne.mul(num, invs[i * Q : (i + 1) * Q])
+                ro[log_lde] = term if ro[log_lde] is None else ne.add(ro[log_lde], term)
+
+        # fold walk
+        log_size = log_max_ro
+        pos = idx >> np.uint64(log_max - log_max_ro)
+        value = ro.get(log_max_ro)
+        if value is None:
+            value = ne.of_scalar(he.zero, (Q,))
+        for l, (beta, a_bits) in enumerate(zip(betas, schedule)):
+            A = 1 << a_bits
+            vals = stack_rows(lambda qp: qp.commit_openings[l][0], A * D, "fold row width").reshape(Q, A, D)
+            sel = vals[np.arange(Q), (pos & np.uint64(A - 1)).astype(np.int64)]
+            ensure(np.array_equal(sel, value), "InvalidOpeningArgument", "fold consistency")
+            shift = self._shift_at(log_max_ro, log_size)
+            value = self._np_fold_block(ne, vals, log_size, shift, pos - (pos & np.uint64(A - 1)), beta)
+            log_size -= a_bits
+            pos = pos >> np.uint64(a_bits)
+            if ro.get(log_size) is not None:
+                value = ne.add(value, ro[log_size])
+
+        xf = x_vec(log_size, self._shift_at(log_max_ro, log_size), pos)
+        acc = ne.of_scalar(he.zero, (Q,))
+        for c in reversed(proof.final_poly):
+            acc = ne.add(ne.scale(acc, xf), ne.of_scalar(c, (Q,)))
+        ensure(np.array_equal(acc, value), "InvalidOpeningArgument", "final poly mismatch")
+
+    def _np_fold_block(self, ne: NpExt, vals: np.ndarray, log_m: int, shift: int, base, beta) -> np.ndarray:
+        """`_host_fold_block` for all queries: (Q, A, D) opened blocks ->
+        (Q, D) folded values."""
+        nf, hf = ne.nf, self.hf
+        half_inv = np.uint64(hf.inv(2))
+        beta_v = ne.of_scalar(beta)
+        b = np.asarray(base, np.uint64)
+        A = vals.shape[1]
+        while A > 1:
+            g_inv = hf.inv(hf.two_adic_generator(log_m))
+            shift_inv = np.uint64(hf.inv(shift))
+            outs = []
+            for i in range(A // 2):
+                inv_x_even = nf.mul(shift_inv, nf.pow_vec(g_inv, reverse_bits_vec(b + np.uint64(2 * i), log_m), log_m))
+                s = ne.scale(ne.add(vals[:, 2 * i], vals[:, 2 * i + 1]), half_inv)
+                d = ne.scale(ne.sub(vals[:, 2 * i], vals[:, 2 * i + 1]), nf.mul(half_inv, inv_x_even))
+                outs.append(ne.add(s, ne.mul(beta_v, d)))
+            vals = np.stack(outs, axis=1)
+            A //= 2
+            log_m -= 1
+            shift = hf.mul(shift, shift)
+            b = b >> np.uint64(1)
+            if A > 1:
+                beta_v = ne.mul(beta_v, beta_v)
+        return vals[:, 0]
+
+    def _verify_query(self, rounds, alpha, betas, proof, index, qp, log_max, log_max_ro, schedule) -> None:
+        """The reference walk of one query: its Merkle paths, reduced
+        openings, fold walk and final polynomial, in scalar host
+        arithmetic."""
+        he, hf = self.he, self.hf
+        ensure(len(qp.input_openings) == len(rounds), "InvalidProofShape", "round count")
+        ro: Dict[int, ExtVal] = {}
+        offsets: Dict[int, int] = {}
+        for (cap, mats), opening in zip(rounds, qp.input_openings):
+            round_log_max = max(log_n for log_n, _, _ in mats) + self.log_blowup
+            dims = [(w, 1 << (log_n + self.log_blowup)) for log_n, w, _ in mats]
+            ensure(self.mmcs.verify_batch(cap, dims, index >> (log_max - round_log_max), opening),
+                   "InvalidOpeningArgument", "input Merkle path")
+            for m_idx, (log_n, w, pts) in enumerate(mats):
+                if not pts:
+                    continue
+                log_lde = log_n + self.log_blowup
+                row = [int(v) % hf.p for v in opening.opened_rows[m_idx]]
+                ensure(len(row) == w, "InvalidProofShape", "row width")
+                x = he.from_base(self.host_x_at(log_lde, hf.generator, index >> (log_max - log_lde)))
+                off = offsets.get(log_lde, 0)
+                acc = ro.get(log_lde, he.zero)
+                for z, vals in pts:
+                    ensure(len(vals) == w, "InvalidProofShape", "opened values width")
+                    num = he.zero
+                    apow = he.pow(alpha, off)
+                    for j in range(w):
+                        num = he.add(num, he.mul(apow, he.sub(he.from_base(row[j]), vals[j])))
+                        apow = he.mul(apow, alpha)
+                    acc = he.add(acc, he.div(num, he.sub(x, z)))
+                    off += w
+                offsets[log_lde] = off
+                ro[log_lde] = acc
+
+        ensure(len(qp.commit_openings) == len(betas), "InvalidProofShape", "level count")
+        log_size = log_max_ro
+        pos = index >> (log_max - log_max_ro)
+        value = ro.get(log_max_ro, he.zero)
+        D = he.D
+        for l, ((row, path), beta, a_bits) in enumerate(zip(qp.commit_openings, betas, schedule)):
+            A = 1 << a_bits
+            ensure(len(row) == A * D, "InvalidProofShape", "fold row width")
+            opening = BatchOpening(opened_rows=[np.asarray(row, np.uint64)], path=path)
+            ensure(self.mmcs.verify_batch(proof.commit_caps[l], [(A * D, 1 << (log_size - a_bits))], pos >> a_bits,
+                                          opening),
+                   "InvalidOpeningArgument", "commit-phase Merkle path")
+            vals = [tuple(int(row[j * D + d]) % hf.p for d in range(D)) for j in range(A)]
+            ensure(vals[pos & (A - 1)] == value, "InvalidOpeningArgument", "fold consistency")
+            value = self._host_fold_block(vals, log_size, self._shift_at(log_max_ro, log_size), pos & ~(A - 1), beta)
+            log_size -= a_bits
+            pos >>= a_bits
+            if log_size in ro:
+                value = he.add(value, ro[log_size])
+
+        x_final = self.host_x_at(log_size, self._shift_at(log_max_ro, log_size), pos)
+        acc = he.zero
+        for c in reversed(proof.final_poly):
+            acc = he.add(he.scale(acc, x_final), c)
+        ensure(acc == value, "InvalidOpeningArgument", "final poly mismatch")
+
+    def _host_fold_block(self, vals, log_m: int, shift: int, base: int, beta) -> ExtVal:
+        """Pair-fold one query's 2^k opened values with β, β², ... down to
+        one value (the fold K10 runs on the device)."""
+        he, hf = self.he, self.hf
+        half_inv = hf.inv(2)
+        b = base
+        while len(vals) > 1:
+            out = []
+            for i in range(len(vals) // 2):
+                x_even = self.host_x_at(log_m, shift, b + 2 * i)
+                s = he.scale(he.add(vals[2 * i], vals[2 * i + 1]), half_inv)
+                d = he.scale(he.sub(vals[2 * i], vals[2 * i + 1]), hf.mul(half_inv, hf.inv(x_even)))
+                out.append(he.add(s, he.mul(beta, d)))
+            vals = out
+            log_m -= 1
+            shift = hf.mul(shift, shift)
+            b >>= 1
+            if len(vals) > 1:
+                beta = he.square(beta)
+        return vals[0]
+
     # -- helpers ----------------------------------------------------------
+    def host_x_at(self, log_n: int, shift: int, storage_index: int) -> int:
+        """The coset point shift·g^rev(i) at storage (bit-reversed) index i."""
+        return self.hf.mul(shift, self.hf.pow(self.hf.two_adic_generator(log_n), reverse_bits(storage_index, log_n)))
+
     def _shift_at(self, log_max: int, log_size: int) -> int:
         """LDE shift after folding from log_max to log_size: GENERATOR^(2^k)."""
         return self.hf.exp_power_of_2(self.hf.generator, log_max - log_size)

@@ -61,6 +61,15 @@ class Proof:
 
         return proof_to_bytes(self)
 
+    @staticmethod
+    def from_bytes(data: bytes, system: System) -> "Proof":
+        """Read a proof `to_bytes` wrote (this port's or the JAX package's:
+        the bytes are the same) for `system`; malformed bytes raise
+        VerificationError("InvalidProofShape")."""
+        from .serialization import proof_from_bytes
+
+        return proof_from_bytes(data, system)
+
 
 def prove(system: System, key: ProverKey, witness: SystemWitness, claims=None) -> Proof:
     return prove_multiple_claims(system, key, witness, [] if claims is None else [claims])

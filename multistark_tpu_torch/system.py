@@ -158,6 +158,31 @@ class System:
         system = System(config, circuits, cap, pre_index)
         return system, ProverKey(preprocessed_data=data, preprocessed_mats_device=pre_mats)
 
+    # -- prove and verify --------------------------------------------------
+    def prove(self, key: ProverKey, witness: "SystemWitness", claims=None):
+        from .prover import prove_multiple_claims
+
+        return prove_multiple_claims(self, key, witness, [] if claims is None else [claims])
+
+    def prove_multiple_claims(self, key: ProverKey, witness: "SystemWitness", claims):
+        """prover.prove_multiple_claims: the device transcript where the
+        config allows it, else the host transcript."""
+        from .prover import prove_multiple_claims
+
+        return prove_multiple_claims(self, key, witness, claims)
+
+    def verify(self, proof, claims=None) -> None:
+        from .verifier import verify_multiple_claims
+
+        verify_multiple_claims(self, [] if claims is None else [claims], proof)
+
+    def verify_multiple_claims(self, claims, proof) -> None:
+        """verifier.verify_multiple_claims: returns, or raises
+        VerificationError."""
+        from .verifier import verify_multiple_claims
+
+        verify_multiple_claims(self, claims, proof)
+
     # -- transcript shape binding ----------------------------------------
     def observe_shape(self, challenger) -> None:
         challenger.observe_u64(len(self.circuits))

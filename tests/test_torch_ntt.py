@@ -115,3 +115,22 @@ def test_pass_plan(top, bottom, pass_max, want):
     assert plan == want
     stages = [s for s_lo, r in plan for s in range(s_lo + r - 1, s_lo - 1, -1)]
     assert stages == list(range(top, bottom, -1))
+
+
+@pytest.mark.parametrize("log_n", [1, 4, 7, 10])
+@pytest.mark.parametrize("transform", ["dft_natural", "idft_natural", "coset_eval_bitrev"])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_natural_order_transforms_match_jax(field_engines, field, transform, log_n):
+    """dft_natural, idft_natural and coset_eval_bitrev (shift: the field's
+    generator) against the JAX engine's, bit for bit (tests/test_ntt.py pins
+    the JAX side against naive evaluation); idft_natural undoes
+    dft_natural."""
+    jax_eng, eng = field_engines[field]
+    jf, tf, host = FIELDS[field]
+    m = np.random.default_rng(300 + log_n).integers(0, host.p, (W, 1 << log_n), dtype=np.uint64)
+    args = (host.generator,) if transform == "coset_eval_bitrev" else ()
+    want = jf.to_np(getattr(jax_eng, transform)(jf.from_np(m), log_n, *args))
+    got = getattr(eng, transform)(tf.from_np(m, "cpu"), log_n, *args)
+    np.testing.assert_array_equal(fd.to_np(got), want)
+    if transform == "dft_natural":
+        np.testing.assert_array_equal(fd.to_np(eng.idft_natural(got, log_n)), m)
