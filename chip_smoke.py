@@ -13,8 +13,11 @@ without printing a result:
                 K12-K15 into the library; then K11's kernels, one per
                 recorded program of the bench proves (both configs, 2^14
                 and 2^18), generated from the template csrc/expr_sweep.cu,
-                one nvcc per program, all at once; prints each source's
-                and each program's build seconds and the registers, stack
+                one nvcc per program, all at once, then those of the
+                workloads (phase 4b and the blake3_proof example), all
+                at once; prints each source's and each bench program's
+                build seconds, the Compression circuit's three programs'
+                seconds and ptxas reports, and the registers, stack
                 frames and spills of K1's and K5's, K3's, K6's, K14's,
                 gl_scan.cu's, K15's, K13's, K12's, K8's, K10's and K9's
                 kernels
@@ -37,7 +40,9 @@ without printing a result:
                 entries (batch inverse, cumsum, sum, sum of inverses, the
                 stage-2 chain) at the stage-2 shape and at edge cases around
                 their tiles; K11 on U32Add's three recorded programs at 2^18
-                rows and the quotient in the sharded natural mode, K12 at
+                rows and the quotient in the sharded natural mode, and on
+                the BLAKE3 family's Compression circuit (269 columns, 73
+                lookups) at 2^11 rows, K12 at
                 the bench's two trace heights (2^18: the (14, 2^20) stored
                 LDE and two more matrices, 2^8: four) and below one tile,
                 each launched twice (the per-matrix launch structure timed
@@ -46,7 +51,9 @@ without printing a result:
                 timed beside), K14 at the tiles the
                 commits pick: the stage-1 commit's tile, with and without
                 an injection inside its levels, the stage-2 width, an
-                iDFT's tail and its DIT head, the quotient iDFT's DIT head;
+                iDFT's tail and its DIT head, the quotient iDFT's DIT head,
+                the Compression circuit's 269 and 146 columns at 2^13
+                (rows past one BLAKE3 chunk);
                 K15 on every tree of 2^1 to 2^20 leaves at caps 2^0 and 2^4
                 with injections at the first level, above the first tier
                 and at the top, each launched twice, and on forced plans of
@@ -64,7 +71,9 @@ without printing a result:
                 18 chained rounds beside the parent's structure (the fold
                 vector, then K3's FRI entry); K9 on row-major claims from 1
                 to 2^21 + 5 (widths 0 to 4, a zero message, a view off 16
-                bytes), one extension inversion's latency, and the
+                bytes) and the BLAKE3 family's 45-wide claims (1087 and
+                2^16: by Horner, past the shared γ powers), one extension
+                inversion's latency, and the
                 accumulator from the host array beside the parent's
                 transpose and upload; outputs must be bit-equal (all arithmetic
                 is exact mod p, all hashing exact); warm CUDA-event times of
@@ -103,6 +112,24 @@ without printing a result:
                 and the openings' check; the verifier's other kinds (shape,
                 counts, Merkle paths, PoW) are pinned against the JAX
                 verifier by the CPU tests (tests/test_torch_verifier.py)
+  4b. workloads -- the golden entries of
+                fixtures/torch_port_golden_workloads.json on `cuda`,
+                GoldilocksBlake3 (data from scripts/torch_port_golden.py):
+                the 10-circuit BLAKE3 family over a 64 KiB message (1087
+                compressions; heights 2^8, 2^11, 2^16, 2^18, 2^19) through
+                `prove_multiple_claims` and `prove_host_transcript`, a cold
+                and two warm proves each; byte_operations at 8 bits over
+                2^16 claims (device transcript, one warm prove); its ragged
+                claims at 4 bits, which must count exactly one "ragged
+                claims" fallback.  Each: the host witness seconds (the
+                BLAKE3 one under 5 s), the golden sha256 and length, peak
+                device memory, the warm prove's launches, the proof read
+                back, verified and a tampered claim rejected (BLAKE3: a
+                digest word of the root compression); launches counted
+                from 0 over the phase, every GL device-transcript kernel
+                launched, then 0 syncs before the global fetch and 0
+                fallbacks on each device-transcript prove without ragged
+                claims
   5. sharded -- the row-sharded prove (parallel.py) on torch.distributed,
                 ranks started with the spawn method from the package
                 (spmd_cases.chip_rank): NCCL at world = the largest power of
@@ -128,12 +155,13 @@ without printing a result:
                 calls on CPU tensors, the second call of each under
                 torch.cuda.set_sync_debug_mode("error") with its launches
                 counted (K2 and K14, and K1 / K5 for the scaled ones, from
-                2^14 up); then the four single-device examples
+                2^14 up); then the five single-device examples
                 (multistark_tpu_torch/examples: simple_proof,
-                preprocessed_proof, lookup_proof, pcs_example) through
-                main(device="cuda"), each proving and verifying with the
-                port and printing its needle ("Proof size", "Wrong claim
-                rejected", "Opened value matches Horner evaluation").  Its
+                preprocessed_proof, lookup_proof, pcs_example,
+                blake3_proof) through main(device="cuda"), each proving
+                and verifying with the port and printing its needle
+                ("Proof size", "Wrong claim rejected", "Opened value
+                matches Horner evaluation", "Tampered digest rejected").  Its
                 launches come after the counted paths and are not in the
                 kernels line
 
@@ -178,6 +206,16 @@ BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
 BENCH_FRI = dict(log_final_poly_len=0, max_log_arity=1, num_queries=100,
                  commit_proof_of_work_bits=10, query_proof_of_work_bits=10)
 CLAIM_WIDTH = 4  # values per claim of the bench workload (u32_add: channel, x, y, x + y mod 2^32)
+# the workloads whose K11 programs phase 2 builds: the workloads phase's, and
+# the blake3_proof example's (its 4 KiB message at 8 bits, as the entry
+# "blake3 4 KiB")
+WORKLOAD_PROGRAMS = ("blake3 64 KiB", "blake3 4 KiB", "byte_operations 8 bits", "byte_operations 4 bits ragged")
+# the BLAKE3 family (test_circuits/blake3_circuit.py): claims of 45 values
+# (channel, cv, block, counter, length, flags, output), 1087 of them for a
+# 64 KiB message; the Compression circuit's main and stage-2 widths
+BLAKE3_CLAIM_WIDTH = 45
+BLAKE3_CLAIM_COUNTS = (1087, 1 << 16)
+COMPRESSION_WIDTHS = (269, 146)
 # One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s,
 # and 32-bit operations/s on the CUDA cores (the float32 non-tensor rate;
 # integer instructions run no faster, so this gives the least time)
@@ -807,6 +845,7 @@ def check_claims_acc(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None
     cases = 0
     shapes = [(n, CLAIM_WIDTH) for n in (1, 31, 127, 128, 129, 511, 512, 513, 1025, 4097, 1 << 18)]
     shapes += [(300, 0), (1000, 1), (777, 3), ((1 << 21) + 5, 1)]
+    shapes += [(n, BLAKE3_CLAIM_WIDTH) for n in BLAKE3_CLAIM_COUNTS]  # wider than K9's shared γ powers
     for n, L in shapes:
         claims, b, g = rnd(F, n, L), rnd(F, D), rnd(F, D)
         variants = [("", claims, b)]
@@ -825,8 +864,9 @@ def check_claims_acc(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None
                                          "its plain version")
                 cases += 1
     torch.cuda.synchronize()
-    say("kernels", f"claims_fp {E.name} claims_acc: {cases} cases (n = 1 to 2^21 + 5, widths 0 to 4, a zero message, "
-        "a view off 16 bytes; each launched twice) bit-equal to the plain version")
+    say("kernels", f"claims_fp {E.name} claims_acc: {cases} cases (n = 1 to 2^21 + 5, widths 0 to 4 and "
+        f"{BLAKE3_CLAIM_WIDTH}, a zero message, a view off 16 bytes; each launched twice) bit-equal to the plain "
+        "version")
 
     x = rnd(F, D)
     if not torch.equal(lk.ext_inv_chain(E, x, 16), lk.ext_inv_chain(E, x.cpu(), 16).to(x.device)):
@@ -843,6 +883,13 @@ def check_claims_acc(F, E, rnd, compare, mul_ops, ext_muls, first: bool) -> None
             f"{floor_ms:.4f} ms", lambda: lk.claims_acc(E, claims, b, g), lambda: lk.claims_acc_plain(E, claims, b, g),
             (8 * claims.numel() + 24 * D, n * ((L - 1) * D + 2 * ext_muls) * mul_ops), name="claims_fp" if first else None,
             device=True)
+    for n_wide in BLAKE3_CLAIM_COUNTS:  # the BLAKE3 family's claims: by Horner, past K9's MAX_POWERS
+        wide = rnd(F, n_wide, BLAKE3_CLAIM_WIDTH)
+        compare(f"claims_fp {E.name} claims_acc ({n_wide}, {BLAKE3_CLAIM_WIDTH}) row-major, wider than the shared "
+                "γ powers (Horner)", lambda wide=wide: lk.claims_acc(E, wide, b, g),
+                lambda wide=wide: lk.claims_acc_plain(E, wide, b, g),
+                (8 * wide.numel() + 24 * D, n_wide * ((BLAKE3_CLAIM_WIDTH - 1) * D + 2 * ext_muls) * mul_ops),
+                device=True)
     host = F.to_np(claims)
     msgs = rnd(F, D, n)
 
@@ -1227,6 +1274,10 @@ def check_commit_tiles(dev, F, hasher, rnd, compare, per_hash, mul_ops, first: b
     short = tile_case("a (2, 2^18) group's LDE", 2, 18, True, fold=False)[0]
     tile_case("U32Add LDE, the (2, 2^18) group injected inside the tile's levels", 14, 20, True, inject_rows=short)
     tile_case("stage-2 LDE", s2_cols, 20, True)
+    if first:  # the BLAKE3 family's Compression circuit at 64 KiB (2^11 rows): rows of 2152 and 1168 bytes
+        for label, cols in (("Compression LDE", COMPRESSION_WIDTHS[0]), ("Compression stage-2 LDE",
+                                                                        COMPRESSION_WIDTHS[1])):
+            tile_case(label, cols, 11 + BENCH_COMMIT["log_blowup"], True)
     tile_case("iDFT tail", 14, 18, False, inverse=True)
     tile_case("iDFT head", 14, 18, False, inverse=True, dif=False)
     tile_case("quotient iDFT head", D, 18, False, inverse=True, dif=False)
@@ -1349,13 +1400,29 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
     """K11 against its plain version on U32Add's three programs at 2^18 rows
     (blowup 4): the quotient composition over the stored stage-1 and stage-2
     LDEs (bit-reversed, next row q = 1 ahead), the lookup values over the
-    trace, and the stage-2 messages over those values."""
-    from multistark_tpu_torch import program, prover, system as sm
+    trace, and the stage-2 messages over those values; for Goldilocks also
+    the BLAKE3 family's Compression circuit (269 columns, 73 lookups) at the
+    64 KiB message's 2^11 rows."""
+    from multistark_tpu_torch import system as sm
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs
+    from multistark_tpu_torch.test_circuits.blake3_circuit import blake3_system_inputs
 
     name = "goldilocks_blake3" if first else "babybear_poseidon2"
     system, _ = sm.System.new(bench_config(dev, name), u32_add_system_inputs())
-    c_idx, log_n, D = 0, 18, E.D
+    program_cases(F, E, rnd, compare, mul_ops, system, 0, 18, "U32Add", natural=True,
+                  name="expr_sweep" if first else None)
+    if first:
+        system, _ = sm.System.new(bench_config(dev, name), blake3_system_inputs(8))
+        program_cases(F, E, rnd, compare, mul_ops, system, 0, 11, "the Compression circuit")
+
+
+def program_cases(F, E, rnd, compare, mul_ops, system, c_idx, log_n, label, natural=False, name=None) -> None:
+    """K11 on circuit c_idx's three programs at 2^log_n rows, each against
+    its plain version (the quotient also in the sharded natural mode if
+    `natural`); then each program's instructions, staging and ptxas report."""
+    from multistark_tpu_torch import program, prover
+
+    D = E.D
     circuit = system.circuits[c_idx]
     n = 1 << log_n
     lde = 1 << (log_n + BENCH_COMMIT["log_blowup"])
@@ -1381,40 +1448,49 @@ def check_programs(dev, F, E, rnd, compare, mul_ops, first: bool) -> None:
         apows=rnd(F, D, circuit.constraint_count),
     )
     say("kernels", f"expr_sweep programs: {qprog.name} {len(qprog.code)} instructions, {qprog.n_regs} registers")
-    compare(f"expr_sweep {F.name} quotient of U32Add (2^18 rows)",
+    compare(f"expr_sweep {F.name} quotient of {label} (2^{log_n} rows)",
             lambda: program.expr_sweep(F, qprog, qops, (D, m), m, 1),
-            lambda: program.expr_sweep_plain(F, qprog, qops, (D, m), m, 1), cost(qprog, m, D),
-            name="expr_sweep" if first else None, device=True)
-    # (a') the same program in natural mode on a rank's block of a four-rank
-    # mesh plus the q rows after it, as the sharded quotient runs it
-    b = m // 4
-    nops = program.Operands(
-        sources=[None, rnd(F, circuit.main_width, b + q), rnd(F, circuit.stage2_width, b + q)], rows=b + q, step=q,
-        selectors=[rnd(F, b + q) for _ in program.SELECTORS], pubs=qops.pubs, apows=qops.apows,
-    )
-    compare(f"expr_sweep {F.name} quotient of U32Add, natural mode, a block of {b} rows + {q} halo",
-            lambda: program.expr_sweep(F, qprog, nops, (D, b + q), b + q, 1),
-            lambda: program.expr_sweep_plain(F, qprog, nops, (D, b + q), b + q, 1), cost(qprog, b + q, D), device=True)
+            lambda: program.expr_sweep_plain(F, qprog, qops, (D, m), m, 1), cost(qprog, m, D), name=name, device=True)
+    if natural:
+        # (a') the same program in natural mode on a rank's block of a
+        # four-rank mesh plus the q rows after it, as the sharded quotient runs it
+        b = m // 4
+        nops = program.Operands(
+            sources=[None, rnd(F, circuit.main_width, b + q), rnd(F, circuit.stage2_width, b + q)], rows=b + q,
+            step=q, selectors=[rnd(F, b + q) for _ in program.SELECTORS], pubs=qops.pubs, apows=qops.apows,
+        )
+        compare(f"expr_sweep {F.name} quotient of {label}, natural mode, a block of {b} rows + {q} halo",
+                lambda: program.expr_sweep(F, qprog, nops, (D, b + q), b + q, 1),
+                lambda: program.expr_sweep_plain(F, qprog, nops, (D, b + q), b + q, 1), cost(qprog, b + q, D),
+                device=True)
     # (b) the lookup values
     lprog = system.lookup_values_program(c_idx)
     arities = tuple(len(a) for _, a in circuit.graph.lookups)
     n_out = sum(1 + a for a in arities)
     lops = program.Operands(sources=[None, rnd(F, circuit.main_width, n)], rows=n)
-    compare(f"expr_sweep {F.name} lookup values of U32Add (2^18 rows)",
+    compare(f"expr_sweep {F.name} lookup values of {label} (2^{log_n} rows)",
             lambda: program.expr_sweep(F, lprog, lops, (n_out, n), n, 1),
             lambda: program.expr_sweep_plain(F, lprog, lops, (n_out, n), n, 1), cost(lprog, n, n_out), device=True)
     # (c) the stage-2 messages
     L = len(arities)
     sprog = system.stage2_program(c_idx)
     sops = program.Operands(sources=[rnd(F, n_out, n)], rows=n, pubs=rnd(F, 2 * D))
-    compare(f"expr_sweep {F.name} stage-2 messages of U32Add (2^18 rows, {L} slots)",
+    compare(f"expr_sweep {F.name} stage-2 messages of {label} (2^{log_n} rows, {L} slots)",
             lambda: program.expr_sweep(F, sprog, sops, (D + 1, n * L), n * L, L),
-            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)), device=True)
+            lambda: program.expr_sweep_plain(F, sprog, sops, (D + 1, n * L), n * L, L), cost(sprog, n, L * (D + 1)),
+            device=True)
     for prog in (qprog, lprog, sprog):
-        report = [ln.split(":", 1)[-1].strip() for ln in program.ptxas_report(F, prog).splitlines()
-                  if "registers" in ln or "spill" in ln]
-        say("kernels", f"expr_sweep {F.name} {prog.name}: {len(prog.code)} instructions, staging "
-            f"{program.staging(prog)}; ptxas: {'; '.join(report) or 'no report'}")
+        say("kernels", f"expr_sweep {F.name} {label} {prog.name}: {len(prog.code)} instructions, staging "
+            f"{program.staging(prog)}; ptxas: {ptxas_program(F, prog)}")
+
+
+def ptxas_program(F, prog) -> str:
+    """The registers and spills of a K11 program's last build."""
+    from multistark_tpu_torch import program
+
+    report = [ln.split(":", 1)[-1].strip() for ln in program.ptxas_report(F, prog).splitlines()
+              if "registers" in ln or "spill" in ln]
+    return "; ".join(report) or "no report"
 
 
 def ptxas_kernels(path: str, names) -> str:
@@ -1460,6 +1536,70 @@ def build_programs(dev) -> None:
         say("build", f"nvcc built {len(secs)} K11 programs of {name} in {time.perf_counter() - t0:.1f} s "
             "(all at once; each program's seconds from the start): "
             + ", ".join(f"{p} ({sizes[p]} instructions) {s:.1f} s" for p, s in secs.items()))
+
+
+def golden_workloads():
+    """scripts/torch_port_golden.py (the workloads' data; it imports no JAX)
+    and its golden entries (fixtures/torch_port_golden_workloads.json)."""
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_port_golden
+
+    with open(torch_port_golden.WORKLOADS_PATH) as f:
+        return torch_port_golden, json.load(f)
+
+
+def workload_data(G, name: str):
+    """(the circuits, the host witness: traces and claims, its seconds) of
+    the golden workload `name` (BLAKE3: the hasher's compressions and the
+    10-circuit witness; byte_operations: the multiplicity trace)."""
+    from multistark_tpu_torch.test_circuits import blake3_circuit as b3c, byte_operations as bo
+
+    inputs = G.workload_inputs(name, b3c, bo)
+    t0 = time.perf_counter()
+    traces, claims = G.workload_witness(name, b3c, bo)
+    return inputs, traces, claims, time.perf_counter() - t0
+
+
+def workload_system(dev, G, name: str, inputs):
+    from multistark_tpu_torch.config import CommitmentParameters, FriParameters
+    from multistark_tpu_torch.configs import GoldilocksBlake3Config
+    from multistark_tpu_torch.system import System
+
+    config = GoldilocksBlake3Config(CommitmentParameters(**G.BENCH_COMMIT), FriParameters(**G.WORKLOADS[name][2]),
+                                    device=dev)
+    return System.new(config, inputs)
+
+
+def build_workload_programs(dev) -> None:
+    """Phase 2, K11 of the workloads: every program the workloads phase and
+    the blake3_proof example run (WORKLOAD_PROGRAMS), one nvcc per program,
+    all started together; prints the seconds of all and, for the
+    Compression circuit's three programs at 64 KiB, each one's seconds,
+    instructions and ptxas report.  (program.build reports seconds by
+    program name, a later program's over an earlier one's of the same
+    name: the 64 KiB system comes last, so its names report its own.)"""
+    from multistark_tpu_torch import program
+
+    G, _ = golden_workloads()
+    progs = []
+    for name in WORKLOAD_PROGRAMS[::-1]:
+        inputs, traces, _, _ = workload_data(G, name)
+        system, _ = workload_system(dev, G, name, inputs)
+        progs += system.programs([t.shape[0] for t in traces])
+    compression = [p for p in progs[-30:] if "circuit 0" in p.name]  # the 64 KiB system's
+    F = system.config.field
+    t0 = time.perf_counter()
+    secs = program.build(F, progs, force=True)
+    distinct = len({p.cuda_source(F.field_id)[0] for p in progs})
+    say("build", f"nvcc built {len(secs)} K11 programs of the workloads ({distinct} distinct of {len(progs)} "
+        f"recorded) in {time.perf_counter() - t0:.1f} s (all at once); the longest "
+        f"{max(secs.values()):.1f} s")
+    for p in compression:
+        say("build", f"the Compression circuit's {p.name}: {len(p.code)} instructions, a live set of {p.n_regs} "
+            f"values, staging {program.staging(p)}, nvcc {secs[p.name]:.1f} s from the start; ptxas: "
+            f"{ptxas_program(F, p)}")
 
 
 def bench_config(dev, config_name: str):
@@ -1627,6 +1767,139 @@ def tampered_kinds(system, claims, proof) -> dict:
     return kinds
 
 
+# the workloads phase: (golden entry, prover entry points, warm proves, the
+# fallbacks the device transcript must count, the claim value to tamper)
+WORKLOADS = (
+    ("blake3 64 KiB", ("prove_multiple_claims", "prove_host_transcript"), 2, {}, (-1, -9)),
+    ("byte_operations 8 bits", ("prove_multiple_claims",), 1, {}, (0, 3)),
+    ("byte_operations 4 bits ragged", ("prove_multiple_claims",), 0, {"ragged claims": 1}, (0, 3)),
+)
+WITNESS_LIMIT_S = 5.0  # the 64 KiB witness's host build (the JAX package's per-row loops took 40.7 s)
+
+
+def workloads_phase(dev) -> dict:
+    """Phase 4b: the workloads beyond the bench on `cuda`, GoldilocksBlake3
+    (golden entries of fixtures/torch_port_golden_workloads.json, the
+    data of scripts/torch_port_golden.py): the BLAKE3 family over a 64 KiB
+    message (1087 compressions, traces of 2^8 to 2^19 rows) through the
+    device transcript and prove_host_transcript, byte_operations at 8 bits
+    over 2^16 claims, and its ragged claims at 4 bits (one counted "ragged
+    claims" fallback).  Per workload: the host witness seconds, the device
+    witness, a cold prove and the warm ones (seconds, peak device memory,
+    launches of the last), the golden sha256 and length, the fallbacks,
+    Proof.from_bytes reading back the same bytes, the port's verifier
+    accepting and rejecting a tampered claim (BLAKE3: a digest word of the
+    root compression).  The launch counts are set to 0 just before the
+    phase and read just after its proves; then each device-transcript
+    prove runs up to its global fetch once more under
+    torch.cuda.set_sync_debug_mode("error").  Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    import multistark_tpu_torch as mt
+    from multistark_tpu_torch import device_transcript as dt, dt_prover, kernels, program, prover
+    from multistark_tpu_torch.errors import VerificationError
+    from multistark_tpu_torch.system import SystemWitness
+
+    G, golden = golden_workloads()
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()  # the earlier phases' launches do not count
+    sync_checks = []
+    for name, entries, warm, fallbacks, tamper in WORKLOADS:
+        inputs, traces, claims, t_host = workload_data(G, name)
+        heights = [t.shape[0] for t in traces]
+        system, key = workload_system(dev, G, name, inputs)
+        traces, claims = mt.witness_from_numpy(traces, claims, dev)
+        progs = system.programs(heights)
+        t0 = time.perf_counter()
+        built = program.build(system.config.field, progs)  # phase 2 built them: nothing to do
+        for p in progs:
+            program._kernel(system.config.field, p)
+        t_load = time.perf_counter() - t0
+        if built:
+            raise AssertionError(f"{name}: K11 programs not built in phase 2: {list(built)}")
+        t0 = time.perf_counter()
+        witness = SystemWitness.from_stage_1(traces, system, key)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        n_claims = len(claims)
+        say("workloads", f"{name}: {n_claims} claims, trace heights {heights}; witness on the host {t_host:.3f} s; "
+            f"its {len(progs)} K11 programs' libraries loaded in {t_load:.3f} s; SystemWitness.from_stage_1 on the "
+            f"card {t_dev:.3f} s")
+        if name.startswith("blake3") and t_host > WITNESS_LIMIT_S:
+            raise AssertionError(f"{name}: the host witness took {t_host:.2f} s, over {WITNESS_LIMIT_S} s")
+        for entry in entries:
+            prove = getattr(prover, entry)
+            dt.FALLBACKS.clear()
+            t0 = time.perf_counter()
+            proof = prove(system, key, witness, claims)
+            torch.cuda.synchronize()
+            t_cold = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t_warm, per_prove = [], {}
+            for _ in range(warm):
+                before = kernels.launch_counts()
+                t0 = time.perf_counter()
+                proof = prove(system, key, witness, claims)
+                torch.cuda.synchronize()
+                t_warm.append(time.perf_counter() - t0)
+                per_prove = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
+            peak = torch.cuda.max_memory_allocated()
+            got_fallbacks = dict(dt.FALLBACKS)
+            data = proof.to_bytes()
+            got = {"sha256": hashlib.sha256(data).hexdigest(), "n_bytes": len(data)}
+            say("workloads", f"{name} {entry}: first prove {t_cold:.3f} s, warm proves "
+                f"{', '.join(f'{t:.4f}' for t in t_warm) or 'none'} s, peak device memory {peak / 2**20:.1f} MiB, "
+                f"fallbacks {got_fallbacks}, proof {got['n_bytes']} bytes sha256 {got['sha256']}")
+            if per_prove:
+                say("workloads", f"{name} {entry}: launches of the warm prove {per_prove}")
+            if got != golden[name]:
+                raise AssertionError(f"{name} {entry}: proof {got} != JAX golden {golden[name]}")
+            want = fallbacks if entry == "prove_multiple_claims" else {}
+            if got_fallbacks != {k: v * (1 + warm) for k, v in want.items()}:
+                raise AssertionError(f"{name} {entry}: fallbacks {got_fallbacks}, expected {want} a prove")
+            t0 = time.perf_counter()
+            read = prover.Proof.from_bytes(data, system)
+            t_read = time.perf_counter() - t0
+            if read.to_bytes() != data:
+                raise AssertionError(f"{name} {entry}: Proof.from_bytes(data).to_bytes() != data")
+            t0 = time.perf_counter()
+            system.verify_multiple_claims(claims, read)
+            t_verify = time.perf_counter() - t0
+            bad = [np.array(c, dtype=np.uint64) for c in claims]
+            bad[tamper[0]][tamper[1]] ^= np.uint64(1)
+            try:
+                system.verify_multiple_claims(bad if isinstance(claims, list) else np.stack(bad), read)
+            except VerificationError as e:
+                kind = e.kind
+            else:
+                raise AssertionError(f"{name} {entry}: the port's verifier accepted a tampered claim")
+            say("verify", f"{name} {entry}: read back by Proof.from_bytes in {t_read:.4f} s (the same bytes), "
+                f"accepted by the port's verifier in {t_verify:.4f} s; claim {tamper[0]}'s value {tamper[1]} "
+                f"changed: rejected, {kind}")
+            if entry == "prove_multiple_claims" and not fallbacks:
+                sync_checks.append((name, system, key, witness, claims))
+    counts = kernels.launch_counts()  # the phase's proves, and nothing else
+    say("workloads", f"kernel launches over the phase: {counts}")
+    needed = PATHS["goldilocks_blake3 device transcript"][2]
+    idle = [k for k in needed if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"workloads: kernels never launched: {idle}")
+    for name, system, key, witness, claims in sync_checks:
+        dt.FALLBACKS.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dt_prover._device_phase(system, key, witness, claims)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if dt.FALLBACKS:
+            raise AssertionError(f"{name}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
+        say("workloads", f"{name}: 0 syncs before the global fetch (sync debug mode \"error\"), 0 fallbacks")
+    say("workloads", f"phase 4b took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # phase 5: (backend, world, the ranks' device, [(config, sizes)], distributed_dft check or None)
 MESH_PATHS = {"goldilocks_blake3": PATHS["goldilocks_blake3 host transcript"][2],  # a sharded prove takes the host
               "babybear_poseidon2": PATHS["babybear_poseidon2"][2]}               # transcript
@@ -1721,7 +1994,8 @@ def sharded_phase() -> dict:
 
 # phase 6: the port's single-device examples and the needle each must print
 EXAMPLES = (("simple_proof", "Proof size"), ("preprocessed_proof", "Proof size"),
-            ("lookup_proof", "Wrong claim rejected"), ("pcs_example", "Opened value matches Horner evaluation"))
+            ("lookup_proof", "Wrong claim rejected"), ("pcs_example", "Opened value matches Horner evaluation"),
+            ("blake3_proof", "Tampered digest rejected"))
 TRANSFORM_SIZES = (8, 14, 18)  # log_n of NttEngine's natural-order transforms, (4, 2^log_n) per field
 
 
@@ -1729,7 +2003,7 @@ def examples_phase(dev) -> None:
     """Phase 6: NttEngine's natural-order transforms on the card against the
     same calls on CPU tensors (bit-equal), each second call under
     torch.cuda.set_sync_debug_mode("error") with its launches counted; then
-    the four single-device examples' main(device="cuda"), each of which must
+    the five single-device examples' main(device="cuda"), each of which must
     print its needle."""
     import contextlib
     import importlib
@@ -1836,12 +2110,15 @@ def main() -> int:
                      (kernels.CLAIMS_FP, kernels.CLAIMS_FP.functions)):
         say("build", f"{os.path.basename(k.source)} ptxas ({k.name}): {ptxas_kernels(kernels.ptxas_log(k.source), names)}")
     build_programs(dev)
+    build_workload_programs(dev)
 
     checked = check_kernels(dev)
     launches = {k.name: 0 for k in kernels.KERNELS}
     for path in PATHS:
         for name, count in prove_sizes(dev, path).items():
             launches[name] += count
+    for name, count in workloads_phase(dev).items():
+        launches[name] += count
     for name, count in sharded_phase().items():
         launches[name] += count
     examples_phase(dev)  # after the counted paths: its launches are not the main path's

@@ -1,4 +1,4 @@
-"""The port's four single-device examples (multistark_tpu_torch/examples/),
+"""The port's single-device examples (multistark_tpu_torch/examples/),
 run in-process on CPU tensors: each proves and verifies with the port and
 prints the needle its JAX counterpart in examples/ prints (tests/test_examples.py)."""
 
@@ -21,3 +21,16 @@ def test_example_runs_on_cpu(name, needle, capsys):
     assert needle in out
     assert "Verified in" in out
     assert report["verify_s"] > 0
+
+
+def test_blake3_proof_example_runs_on_cpu(capsys):
+    """The BLAKE3 example (JAX examples/blake3_proof.py) on a 2-block message
+    at 4-bit limbs: the 10-circuit proof verifies and a tampered digest word
+    is rejected."""
+    from multistark_tpu_torch.examples import blake3_proof
+
+    report = blake3_proof.main(device="cpu", message_len=128, limb_bits=4)
+    out = capsys.readouterr().out
+    assert "Tampered digest rejected" in out
+    assert "Verified in" in out and "2 compression claims" in out
+    assert report["claims"] == 2 and report["verify_s"] > 0
