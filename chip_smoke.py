@@ -98,8 +98,13 @@ without printing a result:
                 read, the device transcript's path up to its one global
                 fetch runs once more per size under
                 torch.cuda.set_sync_debug_mode("error") (any op there that
-                waits for the device raises), and the path must count no
-                fallback.  Each proof is also read back by Proof.from_bytes
+                waits for the device raises), its stark/* spans open, and
+                the path must count no fallback.  Then one more warm prove
+                per size with the stark/* spans read from 0
+                (multistark_tpu_torch/profiling.py): the JAX package's ten
+                span names, each once, the launches of the warm prove
+                before it, and each stage's host seconds and host memory on
+                `spans` lines.  Each proof is also read back by Proof.from_bytes
                 (which must write the same bytes), accepted by the port's
                 verifier (host code: verifier.py, pcs.verify's batched walk,
                 the host C hashes), and two tampered copies rejected with a
@@ -127,9 +132,12 @@ without printing a result:
                 back, verified and a tampered claim rejected (BLAKE3: a
                 digest word of the root compression); launches counted
                 from 0 over the phase, every GL device-transcript kernel
-                launched, then 0 syncs before the global fetch and 0
-                fallbacks on each device-transcript prove without ragged
-                claims
+                launched, then 0 syncs before the global fetch (the spans
+                open) and 0 fallbacks on each device-transcript prove
+                without ragged claims; then a spanned warm prove of each
+                entry with warm proves, as in phase 4, and one BLAKE3 64
+                KiB device-transcript prove streamed under
+                MULTISTARK_TEXRAY=stark/ (its [texray] lines printed)
   5. sharded -- the row-sharded prove (parallel.py) on torch.distributed,
                 ranks started with the spawn method from the package
                 (spmd_cases.chip_rank): NCCL at world = the largest power of
@@ -164,6 +172,12 @@ without printing a result:
                 matches Horner evaluation", "Tampered digest rejected").  Its
                 launches come after the counted paths and are not in the
                 kernels line
+  7. fixtures -- multistark_tpu_torch.fixtures.generate(device="cuda")
+                against fixtures/reference_vectors.json: every section
+                equal, the FRI schedule less the JAX replay's clone draws;
+                then one empty stark/* span's enter and exit on the card's
+                host (a mean over 20000), beside a bare
+                torch.profiler.record_function's
 
 Then a check that no process the script started is still running (the
 ranks, nvcc, and the resource tracker the spawn method starts beside the
@@ -202,6 +216,11 @@ PATHS = {
          "reduced_open", "lde_tile", "merkle_levels"),
     ),
 }
+# the stark/* spans of a prove (multistark_tpu_torch/profiling.py), as the JAX package names them
+SPAN_STAGES = ("stark/prove", "stark/stage1_commit", "stark/lookup_construction", "stark/stage2_commit",
+               "stark/quotient", "stark/fri_open", "stark/fri_open/eval", "stark/fri_open/ro", "stark/fri_open/fold",
+               "stark/fri_open/queries")
+EMPTY_SPANS = 20000  # empty spans timed in a row for one span's cost
 BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
 BENCH_FRI = dict(log_final_poly_len=0, max_log_arity=1, num_queries=100,
                  commit_proof_of_work_bits=10, query_proof_of_work_bits=10)
@@ -1650,7 +1669,7 @@ def prove_sizes(dev, path: str):
     import torch
 
     import multistark_tpu_torch as mt
-    from multistark_tpu_torch import device_transcript as dt, dt_prover, kernels, prover
+    from multistark_tpu_torch import device_transcript as dt, kernels, prover
     from multistark_tpu_torch.system import System, SystemWitness
     from multistark_tpu_torch.test_circuits import u32_add_system_inputs, u32_add_witness
 
@@ -1663,7 +1682,7 @@ def prove_sizes(dev, path: str):
     kernels.reset_launch_counts()  # phase 3's comparison launches and other paths do not count
     dt.FALLBACKS.clear()
     system, key = System.new(config, u32_add_system_inputs())
-    sync_checks = []
+    sync_checks, span_runs = [], []
     for log_n in SIZES:
         n = 1 << log_n
         rng = np.random.default_rng(WITNESS_SEED)
@@ -1708,6 +1727,7 @@ def prove_sizes(dev, path: str):
             f"accepted by the port's verifier in {t_verify:.4f} s; tampered copies rejected: {rejected}")
         if device_transcript:
             sync_checks.append((log_n, witness, claims))
+        span_runs.append((log_n, witness, claims, per_prove))
     counts = kernels.launch_counts()  # the path's proves, and nothing else
     copies = dict(kernels.COPIES)
     say("prove", f"{path} kernel launches over the path: {counts}; fallbacks {dict(dt.FALLBACKS)}; layout copies "
@@ -1716,16 +1736,17 @@ def prove_sizes(dev, path: str):
         raise AssertionError(f"{path}: the FRI rounds made {copies['fold_rows']} PyTorch layout copies; K3's FRI "
                              "entry or K10 writes each level's matrix itself")
     for log_n, witness, claims in sync_checks:
-        # the device transcript's path up to its global fetch once more, with
-        # every op that waits for the device raising (after the read above:
-        # these launches are not the path's)
+        # the device transcript's path up to its global fetch once more, its
+        # stark/* spans open, with every op that waits for the device raising
+        # (after the read above: these launches are not the path's)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            dt_prover._device_phase(system, key, witness, claims)
+            device_phase_spanned(system, key, witness, claims)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        say("prove", f"{path} log_n={log_n}: 0 syncs before the global fetch (sync debug mode \"error\")")
+        say("prove", f"{path} log_n={log_n}: 0 syncs before the global fetch with the stark/* spans open (sync "
+            "debug mode \"error\")")
     if config_name == "goldilocks_blake3" and dt.FALLBACKS:
         raise AssertionError(f"{path}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
     idle = [k for k in needed if counts[k] <= 0]
@@ -1736,6 +1757,10 @@ def prove_sizes(dev, path: str):
         raise AssertionError(f"entry points that compress Merkle pairs outside K14 / K15: {pairs}")
     say("prove", f"{path}: K14 lde_tile {counts['lde_tile']} and K15 merkle_levels {counts['merkle_levels']} "
         "launches; every tree's levels went through K15 (no compress_pairs entry point exists)")
+    for log_n, witness, claims, per_prove in span_runs:
+        span_prove(f"{path} log_n={log_n}", lambda: prove(system, key, witness, claims), per_prove)
+    if config_name == "goldilocks_blake3" and dt.FALLBACKS:
+        raise AssertionError(f"{path}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
     return counts
 
 
@@ -1765,6 +1790,78 @@ def tampered_kinds(system, claims, proof) -> dict:
         else:
             raise AssertionError(f"the port's verifier accepted a proof with one {label} changed")
     return kinds
+
+
+def device_phase_spanned(system, key, witness, claims) -> None:
+    """The device transcript's path up to its global fetch with the stark/*
+    spans that `dt_prover._prove_dt` opens around it ("stark/prove", and
+    "stark/fri_open" from the claimed evaluations on) as well as its own."""
+    import contextlib
+
+    from multistark_tpu_torch import dt_prover, profiling
+
+    with profiling.span("stark/prove"), contextlib.ExitStack() as fri_open:
+        dt_prover._device_phase(system, key, witness, claims, fri_open)
+
+
+def span_prove(label: str, prove, want_launches: dict) -> None:
+    """One more warm prove with the stark/* spans read from 0
+    (profiling.reset_spans): each of the JAX package's ten names must close
+    once, and the prove must launch exactly what the path's last warm prove
+    launched (a span launches nothing).  Prints each stage's host seconds
+    and its host memory (RSS change, peak rise, RSS at exit) on two `spans`
+    lines.  A span reads the host clock and never synchronises: a stage's
+    seconds are the time its work took to queue, plus any fetch inside it."""
+    import torch
+
+    from multistark_tpu_torch import kernels, profiling
+
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    prove()
+    t_return = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_sync = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
+    counts = profiling.span_counts()
+    if counts != {name: 1 for name in SPAN_STAGES}:
+        raise AssertionError(f"{label}: stark/* spans {counts}, not the JAX package's ten, each once")
+    if launched != want_launches:
+        raise AssertionError(f"{label}: the spanned prove launched {launched}, the warm prove {want_launches}")
+    times, mem = profiling.span_times(), profiling.span_memory()
+    say("spans", f"{label}: prove returned {t_return:.4f} s, synchronised {t_sync:.4f} s; host seconds "
+        + ", ".join(f"{name} {times[name]:.4f}" for name in SPAN_STAGES) + "; launches as the warm prove's")
+    say("spans", f"{label} memory (MiB, RSS change / peak rise / RSS at exit): " + ", ".join(
+        f"{name} {mem[name]['rss_delta_mib']:+.1f}/{mem[name]['hwm_rise_mib']:.1f}/{mem[name]['rss_mib']:.0f}"
+        for name in SPAN_STAGES))
+    profiling.reset_spans()
+
+
+def texray_prove(label: str, prove) -> None:
+    """One prove streamed under MULTISTARK_TEXRAY=stark/: each span's exit
+    prints its [texray] line; every stage must stream once."""
+    import contextlib
+    import io
+
+    from multistark_tpu_torch import profiling
+
+    out = io.StringIO()
+    os.environ["MULTISTARK_TEXRAY"] = "stark/"
+    try:
+        with contextlib.redirect_stdout(out):
+            prove()
+    finally:
+        del os.environ["MULTISTARK_TEXRAY"]
+        profiling.reset_spans()
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("[texray]")]
+    streamed = sorted(line.split()[1].rstrip(":") for line in lines)
+    if streamed != sorted(SPAN_STAGES):
+        raise AssertionError(f"{label}: streamed {streamed}, not each stage once")
+    say("spans", f"{label} streamed under MULTISTARK_TEXRAY=stark/:")
+    for line in lines:
+        print(line, flush=True)
 
 
 # the workloads phase: (golden entry, prover entry points, warm proves, the
@@ -1797,14 +1894,14 @@ def workloads_phase(dev) -> dict:
     import torch
 
     import multistark_tpu_torch as mt
-    from multistark_tpu_torch import device_transcript as dt, dt_prover, kernels, program, prover
+    from multistark_tpu_torch import device_transcript as dt, kernels, program, prover
     from multistark_tpu_torch.errors import VerificationError
     from multistark_tpu_torch.system import SystemWitness
 
     G, golden = golden_workloads()
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()  # the earlier phases' launches do not count
-    sync_checks = []
+    sync_checks, span_runs = [], []
     for name, entries, warm, fallbacks, tamper in WORKLOADS:
         inputs, traces, claims, t_host = workload_data(G, name)
         heights = [t.shape[0] for t in traces]
@@ -1879,6 +1976,8 @@ def workloads_phase(dev) -> dict:
                 f"changed: rejected, {kind}")
             if entry == "prove_multiple_claims" and not fallbacks:
                 sync_checks.append((name, system, key, witness, claims))
+            if warm:
+                span_runs.append((f"{name} {entry}", prove, system, key, witness, claims, per_prove))
     counts = kernels.launch_counts()  # the phase's proves, and nothing else
     say("workloads", f"kernel launches over the phase: {counts}")
     needed = PATHS["goldilocks_blake3 device transcript"][2]
@@ -1889,13 +1988,21 @@ def workloads_phase(dev) -> dict:
         dt.FALLBACKS.clear()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            dt_prover._device_phase(system, key, witness, claims)
+            device_phase_spanned(system, key, witness, claims)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         if dt.FALLBACKS:
             raise AssertionError(f"{name}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
-        say("workloads", f"{name}: 0 syncs before the global fetch (sync debug mode \"error\"), 0 fallbacks")
+        say("workloads", f"{name}: 0 syncs before the global fetch with the stark/* spans open (sync debug mode "
+            "\"error\"), 0 fallbacks")
+    dt.FALLBACKS.clear()
+    for label, prove, system, key, witness, claims, per_prove in span_runs:
+        span_prove(label, lambda: prove(system, key, witness, claims), per_prove)
+        if label == "blake3 64 KiB prove_multiple_claims":
+            texray_prove(label, lambda: prove(system, key, witness, claims))
+    if dt.FALLBACKS:
+        raise AssertionError(f"workloads: device-transcript fallbacks in the spanned proves {dict(dt.FALLBACKS)}")
     say("workloads", f"phase 4b took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -2057,6 +2164,51 @@ def examples_phase(dev) -> None:
     say("examples", f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def fixtures_phase(dev) -> None:
+    """Phase 7: fixtures.generate on the card against
+    fixtures/reference_vectors.json (every section; the FRI schedule less
+    the JAX replay's clone draws, fixtures.without_clone_checks), then one
+    empty stark/* span's cost on this host: EMPTY_SPANS enters and exits in
+    a row, and as many bare torch.profiler.record_function ranges."""
+    import torch
+
+    from multistark_tpu_torch import fixtures, profiling
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "fixtures", "reference_vectors.json")) as f:
+        want = json.load(f)
+    got = json.loads(json.dumps(fixtures.generate(device=dev.type), default=int))
+    t_gen = time.perf_counter() - t0
+    schedules = (len(got["fri_transcript"]["schedule"]), len(want["fri_transcript"]["schedule"]))
+    for section in (got, want):
+        fri = section["fri_transcript"]
+        section["fri_transcript"] = dict(fri, schedule=fixtures.without_clone_checks(fri["schedule"]))
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        raise AssertionError(f"fixtures.generate(device=\"cuda\") differs from the committed file in {bad}")
+    say("fixtures", f"fixtures.generate(device=\"cuda\") in {t_gen:.2f} s equals fixtures/reference_vectors.json "
+        f"in every section (FRI schedule: the port's {schedules[0]} draws, the file's {schedules[1]}, equal less the "
+        "clone draws)")
+
+    os.environ.pop("MULTISTARK_TEXRAY", None)
+    profiling.reset_spans()
+    t0 = time.perf_counter()
+    for _ in range(EMPTY_SPANS):
+        with profiling.span("stark/empty"):
+            pass
+    t_span = (time.perf_counter() - t0) / EMPTY_SPANS
+    if profiling.span_counts() != {"stark/empty": EMPTY_SPANS}:
+        raise AssertionError(f"empty spans: {profiling.span_counts()}")
+    profiling.reset_spans()
+    t0 = time.perf_counter()
+    for _ in range(EMPTY_SPANS):
+        with torch.profiler.record_function("stark/empty"):
+            pass
+    t_rf = (time.perf_counter() - t0) / EMPTY_SPANS
+    say("spans", f"one empty span: {t_span * 1e6:.2f} us enter and exit on the card's host (mean of {EMPTY_SPANS}; "
+        f"of which a bare torch.profiler.record_function {t_rf * 1e6:.2f} us); a prove opens ten")
+
+
 def running_children() -> list:
     """Command lines of the processes still running whose parent is this one
     (/proc), so the script can show that it stopped every process it started."""
@@ -2122,6 +2274,7 @@ def main() -> int:
     for name, count in sharded_phase().items():
         launches[name] += count
     examples_phase(dev)  # after the counted paths: its launches are not the main path's
+    fixtures_phase(dev)
 
     rows = []
     for k in kernels.KERNELS:

@@ -13,14 +13,20 @@ v = x/shift on the trace domain H of size n:
 The logUp boundary injection absorbs 1/(n·g), so these exact constants
 decide the proof; `prover._selectors_device` builds them on the device, and
 the verifier takes them at one out-of-domain point (`selectors_at_point`).
+`selectors_on_coset` is their host NumPy reference over a whole coset (the
+tests hold the device ones against it).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Tuple
 
+import numpy as np
+
 from .fields.host import HostExtField, HostField
+from .fields.npref import NpField, np_powers
 
 
 @dataclass(frozen=True)
@@ -68,6 +74,13 @@ class TwoAdicCoset:
             inv_vanishing=ext.inv(z_h),
         )
 
+    def selectors_on_coset(self, coset: "TwoAdicCoset") -> "LagrangeSelectorsOnCoset":
+        """The selectors of this domain at every point of `coset`, in natural
+        order (the quotient-domain selectors), as host NumPy arrays, cached."""
+        if coset.log_n < self.log_n:
+            raise ValueError("selectors_on_coset takes a coset at least as large as the domain")
+        return _selectors_on_coset_cached(self.field, self.log_n, self.shift, coset.log_n, coset.shift)
+
 
 @dataclass(frozen=True)
 class LagrangeSelectorsAtPoint:
@@ -75,3 +88,35 @@ class LagrangeSelectorsAtPoint:
     is_last_row: Tuple[int, ...]
     is_transition: Tuple[int, ...]
     inv_vanishing: Tuple[int, ...]
+
+
+@dataclass(frozen=True)
+class LagrangeSelectorsOnCoset:
+    """uint64 numpy arrays over the evaluation coset, natural order."""
+
+    is_first_row: np.ndarray
+    is_last_row: np.ndarray
+    is_transition: np.ndarray
+    inv_vanishing: np.ndarray
+
+
+@lru_cache(maxsize=64)
+def _selectors_on_coset_cached(field: HostField, log_n: int, shift: int, log_big: int,
+                               big_shift: int) -> LagrangeSelectorsOnCoset:
+    nf = NpField(field)
+    n, N = 1 << log_n, 1 << log_big
+    # v_i = (big_shift / shift)·G^i over the big coset, natural order
+    v = nf.mul(np_powers(field, field.two_adic_generator(log_big), N),
+               np.uint64(field.mul(big_shift, field.inv(shift))))
+    # v^n has period q = N/n: q values, tiled
+    q = N >> log_n
+    z_h = nf.sub(np.tile(nf.pow(v[:q], n), n), np.uint64(1))
+    first_den = nf.sub(v, np.uint64(1))
+    last_den = nf.sub(v, np.uint64(field.inv(field.two_adic_generator(log_n))))
+    inv_all = nf.inv(np.concatenate([first_den, last_den, z_h]))
+    return LagrangeSelectorsOnCoset(
+        is_first_row=nf.mul(z_h, inv_all[:N]),
+        is_last_row=nf.mul(z_h, inv_all[N : 2 * N]),
+        is_transition=last_den,
+        inv_vanishing=inv_all[2 * N :],
+    )

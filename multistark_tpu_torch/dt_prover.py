@@ -34,6 +34,7 @@ Transcript schedule mirrored from prover.prove_host_transcript.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -46,6 +47,7 @@ from . import prover
 from .challenger import SerializingChallenger64, _canonical_claims_array, observe_claims as _observe_claims_host
 from .merkle import Blake3FieldHasher
 from .pcs import FriProof
+from .profiling import span
 from .utils import fetch
 
 
@@ -144,12 +146,16 @@ def prove_device_transcript(system, key, witness, claims):
 
 
 def _prove_dt(system, key, witness, claims):
-    return _fetch_and_replay(system, key, witness, claims, _device_phase(system, key, witness, claims))
+    with span("stark/prove"), contextlib.ExitStack() as fri_open:
+        return _fetch_and_replay(system, key, witness, claims, _device_phase(system, key, witness, claims, fri_open))
 
 
-def _device_phase(system, key, witness, claims) -> _DevicePhase:
+def _device_phase(system, key, witness, claims, fri_open: Optional[contextlib.ExitStack] = None) -> _DevicePhase:
     """Everything up to the global fetch: no op here waits for the device
-    (chip_smoke.py runs it under torch.cuda.set_sync_debug_mode("error"))."""
+    (chip_smoke.py runs it under torch.cuda.set_sync_debug_mode("error")).
+    The "stark/fri_open" span, which the JAX package keeps around the open
+    and the replay together, is entered into `fri_open` at the claimed
+    evaluations and closes with that stack."""
     config = system.config
     F, E = config.field, config.ext
     hf, pcs, D = config.host_field, config.pcs, config.ext.D
@@ -166,9 +172,10 @@ def _device_phase(system, key, witness, claims) -> _DevicePhase:
     log_degrees = [witness.heights[i].bit_length() - 1 for i in active_idx]
 
     # STAGE-1 COMMIT (the cap stays on the device)
-    s1_cap, s1_data = pcs.commit_device(
-        [(pcs.natural_domain_for_degree(witness.heights[i]), witness.traces[i]) for i in active_idx]
-    )
+    with span("stark/stage1_commit"):
+        s1_cap, s1_data = pcs.commit_device(
+            [(pcs.natural_domain_for_degree(witness.heights[i]), witness.traces[i]) for i in active_idx]
+        )
     if system.preprocessed_commit is not None:
         dd.observe_bytes(_cap_bytes(system.preprocessed_commit))
     dd.observe_cap_device(s1_cap)
@@ -184,10 +191,12 @@ def _device_phase(system, key, witness, claims) -> _DevicePhase:
         acc0 = lk.claims_accumulator_device(F, E, claims_arr, beta, gamma)
 
     # STAGE-2 (device β γ acc₀)
-    s2_mats, accs = lk.stage_2_traces_device(E, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0)
-    s2_cap, s2_data = pcs.commit_device(
-        [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
-    )
+    with span("stark/lookup_construction"):
+        s2_mats, accs = lk.stage_2_traces_device(E, [witness.lookup_values[i] for i in active_idx], beta, gamma, acc0)
+    with span("stark/stage2_commit"):
+        s2_cap, s2_data = pcs.commit_device(
+            [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
+        )
     dd.observe_cap_device(s2_cap)
     for a in accs:
         dd.observe_ext_device(a)
@@ -195,14 +204,15 @@ def _device_phase(system, key, witness, claims) -> _DevicePhase:
     alpha = dd.sample_ext(D)
 
     # QUOTIENT (device β, γ, accumulators and α)
-    chunk_mats = [
-        prover._quotient_chunk_coeffs(
-            system, key, witness, s1_data, s2_data, i, k, beta, gamma, alpha, acc0 if k == 0 else accs[k - 1],
-            accs[k],
-        )
-        for k, i in enumerate(active_idx)
-    ]
-    q_cap, q_data = pcs.commit_from_coeffs_device(chunk_mats)
+    with span("stark/quotient"):
+        chunk_mats = [
+            prover._quotient_chunk_coeffs(
+                system, key, witness, s1_data, s2_data, i, k, beta, gamma, alpha, acc0 if k == 0 else accs[k - 1],
+                accs[k],
+            )
+            for k, i in enumerate(active_idx)
+        ]
+        q_cap, q_data = pcs.commit_from_coeffs_device(chunk_mats)
     dd.observe_cap_device(q_cap)
 
     zeta = dd.sample_ext(D)
@@ -218,15 +228,19 @@ def _device_phase(system, key, witness, claims) -> _DevicePhase:
                        if p is not None])
     datas += [s1_data, s2_data, q_data]
     points += [[two_pt(i) for i in active_idx], [two_pt(i) for i in active_idx], [[("z",)] for _ in active_idx]]
-    zps = _zps(config, zeta, [s for pts in points for mat in pts for s in mat])
-    rounds = [(data, [[(s, zps[s]) for s in mat] for mat in pts]) for data, pts in zip(datas, points)]
+    if fri_open is not None:
+        fri_open.enter_context(span("stark/fri_open"))
 
     # claimed evaluations, observed as one device segment
-    vals = pcs._claimed_evaluations(rounds)
-    dd.observe_words_device(_obs_words(vals))
+    with span("stark/fri_open/eval"):
+        zps = _zps(config, zeta, [s for pts in points for mat in pts for s in mat])
+        rounds = [(data, [[(s, zps[s]) for s in mat] for mat in pts]) for data, pts in zip(datas, points)]
+        vals = pcs._claimed_evaluations(rounds)
+        dd.observe_words_device(_obs_words(vals))
     alpha_fri = dd.sample_ext(D)
 
-    ro = pcs._reduced_openings(rounds, vals, alpha_fri)
+    with span("stark/fri_open/ro"):
+        ro = pcs._reduced_openings(rounds, vals, alpha_fri)
     if not ro:
         raise dt.Fallback("no reduced openings")
     log_max = max(data.log_max_lde for data in datas)
@@ -234,10 +248,11 @@ def _device_phase(system, key, witness, claims) -> _DevicePhase:
     schedule = pcs.fri_schedule(ro.keys(), log_max_ro)
     if not schedule:
         raise dt.Fallback("degenerate FRI (no folds)")
-    entry = dd.entry_words()
-    if entry is None:
-        raise dt.Fallback("unaligned duplex buffer at FRI entry")
-    fri = pcs._commit_phase_device_core(ro, schedule, log_max_ro, entry)
+    with span("stark/fri_open/fold"):
+        entry = dd.entry_words()
+        if entry is None:
+            raise dt.Fallback("unaligned duplex buffer at FRI entry")
+        fri = pcs._commit_phase_device_core(ro, schedule, log_max_ro, entry)
     return _DevicePhase(
         active, log_degrees, datas, points, [s1_cap, s2_cap, q_cap], accs, vals,
         [beta, gamma, alpha, zeta, alpha_fri], dd.valids, fri, schedule, log_max, log_max_ro,
@@ -303,9 +318,10 @@ def _fetch_and_replay(system, key, witness, claims, ph: _DevicePhase):
     final_poly, query_pow, indices = pcs._commit_tail(
         [ext(col) for col in current_np.T], log_size, ph.log_max_ro, ph.log_max, ch
     )
-    query_proofs = pcs._query_phase(
-        [(data, None) for data in ph.datas], commit_datas, indices, ph.schedule, ph.log_max, ph.log_max_ro
-    )
+    with span("stark/fri_open/queries"):
+        query_proofs = pcs._query_phase(
+            [(data, None) for data in ph.datas], commit_datas, indices, ph.schedule, ph.log_max, ph.log_max_ro
+        )
     fri_proof = FriProof(
         commit_caps=fri_caps_host,
         commit_pow_witnesses=commit_pows,

@@ -5,12 +5,15 @@ The prover sweeps with `program.Recorder`, which turns the graph into a
 flat per-row program for kernel K11 (the JAX package's `DeviceAlgebra` made
 one whole-column op per node instead); the verifier with `HostExtAlgebra`,
 one scalar in the extension field per node at the out-of-domain point.
+`eval_expr` evaluates an expression tree recursively on host ints, apart
+from the graph (the tests' reference).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from .expr import Add, Const, Expr, IsFirstRow, IsLastRow, IsTransition, Mul, Neg, Public, Sub, Var
 from .graph import ConstraintGraph
 
 
@@ -97,3 +100,36 @@ class HostExtAlgebra:
 
     def neg(self, a):
         return self.he.neg(a)
+
+
+# --- recursive reference evaluator (tests only; reference eval.rs:133-199) ---
+
+def eval_expr(e: Expr, hf, var_fn, publics, selectors) -> int:
+    """Direct recursive evaluation of an Expr tree on host ints, independent
+    of the graph and its sweep.  var_fn(source, column, offset) gives a
+    trace cell; selectors maps "first", "last" and "transition"."""
+
+    def ev(x: Expr) -> int:
+        return eval_expr(x, hf, var_fn, publics, selectors)
+
+    if isinstance(e, Const):
+        return e.value % hf.p
+    if isinstance(e, Var):
+        return var_fn(e.source.value, e.column, e.offset.value)
+    if isinstance(e, Public):
+        return publics[e.index]
+    if isinstance(e, IsFirstRow):
+        return selectors["first"]
+    if isinstance(e, IsLastRow):
+        return selectors["last"]
+    if isinstance(e, IsTransition):
+        return selectors["transition"]
+    if isinstance(e, Add):
+        return hf.add(ev(e.lhs), ev(e.rhs))
+    if isinstance(e, Sub):
+        return hf.sub(ev(e.lhs), ev(e.rhs))
+    if isinstance(e, Mul):
+        return hf.mul(ev(e.lhs), ev(e.rhs))
+    if isinstance(e, Neg):
+        return hf.neg(ev(e.arg))
+    raise TypeError(type(e))

@@ -129,6 +129,21 @@ class NpField:
             sq = self.mul(sq, sq)
         return r
 
+    def pow(self, a: np.ndarray, e: int) -> np.ndarray:
+        """a^e elementwise, one exponent for all."""
+        a = np.asarray(a, np.uint64)
+        r = np.ones_like(a)
+        while e:
+            if e & 1:
+                r = self.mul(r, a)
+            a = self.mul(a, a)
+            e >>= 1
+        return r
+
+    def inv(self, a: np.ndarray) -> np.ndarray:
+        """Elementwise inverses a^(p-2) (zero maps to zero)."""
+        return self.pow(a, self.host.p - 2)
+
     def sum_axis(self, a: np.ndarray, axis: int) -> np.ndarray:
         """Sum mod p along `axis` by pairwise halving (stays in uint64)."""
         a = np.moveaxis(np.asarray(a, np.uint64), axis, 0)

@@ -22,6 +22,10 @@ transcripts and both fields runs on the device with β and γ device
 scalars, in one launch of kernel K9 (csrc/claims_fp.cu, `claims_acc`
 below) from the claims as uploaded: the messages and the sum of their
 inverses.
+
+`synthesize_lookups` (the constraints as compilable ExtExprs) and the NumPy
+`stage_2_traces` are the executable specs the tests hold the direct
+evaluation and the device stage 2 against; no prover calls them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import expr as ex
 from . import kernels
 from .fields.device import ExtOps, FieldOps
 from .fields.host import ExtensionParams, HostExtField, HostField
@@ -43,6 +48,10 @@ ExtVal = Tuple[int, ...]
 
 
 # --- layout (reference src/lookup.rs:78-99) ----------------------------------
+
+def num_publics(degree: int) -> int:
+    return 4 * degree
+
 
 def stage2_width(num_lookups: int, degree: int) -> int:
     return max(num_lookups, 1) * degree
@@ -304,6 +313,41 @@ def logup_constraint_values(
     return out
 
 
+# --- executable synthesized spec (reference src/lookup.rs:326-371) -----------
+
+def synthesize_lookups(
+    lookups: Sequence[ex.Lookup], ep: ExtensionParams, hf: HostField, log_n: int
+) -> List[ex.ExtExpr]:
+    """The same constraints as `logup_constraint_values`, as compilable
+    ExtExprs over the publics (β, γ, acc_initial, acc_final) and the
+    stage-2 slots (tests only)."""
+    D = ep.degree
+    beta = ex.public_ext(0, D)
+    gamma = ex.public_ext(1, D)
+    acc_i = ex.public_ext(2, D)
+    acc_f = ex.public_ext(3, D)
+    n = 1 << log_n
+    inv_ng = hf.inv(hf.mul(n % hf.p, hf.two_adic_generator(log_n)))
+    delta = ex.ExtBase(ex.Const(inv_ng)) * (acc_i - acc_f)
+    L = len(lookups)
+    if L == 0:
+        diff = ex.stage2_ext_next(0, D) - ex.stage2_ext(0, D)
+        return [diff - ex.ExtBase(ex.IsLastRow()) * delta]
+    out = []
+    for j, lookup in enumerate(lookups):
+        m = ex.ExtBase(ex.Const(0))
+        for a in reversed(lookup.args):
+            m = m * gamma + ex.ExtBase(a)
+        m = m + beta
+        if j < L - 1:
+            diff = ex.stage2_ext(j + 1, D) - ex.stage2_ext(j, D)
+        else:
+            diff = ex.stage2_ext_next(0, D) - ex.stage2_ext(j, D)
+            diff = diff - ex.ExtBase(ex.IsLastRow()) * delta
+        out.append(m * diff - ex.ExtBase(lookup.multiplicity))
+    return out
+
+
 # --- witness-side lookup values and stage-2 traces ----------------------------
 
 @dataclass
@@ -398,5 +442,53 @@ def stage_2_traces_device(E: ExtOps, lookup_values: Sequence[LookupValues], beta
         mat, total = stage2_chain(E, L, msgs, acc)
         acc = E.add(acc, total)
         mats.append(mat)
+        accs.append(acc)
+    return mats, accs
+
+
+def stage_2_traces(hf: HostField, he: HostExtField, lookup_values: Sequence[LookupValues], beta: ExtVal,
+                   gamma: ExtVal, acc0: ExtVal):
+    """The stage-2 traces and running accumulators in plain NumPy, on the
+    host (tests only; the provers take `stage_2_traces_device`).  Per
+    circuit with L > 0 lookups: the slot messages m = β + Σ_i γ^i·arg_i in
+    the chain order (row-major, slot-minor), the terms mult/m, their
+    inclusive prefix sum, and at each slot the sum before it plus the
+    accumulator the circuit starts from; a circuit without lookups passes
+    that accumulator through as a constant (D, n) matrix.
+
+    Returns (mats: [(max(L,1)·D, n) uint64 arrays, row j·D + d = coordinate
+    d of slot j], accs: [ExtVal], the accumulator after each circuit)."""
+    from .fields.npref import NpExt, NpField
+
+    nf = NpField(hf)
+    ne = NpExt(nf, he)
+    D = he.D
+    g, b = ne.of_scalar(gamma), ne.of_scalar(beta)
+    acc = tuple(int(c) for c in acc0)
+    mats, accs = [], []
+    for lv in lookup_values:
+        n, L = lv.height, len(lv.arities)
+        if L == 0:
+            mats.append(np.repeat(ne.of_scalar(acc)[:, None], n, axis=1))
+            accs.append(acc)
+            continue
+        msgs = np.empty((n, L, D), np.uint64)
+        mults = np.empty((n, L), np.uint64)
+        for j, (mult, args) in enumerate(zip(lv.mults, lv.args)):
+            m = np.zeros((n, D), np.uint64)
+            for a in reversed(args):
+                m = ne.mul(m, g)
+                m[:, 0] = nf.add(m[:, 0], FieldOps.to_np(a))
+            msgs[:, j] = ne.add(m, b)
+            mults[:, j] = FieldOps.to_np(mult)
+        terms = ne.scale(ne.batch_inv(msgs.reshape(n * L, D)), mults.reshape(-1))
+        incl, s = terms, 1
+        while s < n * L:  # inclusive prefix sum (Hillis-Steele)
+            incl = np.concatenate([incl[:s], nf.add(incl[s:], incl[:-s])])
+            s <<= 1
+        excl = np.concatenate([np.zeros((1, D), np.uint64), incl[:-1]])
+        rows = ne.add(excl, ne.of_scalar(acc, (n * L,))).reshape(n, L, D)
+        mats.append(rows.transpose(1, 2, 0).reshape(L * D, n))
+        acc = he.add(acc, tuple(int(c) for c in incl[-1]))
         accs.append(acc)
     return mats, accs

@@ -82,6 +82,7 @@ from .fields.npref import NpExt, NpField, np_mul, np_powers, reverse_bits_vec
 from .merkle import (BatchOpening, Blake3FieldHasher, MerkleMmcs, MerkleProverData, digest_layer_to_np,
                      mmcs_verify_batch_queries)
 from .ntt import NttEngine
+from .profiling import span
 from .utils import (batch_inv, bit_reverse_indices, ext_powers_device, fetch, field_sum_plain, fold_rows, reverse_bits,
                     scratch, to_device)
 
@@ -335,19 +336,23 @@ class TwoAdicFriPcs:
             (data, [[(z, consts.setdefault(z, self.E.const(z, self.device))) for z in pts] for pts in points_list])
             for data, points_list in rounds
         ]
-        vals = self._claimed_evaluations(dev_rounds)
-        opened = opened_to_host(vals)
-        for round_vals in opened:
-            for mat_vals in round_vals:
-                for pt_vals in mat_vals:
-                    for v in pt_vals:
-                        challenger.observe_ext(v)
+        with span("stark/fri_open/eval"):
+            vals = self._claimed_evaluations(dev_rounds)
+            opened = opened_to_host(vals)
+            for round_vals in opened:
+                for mat_vals in round_vals:
+                    for pt_vals in mat_vals:
+                        for v in pt_vals:
+                            challenger.observe_ext(v)
         alpha = challenger.sample_ext()
-        ro = self._reduced_openings(dev_rounds, vals, self.E.const(alpha, self.device))
-        caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro = (
-            self._commit_phase(rounds, ro, challenger)
-        )
-        query_proofs = self._query_phase(rounds, commit_datas, indices, schedule, log_max, log_max_ro)
+        with span("stark/fri_open/ro"):
+            ro = self._reduced_openings(dev_rounds, vals, self.E.const(alpha, self.device))
+        with span("stark/fri_open/fold"):
+            caps, commit_datas, commit_pows, final_poly, query_pow, indices, schedule, log_max, log_max_ro = (
+                self._commit_phase(rounds, ro, challenger)
+            )
+        with span("stark/fri_open/queries"):
+            query_proofs = self._query_phase(rounds, commit_datas, indices, schedule, log_max, log_max_ro)
         proof = FriProof(
             commit_caps=caps,
             commit_pow_witnesses=commit_pows,

@@ -28,6 +28,7 @@ from .domains import TwoAdicCoset
 from .evaluator import constraint_values, lookup_values as graph_lookup_values, sweep
 from .expr import Source
 from .pcs import FriProof
+from .profiling import span
 from .program import SELECTORS, Operands, Program, Recorder, expr_sweep
 from .system import ProverKey, System, SystemWitness
 from .utils import ext_pack_device, ext_powers_device, fetch
@@ -101,109 +102,114 @@ def prove_host_transcript(
     hf, he = config.host_field, config.host_ext
     pcs = config.pcs
 
-    ch = config.initialise_challenger()
-    system.observe_shape(ch)
+    with span("stark/prove"):
+        ch = config.initialise_challenger()
+        system.observe_shape(ch)
 
-    # activation bitmap, observed before any commitment
-    active = [h > 0 for h in witness.heights]
-    if not any(active):
-        raise ValueError("at least one circuit must be active")
-    for b in active:
-        ch.observe_bytes(bytes([1 if b else 0]))
-    active_idx = [i for i, b in enumerate(active) if b]
-    log_degrees = [witness.heights[i].bit_length() - 1 for i in active_idx]
+        # activation bitmap, observed before any commitment
+        active = [h > 0 for h in witness.heights]
+        if not any(active):
+            raise ValueError("at least one circuit must be active")
+        for b in active:
+            ch.observe_bytes(bytes([1 if b else 0]))
+        active_idx = [i for i, b in enumerate(active) if b]
+        log_degrees = [witness.heights[i].bit_length() - 1 for i in active_idx]
 
-    # STAGE-1 COMMIT
-    s1_cap, s1_data = pcs.commit(
-        [(pcs.natural_domain_for_degree(witness.heights[i]), witness.traces[i]) for i in active_idx]
-    )
-    if system.preprocessed_commit is not None:
-        ch.observe_commitment(system.preprocessed_commit)
-    ch.observe_commitment(s1_cap)
-    for ld in log_degrees:
-        ch.observe_bytes(bytes([ld]))
-    _observe_claims(ch, claims)  # length-prefixed claims
-
-    beta = ch.sample_ext()
-    gamma = ch.sample_ext()
-    E, dev = config.ext, config.device
-    beta_d, gamma_d = E.const(beta, dev), E.const(gamma, dev)
-    claims_arr = lk.claims_matrix(claims, hf.p)
-    if claims_arr is not None:
-        acc0_d = lk.claims_accumulator_device(config.field, E, claims_arr, beta_d, gamma_d)
-    else:  # no claims, or ragged ones
-        acc0_d = E.const(lk.claims_accumulator(he, beta, gamma, claims), dev)
-
-    # STAGE-2: lookup traces (the cap and the accumulators fetched together)
-    s2_mats, accs_dev = lk.stage_2_traces_device(
-        E, [witness.lookup_values[i] for i in active_idx], beta_d, gamma_d, acc0_d
-    )
-    s2_cap_dev, s2_data = pcs.commit_device(
-        [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
-    )
-    s2_cap, *accs_np = fetch([s2_cap_dev] + accs_dev)
-    accs = [tuple(int(c) for c in a) for a in accs_np]
-    ch.observe_commitment(s2_cap)
-    for a in accs:
-        ch.observe_ext(a)
-
-    alpha = ch.sample_ext()
-
-    # QUOTIENT per active circuit
-    alpha_d = E.const(alpha, dev)
-    accs_d = [acc0_d] + accs_dev
-    chunk_mats = []
-    for k, i in enumerate(active_idx):
-        chunk_mats.append(
-            _quotient_chunk_coeffs(
-                system, key, witness, s1_data, s2_data, i, k, beta_d, gamma_d, alpha_d, accs_d[k], accs_d[k + 1],
+        # STAGE-1 COMMIT
+        with span("stark/stage1_commit"):
+            s1_cap, s1_data = pcs.commit(
+                [(pcs.natural_domain_for_degree(witness.heights[i]), witness.traces[i]) for i in active_idx]
             )
+        if system.preprocessed_commit is not None:
+            ch.observe_commitment(system.preprocessed_commit)
+        ch.observe_commitment(s1_cap)
+        for ld in log_degrees:
+            ch.observe_bytes(bytes([ld]))
+        _observe_claims(ch, claims)  # length-prefixed claims
+
+        beta = ch.sample_ext()
+        gamma = ch.sample_ext()
+        E, dev = config.ext, config.device
+        beta_d, gamma_d = E.const(beta, dev), E.const(gamma, dev)
+        claims_arr = lk.claims_matrix(claims, hf.p)
+        if claims_arr is not None:
+            acc0_d = lk.claims_accumulator_device(config.field, E, claims_arr, beta_d, gamma_d)
+        else:  # no claims, or ragged ones
+            acc0_d = E.const(lk.claims_accumulator(he, beta, gamma, claims), dev)
+
+        # STAGE-2: lookup traces (the cap and the accumulators fetched together)
+        with span("stark/lookup_construction"):
+            s2_mats, accs_dev = lk.stage_2_traces_device(
+                E, [witness.lookup_values[i] for i in active_idx], beta_d, gamma_d, acc0_d
+            )
+        with span("stark/stage2_commit"):
+            s2_cap_dev, s2_data = pcs.commit_device(
+                [(pcs.natural_domain_for_degree(witness.heights[i]), m) for i, m in zip(active_idx, s2_mats)]
+            )
+            s2_cap, *accs_np = fetch([s2_cap_dev] + accs_dev)
+        accs = [tuple(int(c) for c in a) for a in accs_np]
+        ch.observe_commitment(s2_cap)
+        for a in accs:
+            ch.observe_ext(a)
+
+        alpha = ch.sample_ext()
+
+        # QUOTIENT per active circuit
+        alpha_d = E.const(alpha, dev)
+        accs_d = [acc0_d] + accs_dev
+        with span("stark/quotient"):
+            chunk_mats = [
+                _quotient_chunk_coeffs(
+                    system, key, witness, s1_data, s2_data, i, k, beta_d, gamma_d, alpha_d, accs_d[k], accs_d[k + 1],
+                )
+                for k, i in enumerate(active_idx)
+            ]
+            q_cap, q_data = pcs.commit_from_coeffs(chunk_mats)
+        ch.observe_commitment(q_cap)
+
+        zeta = ch.sample_ext()
+
+        # opening rounds: preprocessed?, stage1, stage2, quotient
+        rounds = []
+        if key.preprocessed_data is not None:
+            pre_points = []
+            for c_idx, p_idx in enumerate(system.preprocessed_index):
+                if p_idx is None:
+                    continue
+                if active[c_idx]:
+                    g = hf.two_adic_generator(witness.heights[c_idx].bit_length() - 1)
+                    pre_points.append([zeta, he.scale(zeta, g)])
+                else:
+                    pre_points.append([])
+            rounds.append((key.preprocessed_data, pre_points))
+        two_pt = []
+        for i in active_idx:
+            g = hf.two_adic_generator(witness.heights[i].bit_length() - 1)
+            two_pt.append([zeta, he.scale(zeta, g)])
+        rounds.append((s1_data, two_pt))
+        rounds.append((s2_data, [list(p) for p in two_pt]))
+        rounds.append((q_data, [[zeta] for _ in active_idx]))
+
+        with span("stark/fri_open"):
+            opened, fri_proof = pcs.open(rounds, ch)
+
+        r = 0
+        pre_opened = []
+        if key.preprocessed_data is not None:
+            pre_opened = opened[0]
+            r = 1
+        return Proof(
+            active=active,
+            commitments=Commitments(s1_cap, s2_cap, q_cap),
+            intermediate_accumulators=list(accs),
+            log_degrees=log_degrees,
+            preprocessed_opened=pre_opened,
+            stage1_opened=opened[r],
+            stage2_opened=opened[r + 1],
+            quotient_opened=opened[r + 2],
+            fri_proof=fri_proof,
+            field_bytes=8 if hf.p.bit_length() > 32 else 4,
         )
-    q_cap, q_data = pcs.commit_from_coeffs(chunk_mats)
-    ch.observe_commitment(q_cap)
-
-    zeta = ch.sample_ext()
-
-    # opening rounds: preprocessed?, stage1, stage2, quotient
-    rounds = []
-    if key.preprocessed_data is not None:
-        pre_points = []
-        for c_idx, p_idx in enumerate(system.preprocessed_index):
-            if p_idx is None:
-                continue
-            if active[c_idx]:
-                g = hf.two_adic_generator(witness.heights[c_idx].bit_length() - 1)
-                pre_points.append([zeta, he.scale(zeta, g)])
-            else:
-                pre_points.append([])
-        rounds.append((key.preprocessed_data, pre_points))
-    two_pt = []
-    for i in active_idx:
-        g = hf.two_adic_generator(witness.heights[i].bit_length() - 1)
-        two_pt.append([zeta, he.scale(zeta, g)])
-    rounds.append((s1_data, two_pt))
-    rounds.append((s2_data, [list(p) for p in two_pt]))
-    rounds.append((q_data, [[zeta] for _ in active_idx]))
-
-    opened, fri_proof = pcs.open(rounds, ch)
-
-    r = 0
-    pre_opened = []
-    if key.preprocessed_data is not None:
-        pre_opened = opened[0]
-        r = 1
-    return Proof(
-        active=active,
-        commitments=Commitments(s1_cap, s2_cap, q_cap),
-        intermediate_accumulators=list(accs),
-        log_degrees=log_degrees,
-        preprocessed_opened=pre_opened,
-        stage1_opened=opened[r],
-        stage2_opened=opened[r + 1],
-        quotient_opened=opened[r + 2],
-        fri_proof=fri_proof,
-        field_bytes=8 if hf.p.bit_length() > 32 else 4,
-    )
 
 
 def _quotient_chunk_coeffs(

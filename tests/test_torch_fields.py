@@ -114,7 +114,8 @@ def test_unsupported_device_raises():
 def test_import_leaves_jax_out():
     code = (
         "import sys, multistark_tpu_torch, multistark_tpu_torch.prover, multistark_tpu_torch.configs, "
-        "multistark_tpu_torch.serialization, multistark_tpu_torch.test_circuits; "
+        "multistark_tpu_torch.serialization, multistark_tpu_torch.test_circuits, multistark_tpu_torch.profiling, "
+        "multistark_tpu_torch.fixtures; "
         "assert 'jax' not in sys.modules and 'multistark_tpu' not in sys.modules"
     )
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
