@@ -102,9 +102,10 @@ without printing a result:
                 the path must count no fallback.  Then one more warm prove
                 per size with the stark/* spans read from 0
                 (multistark_tpu_torch/profiling.py): the JAX package's ten
-                span names, each once, the launches of the warm prove
-                before it, and each stage's host seconds and host memory on
-                `spans` lines.  Each proof is also read back by Proof.from_bytes
+                span names, each once, and the port's own at the path's
+                counts (PORT_SPANS), the launches of the warm prove before
+                it, and each span's host seconds on a `spans` line.  Each
+                proof is also read back by Proof.from_bytes
                 (which must write the same bytes), accepted by the port's
                 verifier (host code: verifier.py, pcs.verify's batched walk,
                 the host C hashes), and two tampered copies rejected with a
@@ -220,6 +221,12 @@ PATHS = {
 SPAN_STAGES = ("stark/prove", "stark/stage1_commit", "stark/lookup_construction", "stark/stage2_commit",
                "stark/quotient", "stark/fri_open", "stark/fri_open/eval", "stark/fri_open/ro", "stark/fri_open/fold",
                "stark/fri_open/queries")
+# the port's own spans inside one prove (`stark/witness` and `stark/to_bytes` lie outside it), by path
+PORT_SPANS = {
+    "goldilocks_blake3 device transcript": {"stark/claims": 1, "stark/fetch": 2, "stark/replay": 1},
+    "goldilocks_blake3 host transcript": {"stark/claims": 1, "stark/fetch": 4},
+    "babybear_poseidon2": {"stark/claims": 1, "stark/fetch": 3},
+}
 EMPTY_SPANS = 20000  # empty spans timed in a row for one span's cost
 BENCH_COMMIT = dict(log_blowup=2, cap_height=0)
 BENCH_FRI = dict(log_final_poly_len=0, max_log_arity=1, num_queries=100,
@@ -1758,7 +1765,7 @@ def prove_sizes(dev, path: str):
     say("prove", f"{path}: K14 lde_tile {counts['lde_tile']} and K15 merkle_levels {counts['merkle_levels']} "
         "launches; every tree's levels went through K15 (no compress_pairs entry point exists)")
     for log_n, witness, claims, per_prove in span_runs:
-        span_prove(f"{path} log_n={log_n}", lambda: prove(system, key, witness, claims), per_prove)
+        span_prove(f"{path} log_n={log_n}", lambda: prove(system, key, witness, claims), per_prove, PORT_SPANS[path])
     if config_name == "goldilocks_blake3" and dt.FALLBACKS:
         raise AssertionError(f"{path}: device-transcript fallbacks {dict(dt.FALLBACKS)}")
     return counts
@@ -1804,14 +1811,14 @@ def device_phase_spanned(system, key, witness, claims) -> None:
         dt_prover._device_phase(system, key, witness, claims, fri_open)
 
 
-def span_prove(label: str, prove, want_launches: dict) -> None:
+def span_prove(label: str, prove, want_launches: dict, port_spans: dict) -> None:
     """One more warm prove with the stark/* spans read from 0
     (profiling.reset_spans): each of the JAX package's ten names must close
-    once, and the prove must launch exactly what the path's last warm prove
-    launched (a span launches nothing).  Prints each stage's host seconds
-    and its host memory (RSS change, peak rise, RSS at exit) on two `spans`
-    lines.  A span reads the host clock and never synchronises: a stage's
-    seconds are the time its work took to queue, plus any fetch inside it."""
+    once and the port's own as `port_spans` counts them, and the prove must
+    launch exactly what the path's last warm prove launched (a span launches
+    nothing).  Prints each span's host seconds on a `spans` line.  A span
+    reads the host clock and never synchronises: a stage's seconds are the
+    time its work took to queue, plus any fetch inside it."""
     import torch
 
     from multistark_tpu_torch import kernels, profiling
@@ -1826,22 +1833,22 @@ def span_prove(label: str, prove, want_launches: dict) -> None:
     t_sync = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
     counts = profiling.span_counts()
-    if counts != {name: 1 for name in SPAN_STAGES}:
-        raise AssertionError(f"{label}: stark/* spans {counts}, not the JAX package's ten, each once")
+    if counts != {**{name: 1 for name in SPAN_STAGES}, **port_spans}:
+        raise AssertionError(f"{label}: stark/* spans {counts}, not the JAX package's ten, each once, and the "
+                             f"port's {port_spans}")
     if launched != want_launches:
         raise AssertionError(f"{label}: the spanned prove launched {launched}, the warm prove {want_launches}")
-    times, mem = profiling.span_times(), profiling.span_memory()
+    times = profiling.span_times()
     say("spans", f"{label}: prove returned {t_return:.4f} s, synchronised {t_sync:.4f} s; host seconds "
-        + ", ".join(f"{name} {times[name]:.4f}" for name in SPAN_STAGES) + "; launches as the warm prove's")
-    say("spans", f"{label} memory (MiB, RSS change / peak rise / RSS at exit): " + ", ".join(
-        f"{name} {mem[name]['rss_delta_mib']:+.1f}/{mem[name]['hwm_rise_mib']:.1f}/{mem[name]['rss_mib']:.0f}"
-        for name in SPAN_STAGES))
+        + ", ".join(f"{name} {times[name]:.4f}" for name in SPAN_STAGES + tuple(port_spans))
+        + "; launches as the warm prove's")
     profiling.reset_spans()
 
 
-def texray_prove(label: str, prove) -> None:
+def texray_prove(label: str, prove, port_spans: dict) -> None:
     """One prove streamed under MULTISTARK_TEXRAY=stark/: each span's exit
-    prints its [texray] line; every stage must stream once."""
+    prints its [texray] line; every stage must stream once and the port's
+    own spans as `port_spans` counts them."""
     import contextlib
     import io
 
@@ -1857,8 +1864,8 @@ def texray_prove(label: str, prove) -> None:
         profiling.reset_spans()
     lines = [line for line in out.getvalue().splitlines() if line.startswith("[texray]")]
     streamed = sorted(line.split()[1].rstrip(":") for line in lines)
-    if streamed != sorted(SPAN_STAGES):
-        raise AssertionError(f"{label}: streamed {streamed}, not each stage once")
+    if streamed != sorted(SPAN_STAGES + tuple(name for name, n in port_spans.items() for _ in range(n))):
+        raise AssertionError(f"{label}: streamed {streamed}, not each stage once and the port's {port_spans}")
     say("spans", f"{label} streamed under MULTISTARK_TEXRAY=stark/:")
     for line in lines:
         print(line, flush=True)
@@ -1998,9 +2005,11 @@ def workloads_phase(dev) -> dict:
             "\"error\"), 0 fallbacks")
     dt.FALLBACKS.clear()
     for label, prove, system, key, witness, claims, per_prove in span_runs:
-        span_prove(label, lambda: prove(system, key, witness, claims), per_prove)
+        port_spans = PORT_SPANS["goldilocks_blake3 " + ("device transcript" if label.endswith("prove_multiple_claims")
+                                                        else "host transcript")]
+        span_prove(label, lambda: prove(system, key, witness, claims), per_prove, port_spans)
         if label == "blake3 64 KiB prove_multiple_claims":
-            texray_prove(label, lambda: prove(system, key, witness, claims))
+            texray_prove(label, lambda: prove(system, key, witness, claims), port_spans)
     if dt.FALLBACKS:
         raise AssertionError(f"workloads: device-transcript fallbacks in the spanned proves {dict(dt.FALLBACKS)}")
     say("workloads", f"phase 4b took {time.perf_counter() - t_phase:.1f} s")
@@ -2206,7 +2215,7 @@ def fixtures_phase(dev) -> None:
             pass
     t_rf = (time.perf_counter() - t0) / EMPTY_SPANS
     say("spans", f"one empty span: {t_span * 1e6:.2f} us enter and exit on the card's host (mean of {EMPTY_SPANS}; "
-        f"of which a bare torch.profiler.record_function {t_rf * 1e6:.2f} us); a prove opens ten")
+        f"of which a bare torch.profiler.record_function {t_rf * 1e6:.2f} us); a device-transcript job opens 16")
 
 
 def running_children() -> list:

@@ -181,14 +181,14 @@ def _device_phase(system, key, witness, claims, fri_open: Optional[contextlib.Ex
     dd.observe_cap_device(s1_cap)
     for ld in log_degrees:
         dd.observe_bytes(bytes([ld]))
-    claims_arr = _observe_claims_dd(dd, claims, hf.p)
-
-    beta = dd.sample_ext(D)
-    gamma = dd.sample_ext(D)
-    if claims_arr is None:
-        acc0 = torch.zeros(D, dtype=torch.int64, device=config.device)
-    else:
-        acc0 = lk.claims_accumulator_device(F, E, claims_arr, beta, gamma)
+    with span("stark/claims"):
+        claims_arr = _observe_claims_dd(dd, claims, hf.p)
+        beta = dd.sample_ext(D)
+        gamma = dd.sample_ext(D)
+        if claims_arr is None:
+            acc0 = torch.zeros(D, dtype=torch.int64, device=config.device)
+        else:
+            acc0 = lk.claims_accumulator_device(F, E, claims_arr, beta, gamma)
 
     # STAGE-2 (device β γ acc₀)
     with span("stark/lookup_construction"):
@@ -268,56 +268,57 @@ def _fetch_and_replay(system, key, witness, claims, ph: _DevicePhase):
     flat_vals = [v for round_vals in ph.vals for mat_vals in round_vals for v in mat_vals]
     groups = [ph.caps, ph.accs, flat_vals, ph.challenges, ph.valids, fri_caps, ws, betas, oks, [current]]
     got = iter(fetch([t for g in groups for t in g]))
-    caps, accs, vals_np, challenges, valids, fri_caps_np, ws_np, betas_np, oks_np, (current_np,) = (
-        [next(got) for _ in g] for g in groups
-    )
-    if not all(int(v) == 1 for flags in valids for v in flags):
-        raise dt.Fallback("non-canonical draw on the device")
+    with span("stark/replay"):
+        caps, accs, vals_np, challenges, valids, fri_caps_np, ws_np, betas_np, oks_np, (current_np,) = (
+            [next(got) for _ in g] for g in groups
+        )
+        if not all(int(v) == 1 for flags in valids for v in flags):
+            raise dt.Fallback("non-canonical draw on the device")
 
-    def ext(a):
-        return tuple(int(c) for c in a)
+        def ext(a):
+            return tuple(int(c) for c in a)
 
-    accs_host = [ext(a) for a in accs]
-    vals_it = iter(vals_np)
-    opened = [[[[ext(col) for col in next(vals_it).T] for _ in mat_vals] for mat_vals in round_vals]
-              for round_vals in ph.vals]
+        accs_host = [ext(a) for a in accs]
+        vals_it = iter(vals_np)
+        opened = [[[[ext(col) for col in next(vals_it).T] for _ in mat_vals] for mat_vals in round_vals]
+                  for round_vals in ph.vals]
 
-    # the host challenger replays the byte transcript and checks every draw
-    ch = config.initialise_challenger()
-    system.observe_shape(ch)
-    for b in ph.active:
-        ch.observe_bytes(bytes([1 if b else 0]))
-    if system.preprocessed_commit is not None:
-        ch.observe_commitment(system.preprocessed_commit)
-    ch.observe_commitment(caps[0])
-    for ld in ph.log_degrees:
-        ch.observe_bytes(bytes([ld]))
-    _observe_claims_host(ch, claims)
-    beta, gamma, alpha, zeta, alpha_fri = (ext(c) for c in challenges)
+        # the host challenger replays the byte transcript and checks every draw
+        ch = config.initialise_challenger()
+        system.observe_shape(ch)
+        for b in ph.active:
+            ch.observe_bytes(bytes([1 if b else 0]))
+        if system.preprocessed_commit is not None:
+            ch.observe_commitment(system.preprocessed_commit)
+        ch.observe_commitment(caps[0])
+        for ld in ph.log_degrees:
+            ch.observe_bytes(bytes([ld]))
+        _observe_claims_host(ch, claims)
+        beta, gamma, alpha, zeta, alpha_fri = (ext(c) for c in challenges)
 
-    def replay_draw(name, device_value):
-        host_value = ch.sample_ext()
-        if host_value != device_value:
-            raise dt.TranscriptDivergence(f"replay: the device drew {name} = {device_value}, the host {host_value}")
+        def replay_draw(name, device_value):
+            host_value = ch.sample_ext()
+            if host_value != device_value:
+                raise dt.TranscriptDivergence(f"replay: the device drew {name} = {device_value}, the host {host_value}")
 
-    replay_draw("β", beta)
-    replay_draw("γ", gamma)
-    ch.observe_commitment(caps[1])
-    for a in accs_host:
-        ch.observe_ext(a)
-    replay_draw("α", alpha)
-    ch.observe_commitment(caps[2])
-    replay_draw("ζ", zeta)
-    for round_vals in opened:
-        for mat_vals in round_vals:
-            for pt_vals in mat_vals:
-                for v in pt_vals:
-                    ch.observe_ext(v)
-    replay_draw("FRI α", alpha_fri)
-    fri_caps_host, commit_pows = pcs.replay_commit_phase_host(ch, ph.schedule, fri_caps_np, ws_np, betas_np, oks_np)
-    final_poly, query_pow, indices = pcs._commit_tail(
-        [ext(col) for col in current_np.T], log_size, ph.log_max_ro, ph.log_max, ch
-    )
+        replay_draw("β", beta)
+        replay_draw("γ", gamma)
+        ch.observe_commitment(caps[1])
+        for a in accs_host:
+            ch.observe_ext(a)
+        replay_draw("α", alpha)
+        ch.observe_commitment(caps[2])
+        replay_draw("ζ", zeta)
+        for round_vals in opened:
+            for mat_vals in round_vals:
+                for pt_vals in mat_vals:
+                    for v in pt_vals:
+                        ch.observe_ext(v)
+        replay_draw("FRI α", alpha_fri)
+        fri_caps_host, commit_pows = pcs.replay_commit_phase_host(ch, ph.schedule, fri_caps_np, ws_np, betas_np, oks_np)
+        final_poly, query_pow, indices = pcs._commit_tail(
+            [ext(col) for col in current_np.T], log_size, ph.log_max_ro, ph.log_max, ch
+        )
     with span("stark/fri_open/queries"):
         query_proofs = pcs._query_phase(
             [(data, None) for data in ph.datas], commit_datas, indices, ph.schedule, ph.log_max, ph.log_max_ro

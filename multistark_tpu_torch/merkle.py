@@ -33,6 +33,7 @@ import torch
 
 from .commit_tile import merkle_levels
 from .hash import blake3, blake3_host, poseidon2, poseidon2_host
+from .profiling import span
 
 
 class Blake3FieldHasher:
@@ -237,18 +238,19 @@ class MerkleMmcs:
             for r in rows:
                 parts.append(r.reshape(-1).view(torch.int32))
             shapes.append((tuple(sib.shape), [tuple(r.shape) for r in rows]))
-        flat = torch.cat(parts).cpu().numpy().view(np.uint32) if parts else np.zeros(0, np.uint32)
-        out, off = [], 0
-        for sib_shape, row_shapes in shapes:
-            k = int(np.prod(sib_shape))
-            sib = flat[off : off + k].reshape(sib_shape)
-            off += k
-            rows = []
-            for shp in row_shapes:
-                k = 2 * int(np.prod(shp))
-                rows.append(flat[off : off + k].view(np.uint64).reshape(shp))
+        with span("stark/fetch"):
+            flat = torch.cat(parts).cpu().numpy().view(np.uint32) if parts else np.zeros(0, np.uint32)
+            out, off = [], 0
+            for sib_shape, row_shapes in shapes:
+                k = int(np.prod(sib_shape))
+                sib = flat[off : off + k].reshape(sib_shape)
                 off += k
-            out.append((sib, rows))
+                rows = []
+                for shp in row_shapes:
+                    k = 2 * int(np.prod(shp))
+                    rows.append(flat[off : off + k].view(np.uint64).reshape(shp))
+                    off += k
+                out.append((sib, rows))
         return out
 
     def assemble(self, data: MerkleProverData, n_queries: int, fetched) -> List[BatchOpening]:

@@ -60,7 +60,8 @@ class Proof:
     def to_bytes(self) -> bytes:
         from .serialization import proof_to_bytes
 
-        return proof_to_bytes(self)
+        with span("stark/to_bytes"):
+            return proof_to_bytes(self)
 
     @staticmethod
     def from_bytes(data: bytes, system: System) -> "Proof":
@@ -125,17 +126,17 @@ def prove_host_transcript(
         ch.observe_commitment(s1_cap)
         for ld in log_degrees:
             ch.observe_bytes(bytes([ld]))
-        _observe_claims(ch, claims)  # length-prefixed claims
-
-        beta = ch.sample_ext()
-        gamma = ch.sample_ext()
-        E, dev = config.ext, config.device
-        beta_d, gamma_d = E.const(beta, dev), E.const(gamma, dev)
-        claims_arr = lk.claims_matrix(claims, hf.p)
-        if claims_arr is not None:
-            acc0_d = lk.claims_accumulator_device(config.field, E, claims_arr, beta_d, gamma_d)
-        else:  # no claims, or ragged ones
-            acc0_d = E.const(lk.claims_accumulator(he, beta, gamma, claims), dev)
+        with span("stark/claims"):
+            _observe_claims(ch, claims)  # length-prefixed claims
+            beta = ch.sample_ext()
+            gamma = ch.sample_ext()
+            E, dev = config.ext, config.device
+            beta_d, gamma_d = E.const(beta, dev), E.const(gamma, dev)
+            claims_arr = lk.claims_matrix(claims, hf.p)
+            if claims_arr is not None:
+                acc0_d = lk.claims_accumulator_device(config.field, E, claims_arr, beta_d, gamma_d)
+            else:  # no claims, or ragged ones
+                acc0_d = E.const(lk.claims_accumulator(he, beta, gamma, claims), dev)
 
         # STAGE-2: lookup traces (the cap and the accumulators fetched together)
         with span("stark/lookup_construction"):

@@ -19,6 +19,7 @@ from .expr import Expr, ExtExpr, Lookup, Source
 from .fields.npref import NpField, np_powers
 from .graph import ConstraintGraph, compile_graph
 from . import program
+from .profiling import span
 from .program import SELECTORS, Operands, Program, Recorder, expr_sweep
 
 
@@ -223,33 +224,34 @@ class SystemWitness:
         """traces: per circuit a (h, w) uint64 numpy array or int64 tensor
         (as `witness_from_numpy` returns them); values become field elements
         as the config's `from_np` makes them (BabyBear reduces mod p)."""
-        F, device = system.config.field, system.config.device
-        if torch.device(device).type == "cuda":  # the compiled K11 programs of this prove, built together
-            program.build(F, system.programs([t.shape[0] for t in traces]))
-        dev_traces: List[Optional[torch.Tensor]] = []
-        heights: List[int] = []
-        lvs: List[Optional[lk.LookupValues]] = []
-        for c_idx, (circuit, trace) in enumerate(zip(system.circuits, traces)):
-            if isinstance(trace, torch.Tensor):
-                trace = F.canonical(trace)
-            else:
-                trace = F.from_np(np.asarray(trace, np.uint64), device)
-            h = trace.shape[0]
-            heights.append(h)
-            if h == 0:
-                dev_traces.append(None)
-                lvs.append(None)
-                continue
-            if h & (h - 1):
-                raise ValueError(f"trace height {h} not a power of two")
-            if trace.shape[1] != circuit.main_width:
-                raise ValueError(f"trace width {trace.shape[1]} != {circuit.main_width}")
-            if circuit.preprocessed_dims is not None and circuit.preprocessed_dims[0] != h:
-                raise ValueError(f"preprocessed height {circuit.preprocessed_dims[0]} != main height {h}")
-            mat = trace.to(device).T.contiguous()  # (w, h)
-            dev_traces.append(mat)
-            lvs.append(_compute_lookup_values(system, key, c_idx, mat, h))
-        return SystemWitness(traces=dev_traces, heights=heights, lookup_values=lvs)
+        with span("stark/witness"):
+            F, device = system.config.field, system.config.device
+            if torch.device(device).type == "cuda":  # the compiled K11 programs of this prove, built together
+                program.build(F, system.programs([t.shape[0] for t in traces]))
+            dev_traces: List[Optional[torch.Tensor]] = []
+            heights: List[int] = []
+            lvs: List[Optional[lk.LookupValues]] = []
+            for c_idx, (circuit, trace) in enumerate(zip(system.circuits, traces)):
+                if isinstance(trace, torch.Tensor):
+                    trace = F.canonical(trace)
+                else:
+                    trace = F.from_np(np.asarray(trace, np.uint64), device)
+                h = trace.shape[0]
+                heights.append(h)
+                if h == 0:
+                    dev_traces.append(None)
+                    lvs.append(None)
+                    continue
+                if h & (h - 1):
+                    raise ValueError(f"trace height {h} not a power of two")
+                if trace.shape[1] != circuit.main_width:
+                    raise ValueError(f"trace width {trace.shape[1]} != {circuit.main_width}")
+                if circuit.preprocessed_dims is not None and circuit.preprocessed_dims[0] != h:
+                    raise ValueError(f"preprocessed height {circuit.preprocessed_dims[0]} != main height {h}")
+                mat = trace.to(device).T.contiguous()  # (w, h)
+                dev_traces.append(mat)
+                lvs.append(_compute_lookup_values(system, key, c_idx, mat, h))
+            return SystemWitness(traces=dev_traces, heights=heights, lookup_values=lvs)
 
 
 def _compute_lookup_values(system: System, key: ProverKey, c_idx: int, main_mat, height: int) -> lk.LookupValues:

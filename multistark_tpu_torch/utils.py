@@ -25,6 +25,7 @@ import torch
 
 from . import kernels
 from .fields.device import ExtOps
+from .profiling import span
 
 def bit_reverse_indices(log_n: int) -> np.ndarray:
     """Permutation i -> reverse_bits(i, log_n) as an int64 numpy array."""
@@ -62,13 +63,14 @@ def fetch(tensors) -> list:
     tensors = list(tensors)
     if not tensors:
         return []
-    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).cpu().numpy()
-    out, off = [], 0
-    for t in tensors:
-        part = flat[off : off + t.numel()]
-        off += t.numel()
-        arr = (part & 0xFFFFFFFF).astype(np.uint32) if t.dtype == torch.int32 else part.view(np.uint64)
-        out.append(arr.reshape(tuple(t.shape)))
+    with span("stark/fetch"):
+        flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).cpu().numpy()
+        out, off = [], 0
+        for t in tensors:
+            part = flat[off : off + t.numel()]
+            off += t.numel()
+            arr = (part & 0xFFFFFFFF).astype(np.uint32) if t.dtype == torch.int32 else part.view(np.uint64)
+            out.append(arr.reshape(tuple(t.shape)))
     return out
 
 

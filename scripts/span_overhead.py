@@ -1,34 +1,35 @@
 """What the provers' `stark/*` spans (multistark_tpu_torch/profiling.py) cost
-a warm prove on the card, and which part of a span costs it: warm proves
-in five variants, in rounds within one process, so that the card, its
-power limit and the host's load are the same for all of them:
+a proof job on the card: the benchmark's jobs (bench_h100/run.py: a device
+copy of the traces, SystemWitness.from_stage_1, prove_multiple_claims,
+Proof.to_bytes, a synchronise) in three variants, in rounds within one
+process, so that the card, its power limit and the host's load are the same
+for all of them:
 
-  on        the spans as they are
-  off       the prover modules' `span` replaced by a null context
-  no-proc   the spans without their memory reads (RSS and peak read as 0)
-  statm     RSS read from /proc/self/statm, as the JAX module reads it
-  timed     the spans as they are
+  on        the spans as they are (MULTISTARK_TEXRAY unset)
+  off       every `span` the program opens replaced by a null context
+  texray    MULTISTARK_TEXRAY set to a prefix that matches no span: each
+            span also reads the host memory, and prints nothing
 
-    python3 scripts/span_overhead.py [--rounds N] [--log-n N ...] [--no-blake3]
+    python3 scripts/span_overhead.py [--workload CELL ...] [--rounds N] [--seed N]
 
-Cases: the bench workload (U32Add + ByteTable, chip_smoke's bench
-parameters and witness) along its three paths (GoldilocksBlake3 through
-`prove_multiple_claims`, the device transcript, and
-`prove_host_transcript`; BabyBearPoseidon2) at each `--log-n`, and the
-BLAKE3 64 KiB workload on both GoldilocksBlake3 transcripts (the data of
-scripts/torch_port_golden.py).  Each case: one cold prove, then N rounds
-of one warm prove per variant, the order rotating between rounds; each
-prove's host seconds end in `torch.cuda.synchronize()`.  Prints per case
-and variant the median and quartiles, and against "off" the median of
-the rounds' differences and how many rounds took longer; for "timed" and
-"statm" the seconds a prove spent in the spans' memory reads; then one
-empty span's enter and exit, a mean over 20000.  Needs a CUDA device.
+Cells are BENCHMARK.json's (default: u32add_gl.rows2e20, blake3_gl.msg256k).
+Each cell: the benchmark's set-up (its seeded pool on the card, a cold job
+per input), then N rounds of one job per variant, the order rotating
+between rounds.  Prints per cell and variant the median and quartiles of
+the jobs' seconds and, against "off", the median of the rounds'
+differences and how many rounds took longer; the spans a job opens; the
+seconds a job spends in the memory reads under "texray" (each read timed);
+and one empty span's enter and exit in each of "on" and "texray", and a
+bare `torch.profiler.record_function`'s, a mean over 20000 with no job
+running.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import json
 import os
 import sys
 import time
@@ -37,16 +38,20 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+BENCH = os.path.join(ROOT, "bench_h100")
+sys.path[:0] = [ROOT, BENCH]
 
-from multistark_tpu_torch import dt_prover, pcs, profiling, prover  # noqa: E402
+import run as harness  # noqa: E402  (bench_h100/run.py)
+from multistark_tpu_torch import dt_prover, merkle, pcs, profiling, prover, system, utils  # noqa: E402
 
-SPANNED = (prover, pcs, dt_prover)  # the modules that open stark/* spans
+SPANNED = (prover, pcs, dt_prover, system, utils, merkle)  # the modules that open stark/* spans
+QUIET = "nothing/"  # a MULTISTARK_TEXRAY prefix that matches no span
+EMPTY_SPANS = 20000
 
 
 @contextlib.contextmanager
 def patched(pairs):
-    """Each (object, attribute) of `pairs` set to a null stand-in, restored after."""
+    """Each (object, attribute) of `pairs` set to its stand-in, restored after."""
     saved = [getattr(obj, attr) for obj, attr, _ in pairs]
     for obj, attr, value in pairs:
         setattr(obj, attr, value)
@@ -57,119 +62,103 @@ def patched(pairs):
             setattr(obj, attr, value)
 
 
-def null_context(name):
-    return contextlib.nullcontext()
+@contextlib.contextmanager
+def texray(read_seconds: list):
+    """MULTISTARK_TEXRAY at a prefix that matches nothing, each memory read timed."""
+    memory = profiling._memory_mib
 
-
-def statm_memory():
-    """(RSS, peak RSS) in MiB the JAX module's way: RSS from /proc/self/statm
-    (opened for each read), the peak from profiling's reader."""
-    with open("/proc/self/statm", "rb") as f:
-        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
-    return rss, MEMORY()[1]
-
-
-def timed(fn, sink: list):
-    def wrapper():
+    def timed():
         t0 = time.perf_counter()
         try:
-            return fn()
+            return memory()
         finally:
-            sink.append(time.perf_counter() - t0)
-    return wrapper
+            read_seconds.append(time.perf_counter() - t0)
+
+    os.environ["MULTISTARK_TEXRAY"] = QUIET
+    try:
+        with patched([(profiling, "_memory_mib", timed)]):
+            yield
+    finally:
+        del os.environ["MULTISTARK_TEXRAY"]
 
 
-MEMORY = profiling._memory_mib
-READ_SECONDS = {"timed": [], "statm": []}  # each memory read's seconds, per variant
-VARIANTS = {
-    "on": lambda: contextlib.nullcontext(),
-    "off": lambda: patched([(m, "span", null_context) for m in SPANNED]),
-    "no-proc": lambda: patched([(profiling, "_memory_mib", lambda: (0.0, 0.0))]),
-    "statm": lambda: patched([(profiling, "_memory_mib", timed(statm_memory, READ_SECONDS["statm"]))]),
-    "timed": lambda: patched([(profiling, "_memory_mib", timed(MEMORY, READ_SECONDS["timed"]))]),
-}
+def variants(read_seconds: list) -> dict:
+    return {
+        "on": contextlib.nullcontext,
+        "off": lambda: patched([(m, "span", lambda name: contextlib.nullcontext()) for m in SPANNED]),
+        "texray": lambda: texray(read_seconds),
+    }
 
 
-def wall(run) -> float:
-    torch.cuda.synchronize()
+def empty_span_us(span=profiling.span) -> float:
+    """One empty span's enter and exit, a mean over EMPTY_SPANS."""
+    profiling.reset_spans()
     t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    for _ in range(EMPTY_SPANS):
+        with span("stark/empty"):
+            pass
+    profiling.reset_spans()
+    return (time.perf_counter() - t0) / EMPTY_SPANS * 1e6
 
 
-def cases(dev, log_ns, blake3: bool):
-    """(label, prove with no arguments) per case, each proved once cold."""
-    import chip_smoke as cs
-
-    import multistark_tpu_torch as mt
-    from multistark_tpu_torch.system import System, SystemWitness
-    from multistark_tpu_torch.test_circuits import u32_add_system_inputs, u32_add_witness
-
-    out = []
-    for path, (config_name, entry, _) in cs.PATHS.items():
-        system, key = System.new(cs.bench_config(dev, config_name), u32_add_system_inputs())
-        for log_n in log_ns:
-            n = 1 << log_n
-            rng = np.random.default_rng(cs.WITNESS_SEED)
-            xs = rng.integers(0, 1 << 32, n, dtype=np.uint64)
-            ys = rng.integers(0, 1 << 32, n, dtype=np.uint64)
-            traces, claims = mt.witness_from_numpy(*u32_add_witness(list(zip(xs.tolist(), ys.tolist())), n), dev)
-            witness = SystemWitness.from_stage_1(traces, system, key)
-            out.append((f"{path} log_n={log_n}", lambda p=getattr(prover, entry), s=system, k=key, w=witness,
-                        c=claims: p(s, k, w, c)))
-    if blake3:
-        G, _ = cs.golden_workloads()
-        name = "blake3 64 KiB"
-        inputs, traces, claims, _ = cs.workload_data(G, name)
-        system, key = cs.workload_system(dev, G, name, inputs)
-        traces, claims = mt.witness_from_numpy(traces, claims, dev)
-        witness = SystemWitness.from_stage_1(traces, system, key)
-        for entry in ("prove_multiple_claims", "prove_host_transcript"):
-            out.append((f"{name} {entry}", lambda p=getattr(prover, entry), s=system, k=key, w=witness,
-                        c=claims: p(s, k, w, c)))
-    for _, run in out:
-        wall(run)  # cold: host tables, K11 programs
-    return out
+def measure(name: str, program, pool: int, rounds: int) -> None:
+    """N rounds of one job per variant on `program` (a harness.Program whose
+    cold jobs have run), printed as the module docstring says."""
+    reads: list = []
+    var = variants(reads)
+    names = list(var)
+    secs = {v: [] for v in names}
+    gc.collect()
+    for i in range(rounds):
+        for v in names[i % len(names):] + names[:i % len(names)]:
+            with var[v]():
+                t0 = time.perf_counter()
+                program.job(i % pool)  # ends in a synchronise
+                secs[v].append(time.perf_counter() - t0)
+    profiling.reset_spans()
+    program.job(0)
+    opened = profiling.span_counts()
+    profiling.reset_spans()
+    print(f"[span_overhead] {name}: a job opens {sum(opened.values())} spans {opened}", flush=True)
+    r = np.asarray(reads)
+    print(f"[span_overhead] {name} texray: {len(r)} memory reads, {1e3 * r.sum() / rounds:.3f} ms a job, median "
+          f"{1e6 * np.median(r):.1f} us, max {1e6 * r.max():.1f} us", flush=True)
+    off = np.asarray(secs["off"])
+    for v in names:
+        a = np.asarray(secs[v])
+        vs = "" if v == "off" else (f"; against off: median {1e3 * np.median(a - off):+.3f} ms, longer in "
+                                    f"{int((a > off).sum())} of {rounds} rounds")
+        print(f"[span_overhead] {name} {v}: median {np.median(a):.4f} s (quartiles {np.percentile(a, 25):.4f}-"
+              f"{np.percentile(a, 75):.4f}){vs}", flush=True)
+    with var["texray"]():
+        quiet_us = empty_span_us()
+    print(f"[span_overhead] {name}: one empty span {empty_span_us():.2f} us on, {quiet_us:.2f} us under texray, "
+          f"a bare torch.profiler.record_function {empty_span_us(torch.profiler.record_function):.2f} us (mean of "
+          f"{EMPTY_SPANS}, no job running)", flush=True)
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rounds", type=int, default=10)
-    ap.add_argument("--log-n", nargs="+", type=int, default=[14, 18])
-    ap.add_argument("--no-blake3", action="store_true", help="leave out the BLAKE3 64 KiB workload")
+    ap.add_argument("--workload", nargs="+", default=["u32add_gl.rows2e20", "blake3_gl.msg256k"])
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--seed", type=int, default=20261018)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("span_overhead: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    print(f"[span_overhead] {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"[span_overhead] {harness.power_limit()}", flush=True)
     os.environ.pop("MULTISTARK_TEXRAY", None)
-    names = list(VARIANTS)
-    for label, run in cases(dev, args.log_n, not args.no_blake3):
-        secs = {name: [] for name in names}
-        for i in range(args.rounds):
-            for name in names[i % len(names):] + names[:i % len(names)]:
-                with VARIANTS[name]():
-                    secs[name].append(wall(run))
-        for name, sink in READ_SECONDS.items():
-            reads = np.asarray(sink)
-            print(f"[span_overhead] {label} {name}: {len(reads)} memory reads, {1e3 * reads.sum() / args.rounds:.3f} "
-                  f"ms a prove, median {1e6 * np.median(reads):.1f} us, max {1e6 * reads.max():.1f} us", flush=True)
-            sink.clear()
-        off = np.asarray(secs["off"])
-        for name in names:
-            a = np.asarray(secs[name])
-            vs = "" if name == "off" else (f"; against off: median {1e3 * np.median(a - off):+.2f} ms, longer in "
-                                           f"{int((a > off).sum())} of {args.rounds} rounds")
-            print(f"[span_overhead] {label} {name}: median {np.median(a):.4f} s (quartiles "
-                  f"{np.percentile(a, 25):.4f}-{np.percentile(a, 75):.4f}){vs}", flush=True)
-    profiling.reset_spans()
-    t0 = time.perf_counter()
-    for _ in range(20000):
-        with profiling.span("stark/empty"):
-            pass
-    profiling.reset_spans()
-    print(f"[span_overhead] one empty span: {(time.perf_counter() - t0) / 20000 * 1e6:.2f} us", flush=True)
+    torch.set_num_threads(1)  # as the benchmark runs
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        manifest = json.load(f)
+    for name in args.workload:
+        cell = harness.Cell.load(manifest, name, False)
+        host_pool = harness.make_pool(cell, args.seed)
+        program = harness.Program(cell, host_pool)
+        for k in range(len(host_pool)):
+            program.job(k)  # cold: programs, host tables
+        measure(name, program, len(host_pool), args.rounds)
+        del program
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -2,13 +2,16 @@
 package's (multistark_tpu/profiling.py) on the CPU: the same nested spans
 give the same names, counts, nesting order and streamed `[texray]` lines,
 and a prove records the JAX package's `stark/*` spans on both
-GoldilocksBlake3 transcripts and on BabyBearPoseidon2.  Tolerance: exact
-(times and memory are not compared, only their keys)."""
+GoldilocksBlake3 transcripts and on BabyBearPoseidon2, with the port's own
+five (each a leaf or outside `stark/prove`) beside them.  Without
+MULTISTARK_TEXRAY a span reads no host memory.  Tolerance: exact (times and
+memory are not compared, only their keys)."""
 
 import contextlib
 import io
 import os
 import re
+import resource
 
 import numpy as np
 import pytest
@@ -31,6 +34,15 @@ TEXRAY = re.compile(r"^\[texray\] ( *)(\S+): [0-9.]+ms ── RAM Δ [+-][0-9]+M
 STAGES = ["stark/stage1_commit", "stark/lookup_construction", "stark/stage2_commit", "stark/quotient",
           "stark/fri_open/eval", "stark/fri_open/ro", "stark/fri_open/fold", "stark/fri_open/queries",
           "stark/fri_open", "stark/prove"]
+# the port's own spans a job opens (witness, prove, to_bytes), per prove path
+PORT_SPANS = {
+    "goldilocks_blake3 device transcript": {"stark/witness": 1, "stark/claims": 1, "stark/fetch": 2,
+                                            "stark/replay": 1, "stark/to_bytes": 1},
+    "goldilocks_blake3 host transcript": {"stark/witness": 1, "stark/claims": 1, "stark/fetch": 4,
+                                          "stark/to_bytes": 1},
+    "babybear_poseidon2": {"stark/witness": 1, "stark/claims": 1, "stark/fetch": 3, "stark/to_bytes": 1},
+}
+QUIET = "nothing/"  # MULTISTARK_TEXRAY prefix that matches no span: memory readings on, no lines
 # the tiny prove of multistark_tpu/fixtures.py:135 (GoldilocksBlake3, 32 rows),
 # and BabyBearPoseidon2 at 8 rows with a cap of 4 digests and one FRI round
 # (few Poseidon2 trees: the JAX side hashes them eagerly)
@@ -92,8 +104,8 @@ def _run(prof, fn, env):
 
 @pytest.mark.parametrize("fail", [False, True])
 def test_nested_spans_match_jax(fail):
-    _, jlines = _run(jprof, lambda: _nested(jprof, fail), None)
-    _, tlines = _run(tprof, lambda: _nested(tprof, fail), None)
+    _, jlines = _run(jprof, lambda: _nested(jprof, fail), QUIET)
+    _, tlines = _run(tprof, lambda: _nested(tprof, fail), QUIET)
     assert jlines == tlines == []
     assert list(tprof.span_times()) == list(jprof.span_times())
     assert tprof.span_counts() == jprof._COUNTS
@@ -110,9 +122,11 @@ def test_nested_spans_match_jax(fail):
 
 
 @pytest.mark.parametrize("prof", [jprof, tprof], ids=["jax", "port"])
-def test_span_memory_follows_rss(prof):
+def test_span_memory_follows_rss(prof, monkeypatch):
     """64 MiB touched inside a span and kept past it: both modules count
-    the RSS change and the RSS at exit; freed inside another, no change."""
+    the RSS change and the RSS at exit; freed inside another, no change
+    (the port reads memory under MULTISTARK_TEXRAY only)."""
+    monkeypatch.setenv("MULTISTARK_TEXRAY", QUIET)
     prof.reset_spans()
     with prof.span("stark/alloc"):
         held = np.ones(64 << 17)  # 64 MiB of float64, written
@@ -141,7 +155,8 @@ def test_texray_lines_match_jax(env):
 
 
 def _tiny(pkg: str, config_name: str, device=None):
-    """(system, key, witness) of the tiny mul-circuit prove in either package."""
+    """(config, system, key, a function that builds the witness) of the tiny mul-circuit
+    prove in either package."""
     commit, fri, log_n = PROVES[config_name]
     if pkg == "jax":
         ex, Inputs, Sys, Wit = jex, JaxInputs, JaxSystem, JaxWitness
@@ -160,7 +175,31 @@ def _tiny(pkg: str, config_name: str, device=None):
     trace = np.stack([a, b, np.asarray((a.astype(object) * b.astype(object)) % p, np.uint64)], axis=1)
     if pkg != "jax":
         (trace,), _ = mt.witness_from_numpy([trace], [], device)
-    return config, system, key, Wit.from_stage_1([trace], system, key)
+    return config, system, key, lambda: Wit.from_stage_1([trace], system, key)
+
+
+def _port_job(path: str):
+    """One job of the port on `path`'s prove (the witness, the prove,
+    `to_bytes`), as a function that returns the proof bytes."""
+    config_name = path.split()[0]
+    _, system, key, witness = _tiny("torch", config_name, "cpu")
+    prove = prove_host_transcript if path.endswith("host transcript") else prove_multiple_claims
+    return lambda: prove(system, key, witness(), []).to_bytes()
+
+
+def _ancestors(lines, i):
+    """The names of the spans open around [texray] line i (lines in closing
+    order: a span's children close right before it, one level deeper)."""
+    out, depth = [], lines[i][0]
+    for d, name in lines[i + 1:]:
+        if d < depth:
+            out.append(name)
+            depth = d
+    return out
+
+
+def _is_leaf(lines, i):
+    return i == 0 or lines[i - 1][0] <= lines[i][0]
 
 
 @pytest.fixture(scope="module")
@@ -170,26 +209,74 @@ def jax_spans():
     out = {}
     for name in PROVES:
         config, system, key, witness = _tiny("jax", name)
+        witness = witness()
         proof, lines = _run(jprof, lambda: system.prove(key, witness), "stark/")
         out[name] = (list(jprof._COUNTS.items()), lines, proof.to_bytes(config))
     jprof.reset_spans()
     return out
 
 
-@pytest.mark.parametrize("path", ["goldilocks_blake3 device transcript", "goldilocks_blake3 host transcript",
-                                  "babybear_poseidon2"])
+@pytest.mark.parametrize("path", list(PORT_SPANS))
 def test_prove_records_the_jax_stage_spans(jax_spans, path):
+    """A job's spans: filtered to the JAX package's ten, its counts, closing
+    order and [texray] lines; the rest the port's own at the path's counts,
+    each a leaf or outside stark/prove."""
     config_name = path.split()[0]
-    config, system, key, witness = _tiny("torch", config_name, "cpu")
-    host = path.endswith("host transcript")
-    assert dt_prover.eligible(config) == (config_name == "goldilocks_blake3")
+    assert dt_prover.eligible(_tiny("torch", config_name, "cpu")[0]) == (config_name == "goldilocks_blake3")
     dt.FALLBACKS.clear()
-    prove = prove_host_transcript if host else prove_multiple_claims
-    proof, lines = _run(tprof, lambda: prove(system, key, witness, []), "stark/")
+    data, lines = _run(tprof, _port_job(path), "stark/")
     assert not dt.FALLBACKS, dict(dt.FALLBACKS)
     counts, jlines, jbytes = jax_spans[config_name]
-    assert list(tprof.span_counts().items()) == counts == [(s, 1) for s in STAGES]
-    assert lines == jlines
-    assert list(tprof.span_memory()) == STAGES
+    got = tprof.span_counts()
+    assert [(s, n) for s, n in got.items() if s in STAGES] == counts == [(s, 1) for s in STAGES]
+    assert {s: n for s, n in got.items() if s not in STAGES} == PORT_SPANS[path]
+    assert [line for line in lines if line[1] in STAGES] == jlines
+    assert sorted(name for _, name in lines if name not in STAGES) == sorted(
+        s for s, n in PORT_SPANS[path].items() for _ in range(n))
+    for i, (_, name) in enumerate(lines):
+        if name not in STAGES:
+            assert _is_leaf(lines, i) or "stark/prove" not in _ancestors(lines, i), (name, _ancestors(lines, i))
+    assert [s for s in tprof.span_memory() if s in STAGES] == STAGES
+    assert set(tprof.span_memory()) == set(STAGES) | set(PORT_SPANS[path])
     assert tprof._STACK == []
-    assert proof.to_bytes() == jbytes
+    assert data == jbytes
+
+
+@pytest.mark.parametrize("path", list(PORT_SPANS))
+def test_default_spans_read_no_memory(path, monkeypatch):
+    """With MULTISTARK_TEXRAY unset, neither a span nor a whole job reads
+    /proc or calls getrusage; under a prefix that matches nothing, a span
+    reads its memory and prints nothing."""
+    calls = []
+    pread, getrusage = os.pread, resource.getrusage
+    monkeypatch.setattr(os, "pread", lambda *a: calls.append("pread") or pread(*a))
+    monkeypatch.setattr(resource, "getrusage", lambda *a: calls.append("getrusage") or getrusage(*a))
+    job = _port_job(path)
+
+    def spans():
+        with tprof.span("stark/one"):
+            pass
+        return job()
+
+    _, lines = _run(tprof, spans, None)
+    assert calls == [] and lines == []
+    assert tprof.span_counts()["stark/prove"] == tprof.span_counts()["stark/one"] == 1
+    assert tprof.span_memory() == {}
+    _, lines = _run(tprof, spans, QUIET)
+    assert "pread" in calls and lines == []
+    assert set(tprof.span_memory()) == set(tprof.span_counts())
+    tprof.reset_spans()
+
+
+@pytest.mark.parametrize("path", ["goldilocks_blake3 device transcript", "goldilocks_blake3 host transcript"])
+def test_witness_and_to_bytes_once_a_job_outside_the_prove(path):
+    """Two jobs: `stark/witness` and `stark/to_bytes` close once a job, at
+    the top level, the witness before the job's `stark/prove` and
+    `to_bytes` after it."""
+    job = _port_job(path)
+    _, lines = _run(tprof, lambda: (job(), job()), "stark/")
+    top = [name for depth, name in lines if depth == 0]
+    assert top == ["stark/witness", "stark/prove", "stark/to_bytes"] * 2
+    counts = tprof.span_counts()
+    assert counts["stark/witness"] == counts["stark/to_bytes"] == counts["stark/prove"] == 2
+    tprof.reset_spans()
