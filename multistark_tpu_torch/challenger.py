@@ -8,7 +8,10 @@ Equivalent of p3-challenger (reference src/types.rs:10-13, 28-81):
     the input buffer; flush hashes the drained input, the output is also fed
     back as chaining input; sample pops from the end of the output buffer).
   - ``SerializingChallenger64``: field adapter over the byte challenger —
-    u64 little-endian observation, rejection-sampled canonical field draws.
+    u64 little-endian observation, rejection-sampled canonical field draws;
+    a homogeneous batch of claims enters the byte buffer as a claims
+    segment (its array), which the host C helper hashes 16 chunks at a time
+    with no byte image (``CLAIMS_ABSORBED`` counts the path taken).
   - ``DuplexChallenger``: field-native sponge challenger for the Poseidon2
     config (p3 DuplexChallenger<F, Perm, 16, 8>), its permutation, bulk
     absorb and grind in the host C helper (csrc/host/poseidon2.c).
@@ -20,14 +23,23 @@ Equivalent of p3-challenger (reference src/types.rs:10-13, 28-81):
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from .fields.host import HostExtField, HostField
-from .hash.blake3_host import blake3_hash
+from .hash.blake3_host import ClaimsSegment, parts_bytes, parts_hash
 from .hash.poseidon2_host import CONSTANTS_U32, u32_ptr as _u32p
 from .native import lib as native_lib
+
+# Claims absorbed by the BLAKE3 transcripts' observe_claims, by (side, path):
+# side "challenger" (SerializingChallenger64: the host-transcript prove, the
+# device-transcript prove's replay, the verifier) or "duplex" (the device
+# duplex, dt_prover); path "array" (a claims segment, hashed from the array)
+# or "bytes" (few or ragged claims, observed value by value).  native.lanes()
+# names the lane clone that hashes the segments.
+CLAIMS_ABSORBED: Counter = Counter()
 
 
 def _claims_array(claims) -> np.ndarray:
@@ -39,18 +51,26 @@ def _claims_array(claims) -> np.ndarray:
         return np.asarray([[int(v) % (1 << 64) for v in c] for c in claims], np.uint64)
 
 
-def _canonical_claims_array(claims, p: int):
-    """(n, L) canonical-uint64 claims array, or None if `claims` is not a
-    homogeneous batch worth vectorizing.  Never iterates ndarray rows in
-    Python (that alone costs seconds at 2^20 rows)."""
+def _claims_rows(claims):
+    """Homogeneous claims as a C-contiguous (n, L) uint64 array (an ndarray
+    that already is one, itself), or None if `claims` is not a homogeneous
+    batch worth vectorizing.  Never iterates ndarray rows in Python (that
+    alone costs seconds at 2^20 rows)."""
     if isinstance(claims, np.ndarray):
         if claims.ndim != 2 or claims.shape[0] == 0:
             return None
-        arr = claims.astype(np.uint64, copy=False)
-    else:
-        if len(claims) < 32 or len({len(c) for c in claims}) != 1:
-            return None
-        arr = _claims_array(claims)
+        return np.ascontiguousarray(claims, np.uint64)
+    if len(claims) < 32 or len({len(c) for c in claims}) != 1:
+        return None
+    return _claims_array(claims)
+
+
+def _canonical_claims_array(claims, p: int):
+    """`_claims_rows` with every value reduced mod p (a new array only if
+    one is not canonical)."""
+    arr = _claims_rows(claims)
+    if arr is None:
+        return None
     pp = np.uint64(p)
     if (arr >= pp).any():
         arr = arr % pp
@@ -74,31 +94,55 @@ def observe_claims(ch, claims) -> None:
 
 
 class ByteHashChallenger:
+    """The input buffer is held as parts in observation order: bytearrays
+    and claims segments (blake3_host.ClaimsSegment).  A flush hashes the
+    parts as they are; `input_buffer` joins them into one bytearray for a
+    reader that needs the bytes (a grind's prefix, the FRI entry words)."""
+
     OUT_LEN = 32
 
     def __init__(self):
-        self.input_buffer = bytearray()
+        self._parts: list = []
         self.output_buffer: List[int] = []
+
+    @property
+    def input_buffer(self) -> bytearray:
+        if len(self._parts) != 1 or not isinstance(self._parts[0], bytearray):
+            self._parts = [parts_bytes(self._parts)]
+        return self._parts[0]
+
+    @input_buffer.setter
+    def input_buffer(self, data) -> None:
+        self._parts = [bytearray(data)]
 
     def clone(self) -> "ByteHashChallenger":
         c = ByteHashChallenger()
-        c.input_buffer = bytearray(self.input_buffer)
+        c._parts = [bytearray(part) if isinstance(part, bytearray) else part for part in self._parts]
         c.output_buffer = list(self.output_buffer)
         return c
 
+    def _tail(self) -> bytearray:
+        if not self._parts or not isinstance(self._parts[-1], bytearray):
+            self._parts.append(bytearray())
+        return self._parts[-1]
+
     def observe(self, byte: int) -> None:
         self.output_buffer.clear()
-        self.input_buffer.append(byte & 0xFF)
+        self._tail().append(byte & 0xFF)
 
     def observe_slice(self, data: bytes) -> None:
         self.output_buffer.clear()
-        self.input_buffer.extend(data)
+        self._tail().extend(data)
+
+    def observe_claims(self, segment: ClaimsSegment) -> None:
+        """A claims segment, whose bytes are hashed from its array."""
+        self.output_buffer.clear()
+        self._parts.append(segment)
 
     def _flush(self) -> None:
-        out = blake3_hash(bytes(self.input_buffer))
-        self.input_buffer.clear()
+        out = parts_hash(self._parts)
         self.output_buffer = list(out)
-        self.input_buffer.extend(out)  # chaining values
+        self._parts = [bytearray(out)]  # chaining values
 
     def sample(self) -> int:
         if not self.output_buffer:
@@ -141,18 +185,21 @@ class SerializingChallenger64:
 
     def observe_claims(self, claims) -> None:
         """Length-prefixed claims, byte-identical to the per-element loop
-        (observe_u64(len) then each value as canonical u64-LE) but built as
-        ONE NumPy serialization for homogeneous claim lists — the bench
-        workload has one claim per trace row (benches/multi_stark.rs:220-238),
-        so this is O(rows) Python-call-free."""
+        (observe_u64(len) then each value as canonical u64-LE).  A
+        homogeneous batch (the bench workload has one claim per trace row,
+        benches/multi_stark.rs:220-238) enters the buffer as a claims
+        segment over its array, which the flush hashes with no byte image,
+        no copy and no Python call per claim, reducing the values mod p as
+        it reads them.  The array is read when the buffer is hashed or
+        read, at the latest at the next sample, and is read-only until then
+        (blake3_host.ClaimsSegment)."""
         self.observe_u64(len(claims))
-        arr = _canonical_claims_array(claims, self.F.p)
+        arr = _claims_rows(claims)
         if arr is not None:
-            buf = np.empty((arr.shape[0], arr.shape[1] + 1), dtype="<u8")
-            buf[:, 0] = arr.shape[1]
-            buf[:, 1:] = arr
-            self.inner.observe_slice(buf.tobytes())
+            CLAIMS_ABSORBED["challenger", "array"] += arr.shape[0]
+            self.inner.observe_claims(ClaimsSegment(arr, self.F.p))
             return
+        CLAIMS_ABSORBED["challenger", "bytes"] += len(claims)
         for claim in claims:
             self.observe_u64(len(claim))
             for v in claim:

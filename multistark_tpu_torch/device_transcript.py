@@ -42,7 +42,8 @@ import torch
 
 from . import kernels
 from .hash.blake3 import _compress_plain, _hash_words_plain, _to_i32
-from .hash.blake3_host import BLOCK_LEN, CHUNK_END, CHUNK_LEN, CHUNK_START, IV, PARENT, ROOT, blake3_hash
+from .hash.blake3_host import (BLOCK_LEN, CHUNK_END, CHUNK_LEN, CHUNK_START, IV, PARENT, ROOT, ClaimsSegment,
+                               part_nbytes, parts_bytes, parts_chunk_cvs, parts_hash)
 from .native import lib as native_lib
 from .utils import scratch, to_device
 
@@ -276,14 +277,6 @@ def dt_flush(chunks: torch.Tensor, plan: torch.Tensor, sibs: torch.Tensor, n_ops
     return digest, draws
 
 
-def _host_chunk_cvs(buf: bytes) -> np.ndarray:
-    """Non-root chaining values of every chunk of `buf`, (n_chunks, 8)."""
-    n_chunks = max(1, -(-len(buf) // CHUNK_LEN))
-    out = np.empty((n_chunks, 8), np.uint32)
-    native_lib().msb3_chunk_cvs(bytes(buf), len(buf), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
-    return out
-
-
 def _host_parent_level(cvs: np.ndarray) -> np.ndarray:
     out = np.empty(((cvs.shape[0] + 1) // 2, 8), np.uint32)
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -297,10 +290,12 @@ def _host_parent_level(cvs: np.ndarray) -> np.ndarray:
 class DeviceDuplex:
     """Device mirror of the BLAKE3 byte duplex for the whole prove schedule.
 
-    Observation only records segments: host bytes verbatim, device values as
-    flat int32 word tensors.  A flush lays the buffer out (the chain, then
-    the segments), lets the host C helper hash every chunk and parent level
-    of the host bytes (device positions zero), uploads the chunks that hold
+    Observation only records segments: host bytes verbatim, a homogeneous
+    batch of claims as its array (a claims segment), device values as flat
+    int32 word tensors.  A flush lays the buffer out (the chain, then the
+    segments), lets the host C helper hash every chunk and parent level of
+    the host parts straight from them (device positions zero; the claims
+    from their array, 16 chunks at a time), uploads the chunks that hold
     device bytes with the sibling chaining values their root path needs and
     the plan, splices the device bytes into those chunks by tensor slicing,
     and runs K7: O(1) device compressions whatever the buffer's size (the
@@ -310,7 +305,7 @@ class DeviceDuplex:
     def __init__(self, device):
         self.device = torch.device(device)
         self.chain: Optional[torch.Tensor] = None  # (8,) int32 digest words, None before the first flush
-        self.segments: list = []  # ("h", bytearray) | ("d", flat int32 tensor)
+        self.segments: list = []  # ("h", bytearray) | ("c", ClaimsSegment) | ("d", flat int32 tensor)
         self.valids: List[torch.Tensor] = []  # one 0/1 int64 flag per consumed draw
         self._draws_left = 0
         self._draws: Optional[torch.Tensor] = None  # (8,) int64: draws 0-3, then their flags
@@ -325,6 +320,14 @@ class DeviceDuplex:
 
     def observe_u64(self, v: int) -> None:
         self.observe_bytes(int(v).to_bytes(8, "little"))
+
+    def observe_claims_array(self, arr: np.ndarray, p: int) -> None:
+        """Canonical (n, L) uint64 claims as a claims segment (u64(L), then
+        the values, per row): hashed from `arr` at the next flush, which the
+        prove schedule makes right after (β); `arr` is read-only until then
+        (blake3_host.ClaimsSegment)."""
+        self._draws_left = 0
+        self.segments.append(("c", ClaimsSegment(np.ascontiguousarray(arr, np.uint64), p)))
 
     def observe_words_device(self, words: torch.Tensor) -> None:
         """Device u32 words (int32), observed as their little-endian bytes."""
@@ -344,32 +347,30 @@ class DeviceDuplex:
 
     # -- flush -------------------------------------------------------------
     def _layout(self):
-        """(total bytes, host byte image with zeros at device positions,
-        device runs [(byte offset, words)])."""
-        parts = ([("d", self.chain)] if self.chain is not None else []) + self.segments
-        total = sum(len(d) if kind == "h" else 4 * d.shape[0] for kind, d in parts)
-        buf = bytearray(total)
-        runs, off = [], 0
-        for kind, data in parts:
-            if kind == "h":
-                buf[off : off + len(data)] = data
-                off += len(data)
-            else:
+        """(total bytes, the host parts in order (blake3_host.parts_hash's
+        kinds: host bytes, a claims segment, the number of zero bytes at a
+        device run), device runs [(byte offset, words)])."""
+        segments = ([("d", self.chain)] if self.chain is not None else []) + self.segments
+        parts, runs, off = [], [], 0
+        for kind, data in segments:
+            if kind == "d":
                 runs.append((off, data))
-                off += 4 * data.shape[0]
-        return total, buf, runs
+                data = 4 * data.shape[0]
+            parts.append(data)
+            off += part_nbytes(data)
+        return off, parts, runs
 
     def flush_inputs(self) -> Optional[FlushInputs]:
         """K7's operands for the buffer as it stands, the device bytes
         spliced in; None when every byte is a host byte."""
-        total, buf, runs = self._layout()
+        total, parts, runs = self._layout()
         if not runs:
             return None
         n_chunks = max(1, -(-total // CHUNK_LEN))
         dev_chunks = sorted({
             c for off, w in runs for c in range(off // CHUNK_LEN, (off + 4 * w.shape[0] - 1) // CHUNK_LEN + 1)
         })
-        levels = [_host_chunk_cvs(buf)]
+        levels = [parts_chunk_cvs(parts)]
         while levels[-1].shape[0] > 1:
             levels.append(_host_parent_level(levels[-1]))
         # the root path: parent ops over device nodes and host siblings
@@ -408,8 +409,8 @@ class DeviceDuplex:
             plan += [sid(left), sid(right), flags]
         templates = np.zeros((T, CHUNK_LEN), np.uint8)
         for t, c in enumerate(dev_chunks):
-            piece = buf[c * CHUNK_LEN : (c + 1) * CHUNK_LEN]
-            templates[t, : len(piece)] = np.frombuffer(bytes(piece), np.uint8)
+            piece = parts_bytes(parts, c * CHUNK_LEN, min(total, (c + 1) * CHUNK_LEN))
+            templates[t, : len(piece)] = np.frombuffer(piece, np.uint8)
         sib_arr = np.asarray(sibs, np.uint32).reshape(S, 8)
         host = np.concatenate([templates.view(np.int32).reshape(-1), sib_arr.view(np.int32).reshape(-1),
                                np.asarray(plan, np.int64).astype(np.int32)])
@@ -435,8 +436,8 @@ class DeviceDuplex:
         if inputs is None:
             # every byte is a host byte (a transcript that has observed no
             # device value yet): hash on the host
-            _, buf, _ = self._layout()
-            d = np.frombuffer(blake3_hash(bytes(buf)), dtype="<u4").astype(np.int64)
+            _, parts, _ = self._layout()
+            d = np.frombuffer(parts_hash(parts), dtype="<u4").astype(np.int64)
             digest = torch.from_numpy(d)
             draws = digest_draws(digest)
             host = torch.stack([lo | (hi << 32) for lo, hi in draws] + [draw_lt_p(lo, hi).to(torch.int64)
@@ -474,8 +475,9 @@ class DeviceDuplex:
         for kind, data in self.segments:
             if kind == "d":
                 parts.append(data)
-            elif len(data) % 4:
+                continue
+            data = parts_bytes([data])
+            if len(data) % 4:
                 return None
-            else:
-                parts.append(to_device(np.frombuffer(bytes(data), dtype="<u4").view(np.int32), self.device))
+            parts.append(to_device(np.frombuffer(data, dtype="<u4").view(np.int32), self.device))
         return torch.cat(parts)

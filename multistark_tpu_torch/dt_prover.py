@@ -44,7 +44,8 @@ import torch
 from . import device_transcript as dt
 from . import lookup as lk
 from . import prover
-from .challenger import SerializingChallenger64, _canonical_claims_array, observe_claims as _observe_claims_host
+from .challenger import CLAIMS_ABSORBED, SerializingChallenger64, _canonical_claims_array
+from .challenger import observe_claims as _observe_claims_host
 from .merkle import Blake3FieldHasher
 from .pcs import FriProof
 from .profiling import span
@@ -74,13 +75,15 @@ def _cap_bytes(cap: np.ndarray) -> bytes:
 
 def _observe_claims_dd(dd: dt.DeviceDuplex, claims, p: int) -> Optional[np.ndarray]:
     """DeviceDuplex mirror of SerializingChallenger64.observe_claims; returns
-    the canonical (n, L) array (None for no claims)."""
+    the canonical (n, L) array (None for no claims), which a homogeneous
+    batch also leaves in the duplex as its claims segment."""
     dd.observe_u64(len(claims))
     if len(claims) == 0:
         return None
     arr = _canonical_claims_array(claims, p)
     if arr is None:
         # few or ragged claims: observe one by one, rectangularize if possible
+        CLAIMS_ABSORBED["duplex", "bytes"] += len(claims)
         for claim in claims:
             dd.observe_u64(len(claim))
             for v in claim:
@@ -89,10 +92,8 @@ def _observe_claims_dd(dd: dt.DeviceDuplex, claims, p: int) -> Optional[np.ndarr
         if arr is None:
             raise dt.Fallback("ragged claims")
         return arr
-    buf = np.empty((arr.shape[0], arr.shape[1] + 1), dtype="<u8")
-    buf[:, 0] = arr.shape[1]
-    buf[:, 1:] = arr
-    dd.observe_bytes(buf.tobytes())
+    CLAIMS_ABSORBED["duplex", "array"] += arr.shape[0]
+    dd.observe_claims_array(arr, p)
     return arr
 
 

@@ -7,11 +7,14 @@ and the claims accumulator use it; the tensor half (row hashing and Merkle
 compression, kernel K3) is multistark_tpu_torch.hash.blake3.  The BLAKE3
 circuit family's witness (test_circuits/blake3_circuit.py) takes the
 compression function from here: `compress` for one, `compress_batch` for
-many independent ones in NumPy.
+many independent ones in NumPy.  A transcript buffer that holds a claims
+array is hashed from its parts (`parts_hash`, `parts_chunk_cvs`), with no
+byte image of the claims.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import List, Sequence
 
 import numpy as np
@@ -112,11 +115,127 @@ def _left_len(n_chunks: int) -> int:
     return p
 
 
+_NO_MEMORY = "no memory for the chunk chaining values"
+
+
 def blake3_hash(data: bytes) -> bytes:
     """Full BLAKE3 hash, 32-byte output, through the native C helper."""
     out = (ctypes.c_uint8 * 32)()
-    _native_lib().msb3_hash(data, len(data), out)
+    if _native_lib().msb3_hash(data, len(data), out):
+        raise MemoryError(_NO_MEMORY)
     return bytes(out)
+
+
+_LOCKED: dict = {}  # id(array) -> the live claims segments that hold it read-only
+
+
+def _unlock(arr: np.ndarray) -> None:
+    _LOCKED[id(arr)] -= 1
+    if not _LOCKED[id(arr)]:
+        del _LOCKED[id(arr)]
+        arr.flags.writeable = True
+
+
+class ClaimsSegment:
+    """A homogeneous batch of claims inside a transcript buffer: the (n, L)
+    uint64 array `arr`, observed row by row as u64(L) then the L values mod
+    p, all little-endian (SerializingChallenger64.observe_claims).  The
+    host C helper reads it straight from the array; its bytes are made only
+    where a reader asks for them (`parts_bytes`).
+
+    The array is not copied, so it is read-only while a segment holds it: a
+    write to the claims before the buffer is hashed would change the
+    transcript, and raises instead.  It is writeable again once the last
+    segment over it is dropped (by the flush that hashes it, or a reader
+    that takes the buffer's bytes)."""
+
+    __slots__ = ("arr", "p", "__weakref__")
+
+    def __init__(self, arr: np.ndarray, p: int):
+        self.arr, self.p = arr, p
+        if arr.flags.writeable or id(arr) in _LOCKED:
+            arr.flags.writeable = False
+            _LOCKED[id(arr)] = _LOCKED.get(id(arr), 0) + 1
+            weakref.finalize(self, _unlock, arr)
+
+    @property
+    def nbytes(self) -> int:
+        n, L = self.arr.shape
+        return 8 * n * (L + 1)
+
+
+def part_nbytes(part) -> int:
+    """The bytes a part of a transcript buffer stands for (see `parts_hash`)."""
+    if isinstance(part, ClaimsSegment):
+        return part.nbytes
+    return part if isinstance(part, int) else len(part)
+
+
+def _part_table(parts):
+    """The table msb3_parts takes, four u64 a part (kind, address, a, b),
+    with its number of parts, the buffers its addresses point into (alive
+    until the call returns), and the claims segments' p."""
+    words, keep, p = [], [], 0
+    for part in parts:
+        if isinstance(part, ClaimsSegment):
+            arr = part.arr
+            if arr.dtype != np.uint64 or arr.ndim != 2 or not arr.flags.c_contiguous:
+                raise TypeError("a claims segment holds a C-contiguous (n, L) uint64 array")
+            if p and p != part.p:
+                raise ValueError("the claims segments of one buffer share p")
+            words += (2, arr.ctypes.data, arr.shape[0], arr.shape[1])
+            keep.append(arr)
+            p = part.p
+        elif isinstance(part, int):
+            words += (1, 0, part, 0)
+        elif len(part):
+            if isinstance(part, bytearray):
+                view = (ctypes.c_char * len(part)).from_buffer(part)
+                address = ctypes.addressof(view)
+            else:
+                view = ctypes.c_char_p(bytes(part))
+                address = ctypes.cast(view, ctypes.c_void_p).value
+            words += (0, address, len(part), 0)
+            keep.append(view)
+    return (ctypes.c_uint64 * max(1, len(words)))(*words), len(words) // 4, keep, p
+
+
+def parts_hash(parts) -> bytes:
+    """BLAKE3 of the concatenated parts: each is host bytes, a
+    ClaimsSegment, or an int for that many zero bytes.  No byte image of
+    the whole is made; chunks go through the helper 16 at a time."""
+    table, k, keep, p = _part_table(parts)
+    out = (ctypes.c_uint8 * 32)()
+    if _native_lib().msb3_parts(table, k, p, None, out):
+        raise MemoryError(_NO_MEMORY)
+    del keep
+    return bytes(out)
+
+
+def parts_chunk_cvs(parts) -> np.ndarray:
+    """The non-root chaining value of every 1024-byte chunk of the
+    concatenated parts (`parts_hash`'s kinds), (n_chunks, 8) uint32: what
+    msb3_chunk_cvs gives for their bytes."""
+    table, k, keep, p = _part_table(parts)
+    total = sum(part_nbytes(part) for part in parts)
+    out = np.empty((max(1, -(-total // CHUNK_LEN)), 8), np.uint32)
+    _native_lib().msb3_parts(table, k, p, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), None)
+    del keep
+    return out
+
+
+def parts_bytes(parts, start: int = 0, stop: int = None) -> bytearray:
+    """Bytes [start, stop) of the concatenated parts (`parts_hash`'s kinds;
+    stop defaults to, and stops at, their end)."""
+    total = sum(part_nbytes(part) for part in parts)
+    stop = total if stop is None else min(stop, total)
+    out = bytearray(max(0, stop - start))
+    if out:
+        table, k, keep, p = _part_table(parts)
+        view = (ctypes.c_char * len(out)).from_buffer(out)
+        _native_lib().msb3_parts_bytes(table, k, p, start, len(out), ctypes.addressof(view))
+        del view, keep
+    return out
 
 
 def native_hash_words(words: np.ndarray):
@@ -127,10 +246,8 @@ def native_hash_words(words: np.ndarray):
     B, W = words.shape
     out = np.empty((B, 8), np.uint32)
     u32p = ctypes.POINTER(ctypes.c_uint32)
-    lib.msb3_hash_batch(
-        words.ctypes.data_as(ctypes.c_char_p), W * 4, W * 4, B,
-        out.ctypes.data_as(u32p),
-    )
+    if lib.msb3_hash_batch(words.ctypes.data_as(ctypes.c_char_p), W * 4, W * 4, B, out.ctypes.data_as(u32p)):
+        raise MemoryError(_NO_MEMORY)
     return out
 
 

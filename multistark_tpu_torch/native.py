@@ -1,11 +1,14 @@
-"""The port's host C helper: csrc/host/*.c (BLAKE3 with its grind, the
+"""The port's host C helper: csrc/host/*.c (BLAKE3 with its grind, a
+transcript buffer hashed from its parts (host bytes and claims arrays), the
 chunk chaining values of a device-duplex flush and the verifier's batched
 row hashes and pair compressions; the Poseidon2 permutation with the duplex
 absorb and grind and the verifier's batched row hashes and compressions),
 built with `cc` into
 build/torch_kernels/libmshost.so at first use and again whenever a source
 is newer than the library, under an exclusive flock on that directory
-(`build_lock`, which kernels.py takes too).
+(`build_lock`, which kernels.py takes too).  The build names no CPU
+(`-march=native` would tie the cached library to the CPU that built it):
+the BLAKE3 lane code is cloned per ISA and picked at load (`lanes`).
 
 The Fiat-Shamir transcripts and the verifier of both configs run on the
 host; at 2^18 claims they are not worth running in pure Python, so a failed
@@ -30,16 +33,21 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libmshost.so")
 
 _u32p = ctypes.POINTER(ctypes.c_uint32)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 _u64, _u32 = ctypes.c_uint64, ctypes.c_uint32
 
 # C entry point -> (argument types, return type)
 _SIGNATURES = {
-    "msb3_hash": ([ctypes.c_char_p, _u64, ctypes.POINTER(ctypes.c_uint8)], None),
+    "msb3_hash": ([ctypes.c_char_p, _u64, ctypes.POINTER(ctypes.c_uint8)], ctypes.c_int),
     "msb3_grind": ([ctypes.c_char_p, _u64, _u64, _u64, _u32, _u64], _u64),
-    "msb3_hash_batch": ([ctypes.c_char_p, _u64, _u64, _u64, _u32p], None),
+    "msb3_hash_batch": ([ctypes.c_char_p, _u64, _u64, _u64, _u32p], ctypes.c_int),
     "msb3_compress_pairs": ([_u32p, _u32p, _u64, _u32p], None),
     "msb3_chunk_cvs": ([ctypes.c_char_p, _u64, _u32p], None),
     "msb3_parent_level": ([_u32p, _u64, _u32p], None),
+    "msb3_parts": ([_u64p, _u64, _u64, _u32p, _u8p], ctypes.c_int),
+    "msb3_parts_bytes": ([_u64p, _u64, _u64, _u64, _u64, ctypes.c_void_p], None),
+    "msb3_lanes": ([], ctypes.c_char_p),
     "msp2_permute": ([_u32p, _u32p], None),
     "msp2_absorb": ([_u32p, _u32p, _u32p, _u32p, _u64, _u32p], ctypes.c_int),
     "msp2_grind": ([_u32p, _u32p, _u32, _u32, _u64, _u32p], _u64),
@@ -97,3 +105,9 @@ def lib() -> ctypes.CDLL:
         with build_lock(BUILD_DIR):
             _LIB = load(path)
     return _LIB
+
+
+def lanes() -> str:
+    """The clone of the BLAKE3 lane code this CPU runs: "avx512f", "avx2"
+    or "default" (the baseline ISA; always on a CPU other than x86-64)."""
+    return lib().msb3_lanes().decode()

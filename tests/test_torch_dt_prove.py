@@ -18,6 +18,7 @@ from multistark_tpu.system import CircuitInputs as JaxInputs, System as JaxSyste
 from multistark_tpu.test_circuits import u32_add_system_inputs as jax_u32_inputs, u32_add_witness
 from multistark_tpu.verifier import verify_multiple_claims as jax_verify
 from multistark_tpu_torch import device_transcript as dt, dt_prover
+from multistark_tpu_torch.challenger import CLAIMS_ABSORBED
 from multistark_tpu_torch import expr as tex
 from multistark_tpu_torch.config import CommitmentParameters, FriParameters
 from multistark_tpu_torch.configs import BabyBearPoseidon2Config, GoldilocksBlake3Config
@@ -201,7 +202,8 @@ def test_lookup_system_bytes_match_jax_and_verify(case):
     through witness_from_numpy: the port's two transcripts give the JAX
     package's bytes, the proof marks the empty circuit inactive, and the JAX
     verifier accepts it.  Ragged claims take the host transcript (one
-    counted fallback of the device transcript)."""
+    counted fallback of the device transcript), and both transcripts observe
+    them value by value; the rectangular claims go in as an array."""
     ragged = case == "ragged claims"
     traces, claims = _lookup_witness((3, 5, 2, 3), (11, 1 << 40) if ragged else ())
     fri = dict(SMALL_FRI, max_log_arity=1, num_queries=6)
@@ -215,8 +217,11 @@ def test_lookup_system_bytes_match_jax_and_verify(case):
     assert isinstance(tclaims, list) == ragged
     witness = SystemWitness.from_stage_1(ttraces, tsys, tkey)
     dt.FALLBACKS.clear()
+    CLAIMS_ABSORBED.clear()
     proof = prove_multiple_claims(tsys, tkey, witness, tclaims)
     assert dict(dt.FALLBACKS) == ({"ragged claims": 1} if ragged else {})
+    path = "bytes" if ragged else "array"
+    assert dict(CLAIMS_ABSORBED) == {("duplex", path): len(claims), ("challenger", path): len(claims)}
     assert proof.active == [True, True, False] + ([True] if ragged else [])
     assert proof.to_bytes() == want
     assert prove_host_transcript(tsys, tkey, witness, tclaims).to_bytes() == want
